@@ -12,8 +12,12 @@ caught):
    (sm_90a) and print the build seconds;
 3. each kernel against its plain PyTorch twin at the serving path's
    shapes (bf16 activations, M = 1, 2 — the CFG pair — and 63 — the
-   prefill bucket), with the median CUDA-event time of each (L2 flushed
-   before every launch, as the decode loop finds it);
+   prefill bucket; the flash attention kernel at (B, H, hd) = (2, 24, 64)
+   and the codec windows' T = 186, 374 and 750, plus T = 130 and B = 1
+   for the tails), with the median CUDA-event time of each (L2 flushed
+   before every launch, as the decode loop finds it), the bound on the
+   card and, where one PyTorch call computes the same function, that
+   call's time;
 4. the full `UnifiedModelConfig()` (28x3072 backbone, 3 + 2 expert layers,
    4x2048 local decoder) with random bf16 weights from a seeded generator,
    int4 everywhere (int8 lm_head), as `bench.py` serves it:
@@ -25,10 +29,29 @@ caught):
    once through the twins (on the CPU): text and codebook-0 logits and the
    frame's backbone K rows compared; then three planted faults (nibble
    order swapped in every or in one attn_proj, RoPE sign flipped in the
-   QKV kernel) that the same comparison must reject.
+   QKV kernel) that the same comparison must reject;
+6. the codec at full `CodecConfig()` width (DiT 32 x 24 x 64, ScalarAE
+   `default_24k`) with random bf16 weights from a seeded generator:
+   (a) one DiT estimator evaluation at B = 2, T = 374 through the flash
+   kernel and through its twin, both on the card, and two planted faults
+   (hd^-0.5 applied twice; the key mask dropped, so the zero-padded keys
+   of the last tile enter the softmax) that the comparison must reject;
+   (b) `CodecDecoder.decode` (10 steps, guidance 1.5) of 125 and 500 rec
+   frames (one 15 s window, two 30 s windows): seconds, RTF, length,
+   finite samples, flash launches = windows x steps x layers;
+   (c) `StreamingCodecDecoder` fed the 500 frames in pieces, against (b);
+   (d) TTS end to end as scripts/bench_tts_e2e.py times it on the TPU:
+   int4all `generate_audio` for 175 frames, then the codec decode of 125
+   semantic frames; RTF = (stage 1 + stage 2) / 10 s.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+
+    python3 chip_smoke.py --profile-codec
+
+runs phases 1-2, then one 30 s window's codec solve and ScalarAE decode
+under torch.profiler, and prints the device time by kernel class (flash
+attention, GEMMs, convolutions, the rest) and the top kernels.
 """
 
 from __future__ import annotations
@@ -40,12 +63,15 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 # Kernel vs twin, one call: |diff| <= RTOL * max|twin|. The kernels follow
 # the Pallas rounding (f32 sum of unscaled int weights, scale after), the
 # twins the JAX fallback's (scale folded into bf16 weights, bf16 products);
-# a few 2^-9 roundings stacked stay under 2 % of the output range.
+# a few 2^-9 roundings stacked stay under 2 % of the output range. The flash
+# attention kernel rounds the unnormalised probabilities to bf16, its twin
+# the normalised ones: one 2^-9 rounding each, within the same bound.
 RTOL = 2e-2
 # Full model, kernels on the card vs twins on the CPU, prefill + first
 # frame: (max|diff| / max|ref|, min cosine) per compared output. The
@@ -56,7 +82,23 @@ RTOL = 2e-2
 # 0.989 (K rows). The bounds lie between, and each control must fail them.
 BOUNDS = {"text": (1e-1, 0.995), "codebook0": (1e-1, 0.995),
           "k_rows": (1e-1, 0.995)}
+# The codec DiT at B = 2, T = 374, flash kernel vs twin, both on the card:
+# (error, min cosine) of (1) the velocity of one estimator evaluation,
+# error = max|diff| / max|ref|, kernel run vs twin run; (2) the 32 layers'
+# attention outputs of the kernel run against the twin on the very q, k, v
+# each layer gave the kernel, error = ||diff|| / ||ref||. On the H100 the
+# sound run reads (1) 9.0e-3, cosine 0.999976 and (2) 1.0e-3, 0.999999;
+# hd^-0.5 applied twice (1) 1.8e-2, 0.99983 and (2) 0.107, 0.9943; the key
+# mask dropped (1) 1.1e-2, 0.99994 and (2) 2.5e-2, 0.99997. At random init
+# the attention barely moves the velocity (its gates are ~0.06), so (2) is
+# what holds a fault inside the kernel; each bound lies between the sound
+# reading and the faults it must reject. Readings in PERF.md.
+DIT_BOUNDS = {"velocity": (1.3e-2, 0.9999), "attention": (1e-2, 0.9999)}
 FRAMES = 128
+# Peaks of one H100 SXM (NVIDIA data sheet; dense bf16 tensor-core rate and
+# HBM3 bandwidth), for the bound columns.
+PEAK_BF16 = 989e12
+PEAK_BYTES = 3.35e12
 INT4ALL = ("backbone", "decoder", "understanding_expert", "generation_expert",
            "audio_head", "projection_w")
 
@@ -126,11 +168,50 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, flops):
+    """Least time on the card (ms) and what sets it: the bytes the call must
+    move at PEAK_BYTES or its operations at PEAK_BF16, the larger."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_BF16 * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def int4_tinygemm(torch, w):
+    """``w`` (row-interleaved int4, per-channel scale) repacked once for
+    ``torch._weight_int4pack_mm``: levels + 8 as uint4, the scale repeated
+    over groups of 256 rows, zero points 0; the same function."""
+    v = w.values.to(torch.int32) & 0xFF
+    lo, hi = v & 0xF, v >> 4
+    lo, hi = lo - 16 * (lo >= 8).int(), hi - 16 * (hi >= 8).int()
+    k2, n = v.shape[0], w.scale.shape[0]
+    q = torch.stack([lo, hi], 1).reshape(2 * k2, -1)[:, :n].T + 8   # (N, K)
+    packed = ((q[:, ::2] << 4) | q[:, 1::2]).to(torch.uint8).contiguous()
+    groups = 2 * k2 // 256
+    sz = torch.stack([w.scale.expand(groups, n), torch.zeros_like(
+        w.scale).expand(groups, n)], -1).to(torch.bfloat16).contiguous()
+    return torch._convert_weight_to_int4pack(packed, 8), sz
+
+
+def sdpa_backend(torch, q, k, v):
+    """The CUDA kernels one SDPA call launches (names the backend)."""
+    prof = torch.profiler
+    with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as p:
+        torch.nn.functional.scaled_dot_product_attention(q, k, v)
+        torch.cuda.synchronize()
+    names = {e.name for e in p.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    return ", ".join(sorted(n[:60] for n in names)) or "no kernel traced"
+
+
 def phase_kernels(torch, dev):
     """Each kernel against its twin at the serving path's shapes. Returns
-    {kernel: (max_abs_err, ms, plain_ms)} (times at the first, M = 1,
-    decode shape of each kernel)."""
-    from uniaudio2_tpu_torch.ops import fused_mlp, qkv_step, quant
+    {kernel: row} where the row holds the worst max_abs_err over every case
+    and, at the kernel's reference case, the kernel's and the twin's time,
+    the bound on the card and the library call's time (or None)."""
+    from uniaudio2_tpu_torch.ops import flash_attention, fused_mlp, qkv_step, quant
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     timer = Timer(torch, dev)
@@ -145,7 +226,10 @@ def phase_kernels(torch, dev):
 
     results = {}
 
-    def check(kernel, label, run, plain):
+    def check(kernel, label, run, plain, case=None, library=None, row=False):
+        """``case`` = (bytes, flops) of the call, for its bound; ``library``
+        is one PyTorch call of the same function; ``row`` marks the case
+        the kernel's row of the kernels line reports."""
         out, ref = run(), plain()
         torch.cuda.synchronize()
         outs = out if isinstance(out, tuple) else (out,)
@@ -157,17 +241,26 @@ def phase_kernels(torch, dev):
             if not bool(torch.isfinite(o.float()).all()):
                 fail(f"{kernel} {label}: non-finite output")
             e = (o.float() - r.float()).abs().max().item()
-            bound = RTOL * r.float().abs().max().item()
-            if e > bound:
-                fail(f"{kernel} {label}: max_abs_err {e:.4g} > {bound:.4g}")
+            tol = RTOL * r.float().abs().max().item()
+            if e > tol:
+                fail(f"{kernel} {label}: max_abs_err {e:.4g} > {tol:.4g}")
             err = max(err, e)
         ms, plain_ms = timer(run), timer(plain)
-        print(f"[3] {kernel:14s} {label:34s} max_abs_err {err:.3e} "
-              f"(tol {RTOL} x max|twin|) kernel {ms:.4f} ms twin {plain_ms:.4f} ms",
-              flush=True)
-        prev = results.get(kernel)
-        results[kernel] = (max(err, prev[0]) if prev else err,
-                           prev[1] if prev else ms, prev[2] if prev else plain_ms)
+        lib_ms = None if library is None else timer(library)
+        extra = "" if lib_ms is None else f" library {lib_ms:.4f} ms"
+        entry = results.setdefault(kernel, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if case is not None:
+            bound_ms, bound_by = bound(*case)
+            extra += f" bound {bound_ms:.4f} ms ({bound_by})"
+        if row:
+            entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms)
+            extra += " [row]"
+        print(f"[3] {kernel:15s} {label:34s} max_abs_err {err:.3e} "
+              f"(tol {RTOL} x max|twin|) kernel {ms:.4f} ms twin {plain_ms:.4f} ms"
+              f"{extra}", flush=True)
+        return lib_ms
 
     for m in (1, 2, 63):
         for name, (k, h, g, hd) in (("backbone", (3072, 24, 8, 128)),
@@ -177,9 +270,15 @@ def phase_kernels(torch, dev):
             ang = torch.rand(hd // 2, generator=gen, device=dev) * 6.0
             cos, sin = torch.cos(torch.cat([ang, ang])), torch.sin(torch.cat([ang, ang]))
             args = (x, w, nw, 1e-5, cos, sin, h, g, hd)
-            check("qkv_rope_step", f"{name} {k}->{(h + 2 * g) * hd} M={m}",
+            n = (h + 2 * g) * hd
+            ref_case = None
+            if m == 1 and name == "backbone":      # q, k, v out: n bf16
+                ref_case = (nbytes(x, w.values[:, :n], w.scale, nw, cos, sin)
+                            + 2 * m * n, 2 * m * k * n)
+            check("qkv_rope_step", f"{name} {k}->{n} M={m}",
                   lambda: qkv_step.qkv_rope_step(*args),
-                  lambda: qkv_step.qkv_rope_step_plain(*args))
+                  lambda: qkv_step.qkv_rope_step_plain(*args), ref_case,
+                  row=ref_case is not None)
     for m in (1, 2, 63):
         for label, k, n, res, out_dtype in (
                 ("attn_proj +res", 3072, 3072, True, None),
@@ -190,25 +289,69 @@ def phase_kernels(torch, dev):
             w = i4(k, n)
             x = bf16(m, k)
             kw = dict(out_dtype=out_dtype, residual=bf16(m, n) if res else None)
+            ref_case = library = None
+            if m == 1 and label == "projection":   # a plain product: the
+                wp, sz = int4_tinygemm(torch, w)    # library computes it too
+                ref_case = (nbytes(x, w.values[:, :n], w.scale) + 2 * m * n,
+                            2 * m * k * n)
+
+                def library():
+                    return torch._weight_int4pack_mm(x, wp, 256, sz)
             check("int4i_matmul", f"{label} {k}->{n} M={m}",
                   lambda: quant.int4i_matmul(x, w.values, w.scale, **kw),
-                  lambda: quant.int4i_matmul_plain(x, w.values, w.scale, **kw))
+                  lambda: quant.int4i_matmul_plain(x, w.values, w.scale, **kw),
+                  ref_case, library, row=ref_case is not None)
+            if library is not None:
+                lib_err = (library().float() - quant.int4i_matmul_plain(
+                    x, w.values, w.scale).float()).abs().max().item()
+                print(f"[3] int4i_matmul library _weight_int4pack_mm vs twin: "
+                      f"max_abs_err {lib_err:.3e}", flush=True)
     for m in (1, 2, 63):
         for label, k, i in (("backbone", 3072, 8192), ("decoder", 2048, 8192)):
             w1, w2, w3 = i4(k, i), i4(k, i), i4(i, k, cols=True)
             x = bf16(m, k)
             kw = dict(norm_w=bf16(k), residual=bf16(m, k))
+            ref_case = None
+            if m == 1 and label == "backbone":
+                ref_case = (nbytes(x, kw["norm_w"], kw["residual"], w1.values,
+                                   w1.scale, w2.values, w2.scale, w3.values,
+                                   w3.scale) + 2 * m * k, 6 * m * k * i)
             check("fused_swiglu", f"{label} {k}->{i}->{k} M={m}",
                   lambda: fused_mlp.fused_swiglu(x, w1, w2, w3, **kw),
-                  lambda: fused_mlp.fused_swiglu_plain(x, w1, w2, w3, **kw))
-    w = quant.quantize(torch.randn((3072, 128256), generator=gen, device=dev) * 0.02)
+                  lambda: fused_mlp.fused_swiglu_plain(x, w1, w2, w3, **kw),
+                  ref_case, row=ref_case is not None)
+    n = 128256
+    w = quant.quantize(torch.randn((3072, n), generator=gen, device=dev) * 0.02)
+    w_lib = w.values[:, :n].T.contiguous()     # (N, K) int8 for the library
+    s_lib = w.scale.to(torch.bfloat16)
     for m in (1, 2, 63):
         x = bf16(m, 3072)
-        check("int8_matmul", f"lm_head f32 3072->128256 M={m}",
+        ref_case = library = None
+        if m == 1:                                 # f32 logits out
+            ref_case = (nbytes(x, w.values[:, :n], w.scale) + 4 * m * n,
+                        2 * m * 3072 * n)
+
+            def library():       # bf16 scales and bf16 logits out
+                return torch._weight_int8pack_mm(x, w_lib, s_lib)
+        check("int8_matmul", f"lm_head f32 3072->{n} M={m}",
               lambda: quant.int8_matmul(x, w.values, w.scale,
                                         out_dtype=torch.float32),
               lambda: quant.int8_matmul_plain(x, w.values, w.scale,
-                                              out_dtype=torch.float32))
+                                              out_dtype=torch.float32),
+              ref_case, library, row=ref_case is not None)
+    del w, w_lib
+    for b, t in ((2, 186), (2, 374), (2, 750), (2, 130), (1, 130)):
+        h, hd = 24, 64
+        q, k, v = (bf16(b, h, t, hd) for _ in range(3))
+        scale = hd ** -0.5
+        check("flash_attention", f"(B, H, T, hd) = ({b}, {h}, {t}, {hd})",
+              lambda: flash_attention.flash_attention(q, k, v, scale),
+              lambda: flash_attention.attention_plain(q, k, v, scale),
+              (nbytes(q, k, v) * 4 // 3, 4 * b * h * t * t * hd),   # + o
+              lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+              row=(b, t) == (2, 750))              # the 30 s window
+        print(f"[3] flash_attention T={t}: SDPA ran {sdpa_backend(torch, q, k, v)}",
+              flush=True)
     return results
 
 
@@ -400,26 +543,20 @@ def with_attn_proj(torch, params, subs, only=None):
     return out
 
 
-class RopeSignFlipped:
+def rope_sign_flipped():
     """Within the block, the QKV kernel rotates q and k the wrong way (its
     sin table negated), as a kernel with a sign error in the RoPE epilogue
     would."""
+    from uniaudio2_tpu_torch.ops import qkv_step
 
-    def __enter__(self):
-        from uniaudio2_tpu_torch.ops import qkv_step
+    orig = qkv_step.qkv_rope_step
 
-        self.mod, self.orig = qkv_step, qkv_step.qkv_rope_step
-        orig = self.orig
+    def flipped(x, w, nw, eps, cos, sin, *rest):
+        return orig(x, w, nw, eps, cos, -sin, *rest)
 
-        def flipped(x, w, nw, eps, cos, sin, *rest):
-            return orig(x, w, nw, eps, cos, -sin, *rest)
-
-        # the wrapper counts its launches under the module's name
-        flipped.launches = 0
-        qkv_step.qkv_rope_step = flipped
-
-    def __exit__(self, *exc):
-        self.mod.qkv_rope_step = self.orig
+    # the wrapper counts its launches on the function its module holds
+    flipped.launches = 0
+    return mock.patch.object(qkv_step, "qkv_rope_step", flipped)
 
 
 def compare(torch, name, a, b):
@@ -450,7 +587,7 @@ def phase_logits(torch, dev, cfg, params):
          with_attn_proj(torch, params, ("backbone",), only=14),
          contextlib.nullcontext),
         ("control: RoPE sign flipped in the QKV kernel", params,
-         RopeSignFlipped))
+         rope_sign_flipped))
     verdicts = {}
     for label, p, ctx in runs:
         with ctx():
@@ -475,6 +612,248 @@ def phase_logits(torch, dev, cfg, params):
         fail(f"the comparison passed planted faults: {missed}")
 
 
+def build_codec(torch, dev):
+    from uniaudio2_tpu_torch.codec.decoder import (
+        CodecConfig, CodecDecoder, init_decode_params,
+    )
+
+    cfg = CodecConfig()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = init_decode_params(gen, cfg, dtype=torch.bfloat16, device=dev)
+    dec = CodecDecoder(params, cfg)
+    del params
+    torch.cuda.synchronize()
+    print(f"[6] full CodecConfig codec decode params (DiT {cfg.dit.num_layers} x "
+          f"{cfg.dit.num_heads} x {cfg.dit.head_dim}, ScalarAE default_24k) in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{(torch.cuda.memory_allocated() - before) / 2 ** 30:.2f} GiB",
+          flush=True)
+    return cfg, dec
+
+
+def phase_estimator(torch, dev, cfg, dec):
+    """(a) One DiT evaluation through the flash kernel against the same
+    evaluation through the twin, both on the card; then planted faults."""
+    from uniaudio2_tpu_torch.codec import dit
+    from uniaudio2_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((2, 374, cfg.dit.in_channels), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    t = torch.full((2,), 0.5, device=dev)
+    kernel = fa.flash_attention
+
+    def scale_twice(q, k, v, scale):
+        return kernel(q, k, v, scale * scale)
+
+    def mask_dropped(q, k, v, scale):
+        pad = -q.shape[2] % 64            # the last tile's zero keys join in
+        padded = [torch.nn.functional.pad(z, (0, 0, 0, pad)) for z in (q, k, v)]
+        return kernel(*padded, scale)[:, :, :q.shape[2]]
+
+    # the wrapper counts its launches on the function its module holds
+    scale_twice.launches = mask_dropped.launches = 0
+
+    def run(attn):
+        """The velocity, and every layer's (q, k, v, attention output)."""
+        seen = []
+
+        def record(q, k, v, scale):
+            o = attn(q, k, v, scale)
+            seen.append((q, k, v, o))
+            return o
+
+        record.launches = 0
+        with mock.patch.object(fa, "flash_attention", record):
+            vel = dit.forward(dec.params["dit"], cfg.dit, x, t)
+        return vel.float(), seen
+
+    def fro(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    ref, _ = run(fa.attention_plain)
+    scale = cfg.dit.head_dim ** -0.5
+    verdicts = {}
+    for label, attn in (("sound", kernel),
+                        ("control: hd^-0.5 applied twice", scale_twice),
+                        ("control: key mask dropped (T padded to 384)",
+                         mask_dropped)):
+        vel, seen = run(attn)
+        o = torch.stack([s[3] for s in seen]).float()
+        o_ref = torch.stack([fa.attention_plain(q, k, v, scale)
+                             for q, k, v, _ in seen]).float()
+        readings = {"velocity": compare(torch, "velocity", vel, ref)[0:2],
+                    "attention": (fro(o, o_ref), compare(torch, "attention",
+                                                         o, o_ref)[1])}
+        caught = []
+        for name, (err, cos) in readings.items():
+            tol, min_cos = DIT_BOUNDS[name]
+            ok = err <= tol and cos >= min_cos
+            if not ok:
+                caught.append(name)
+            what = (f"velocity {tuple(vel.shape)} max_abs_err {err:.4e} x max|ref|"
+                    if name == "velocity" else f"attention outputs "
+                    f"{tuple(o.shape)} ||diff|| {err:.4e} x ||ref||")
+            print(f"[6a] {label}: {what} (tol {tol}), cosine {cos:.6f} "
+                  f"(min {min_cos}){'' if ok else '  REJECTED'}", flush=True)
+        verdicts[label] = caught
+    if verdicts.pop("sound"):
+        fail("DiT through the flash kernel disagrees with the twin")
+    missed = [k for k, caught in verdicts.items() if not caught]
+    if missed:
+        fail(f"the DiT comparison passed planted faults: {missed}")
+
+
+def chunk_noise(i, shape):
+    """The solver noise of window ``i`` (the same for every decode here)."""
+    import numpy as np
+
+    return np.random.default_rng(100 + i).standard_normal(shape, np.float32)
+
+
+def phase_decode(torch, cfg, dec):
+    """(b) Offline decodes of 125 and 500 rec frames. Returns the flash
+    launches and the 500-frame codes and waveform."""
+    import numpy as np
+    from uniaudio2_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(3)
+    dec.decode(rng.integers(0, cfg.rec_codebook_size, (8, 125)), num_steps=10,
+               noise_fn=chunk_noise)               # warm-up (cuDNN, cuBLAS)
+    launches = 0
+    for frames, windows in ((125, 1), (500, 2)):
+        codes = rng.integers(0, cfg.rec_codebook_size, (8, frames))
+        fa.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        wav = dec.decode(codes, num_steps=10, guidance_scale=1.5,
+                         noise_fn=chunk_noise)     # returns host numpy
+        dt = time.perf_counter() - t0
+        n = fa.flash_attention.launches
+        want = windows * 10 * cfg.dit.num_layers
+        audio_s = frames / cfg.rec_hz
+        length = int(frames / cfg.rec_hz * cfg.sample_rate)
+        print(f"[6b] decode {frames} frames ({audio_s:.0f} s, {windows} "
+              f"window(s)): {dt:.3f} s, RTF {dt / audio_s:.4f}; wav "
+              f"{wav.shape} max|x| {np.abs(wav).max():.4f}; flash launches "
+              f"{n} (expected {want})", flush=True)
+        if wav.shape != (1, length):
+            fail(f"decode of {frames} frames: {wav.shape} != (1, {length})")
+        if not np.isfinite(wav).all():
+            fail(f"decode of {frames} frames: non-finite samples")
+        if n != want:
+            fail(f"flash launches {n} != windows x steps x layers = {want}")
+        launches += n
+    return launches, codes, wav
+
+
+def phase_stream(cfg, dec, codes, offline):
+    """(c) The streaming decoder fed the 500 frames in pieces."""
+    import numpy as np
+    from uniaudio2_tpu_torch.codec.streaming_decoder import StreamingCodecDecoder
+
+    sd = StreamingCodecDecoder(None, cfg, num_steps=10, guidance_scale=1.5,
+                               noise_fn=chunk_noise, decoder=dec)
+    outs, t0 = [], time.perf_counter()
+    for s in range(0, codes.shape[1], 60):
+        outs.append(sd.feed(codes[:, s: s + 60]))
+    outs.append(sd.flush())
+    dt = time.perf_counter() - t0
+    wav = np.concatenate(outs, axis=-1)
+    if wav.shape != offline.shape:
+        fail(f"streaming decode {wav.shape} != offline {offline.shape}")
+    print(f"[6c] streaming decode of {codes.shape[1]} frames in pieces of 60: "
+          f"{dt:.3f} s; max|streaming - offline| {np.abs(wav - offline).max():.6g}",
+          flush=True)
+
+
+def phase_tts(torch, cfg, params, ccfg, dec):
+    """(d) TTS end to end: LLM stage 1 then the codec, RTF over 10 s."""
+    import numpy as np
+    from uniaudio2_tpu_torch.engine.decode import DecodeEngine
+
+    audio_s = 10.0
+    frames = int(audio_s * (ccfg.reason_hz + ccfg.rec_hz))   # 175
+    sem = int(audio_s * ccfg.rec_hz)                          # 125
+    (g, m), _, _ = prompts(cfg)
+    eng = DecodeEngine(params, cfg, max_frames=frames, buckets=(64,))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reason, semantic = eng.generate_audio(g, m, temperature=0.9, topk=50, seed=1)
+    t1 = time.perf_counter() - t0
+    codes = np.random.default_rng(4).integers(0, ccfg.rec_codebook_size, (8, sem))
+    t0 = time.perf_counter()
+    wav = dec.decode(codes, num_steps=10, guidance_scale=1.5, seed=2)
+    t2 = time.perf_counter() - t0
+    if not np.isfinite(wav).all() or wav.shape[1] != int(sem / ccfg.rec_hz
+                                                         * ccfg.sample_rate):
+        fail(f"TTS stage 2: bad waveform {wav.shape}")
+    print(f"[6d] TTS end to end: stage1_s {t1:.3f} ({eng.last_steps} frames, "
+          f"reason {reason.shape} semantic {semantic.shape}), stage2_s "
+          f"{t2:.3f} (codec decode of {sem} random semantic frames), RTF "
+          f"{(t1 + t2) / audio_s:.4f}", flush=True)
+
+
+def profile_codec(torch, dev, cfg, dec):
+    """One 30 s window (T = 750) solve + ScalarAE decode under
+    torch.profiler: device time by kernel class, and the top kernels."""
+    import numpy as np
+    from uniaudio2_tpu_torch.codec import scalar_ae
+
+    win = cfg.window_rec_frames
+    rec = np.random.default_rng(5).integers(0, cfg.rec_codebook_size, (1, win, 8))
+    noise = torch.as_tensor(chunk_noise(0, (1, 2 * win, cfg.latent_dim)),
+                            device=dev)
+
+    def solve():
+        lat = dec._solve(cfg, rec, None, None, noise, 10, 1.5)
+        wav = scalar_ae.decode(dec.params["scalar"], cfg.scalar, lat)
+        torch.cuda.synchronize()
+        return wav
+
+    solve()                                       # warm-up
+    prof = torch.profiler
+    walls = []
+    # the first profiled run pays the tracer's start-up; the second is read
+    for _ in range(2):
+        with prof.profile(activities=[prof.ProfilerActivity.CPU,
+                                      prof.ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            solve()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    wall = walls[-1]
+    kernels, launches = {}, 0
+    for e in p.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time / 1e3
+            launches += 1
+
+    def kind(name):
+        n = name.lower()
+        if "flash_attn_kernel" in n:
+            return "flash attention (this port)"
+        if any(s in n for s in ("conv", "cudnn", "dgrad", "fprop", "wgrad")):
+            return "convolutions (cuDNN)"
+        if any(s in n for s in ("gemm", "cutlass", "nvjet", "cublas")):
+            return "GEMMs (cuBLAS)"
+        return "other (elementwise, norms, copies)"
+
+    classes = {}
+    for name, ms in kernels.items():
+        classes[kind(name)] = classes.get(kind(name), 0.0) + ms
+    busy = sum(kernels.values())
+    print(f"[P] one 30 s window: 10 steps x CFG pair x {cfg.dit.num_layers} "
+          f"layers + ScalarAE; wall {wall:.1f} ms (profiler on; the first "
+          f"profiled run {walls[0]:.1f} ms), {launches} device kernels, "
+          f"{busy:.1f} ms (busy share {busy / wall:.3f})", flush=True)
+    for k, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
+        print(f"[P] {k:38s} {ms:9.3f} ms  {ms / busy:.3f} of device time",
+              flush=True)
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:20]:
+        print(f"[P]   {ms:9.3f} ms  {kind(name)[:12]:12s} {name[:110]}", flush=True)
+
+
 def main():
     dev, card = phase_device()
     import torch
@@ -482,21 +861,33 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    if "--profile-codec" in sys.argv[1:]:
+        ccfg, dec = build_codec(torch, dev)
+        profile_codec(torch, dev, ccfg, dec)
+        return
     kernels = phase_kernels(torch, dev)
     cfg, params = build_model(torch, dev)
     launches = phase_model(torch, dev, cfg, params)
     phase_logits(torch, dev, cfg, params)
+    ccfg, dec = build_codec(torch, dev)
+    phase_estimator(torch, dev, ccfg, dec)
+    launches["flash_attention"], codes, wav = phase_decode(torch, ccfg, dec)
+    phase_stream(ccfg, dec, codes, wav)
+    phase_tts(torch, cfg, params, ccfg, dec)
     meta = {"qkv_rope_step": ("qkv_rope.cu", "uniaudio2_tpu/ops/qkv_step.py:172"),
             "fused_swiglu": ("fused_swiglu.cu", "uniaudio2_tpu/ops/fused_mlp.py:225"),
             "int4i_matmul": ("gemv_int4i.cu", "uniaudio2_tpu/ops/quant.py:948"),
-            "int8_matmul": ("gemv_int8.cu", "uniaudio2_tpu/ops/quant.py:483")}
+            "int8_matmul": ("gemv_int8.cu", "uniaudio2_tpu/ops/quant.py:483"),
+            "flash_attention": ("flash_attn.cu", "uniaudio2_tpu/codec/dit.py:174")}
     rows = []
     for name, (src, replaces) in meta.items():
-        err, ms, plain_ms = kernels[name]
+        k = kernels[name]
         rows.append({"name": name, "route": "cuda",
                      "source": f"uniaudio2_tpu_torch/csrc/{src}",
                      "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                     "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     if any(not math.isfinite(r["ms"]) for r in rows):

@@ -53,7 +53,7 @@ def engines(request):
                                                  cfg=jcfg)
     jeng = jdecode.DecodeEngine(params, jcfg, max_frames=FRAMES,
                                 cache_dtype=jnp.float32, buckets=(64,))
-    teng = decode.DecodeEngine(convert_params(params),
+    teng = decode.DecodeEngine(convert_params(params, "cpu"),
                                UnifiedModelConfig.tiny(), max_frames=FRAMES,
                                cache_dtype=torch.float32, buckets=(64,))
     return jeng, teng, _prompts(jcfg.tokens)
@@ -162,7 +162,10 @@ def test_unported_paths_raise(engines):
 def test_port_imports_no_jax():
     code = ("import sys, uniaudio2_tpu_torch.engine.decode, "
             "uniaudio2_tpu_torch.convert.from_jax, "
-            "uniaudio2_tpu_torch.ops.fused_mlp, uniaudio2_tpu_torch.ops.qkv_step;"
+            "uniaudio2_tpu_torch.ops.fused_mlp, uniaudio2_tpu_torch.ops.qkv_step, "
+            "uniaudio2_tpu_torch.ops.flash_attention, "
+            "uniaudio2_tpu_torch.codec.decoder, "
+            "uniaudio2_tpu_torch.codec.streaming_decoder;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'uniaudio2_tpu')];"
             "assert not bad, bad")

@@ -39,7 +39,7 @@ def layer():
     p["layers"]["norm2_w"] = p["layers"]["norm2_w"] * 0.7
     p = jgpt.unstack_layers(jq.quantize_gpt_params(p, bits=4))
     jl = {k: jq.to_interleaved(v) for k, v in p["layers"][0].items()}
-    return jcfg, GPTConfig(**FIELDS), jl, convert_params(jl)
+    return jcfg, GPTConfig(**FIELDS), jl, convert_params(jl, "cpu")
 
 
 def _cast(tree, jd, td):

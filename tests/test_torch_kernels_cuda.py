@@ -12,13 +12,15 @@ f32 sum, one rounding to the output dtype); the twins follow the JAX
 fallback (scale folded into a bf16-rounded weight, bf16 rounding of the
 product before the residual and of gate/up in the MLP). Each of those
 roundings is a relative 2^-9 (0.2 %); a few of them stacked, at the worst
-element of a tile, stay below 2 % of the output's range.
+element of a tile, stay below 2 % of the output's range. The flash
+attention kernel rounds the unnormalised probabilities to bf16 where its
+twin rounds the normalised ones (one 2^-9 each), within the same bound.
 """
 
 import pytest
 import torch
 
-from uniaudio2_tpu_torch.ops import fused_mlp, qkv_step, quant
+from uniaudio2_tpu_torch.ops import flash_attention, fused_mlp, qkv_step, quant
 
 pytestmark = pytest.mark.cuda
 RTOL = 2e-2
@@ -125,6 +127,19 @@ def test_fused_swiglu(dev, m, folded):
     _close(out, fused_mlp.fused_swiglu_plain(x, w1, w2, w3, **kw))
 
 
+@pytest.mark.parametrize("b,h,t,hd", [(2, 24, 186, 64), (2, 24, 374, 64),
+                                       (2, 24, 750, 64), (1, 24, 130, 64),
+                                       (2, 4, 1, 64), (1, 8, 200, 128)])
+def test_flash_attention(dev, b, h, t, hd):
+    g = _gen(dev, 5)
+    q, k, v = (_bf16(g, dev, b, h, t, hd) for _ in range(3))
+    before = flash_attention.flash_attention.launches
+    out = flash_attention.flash_attention(q, k, v, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.launches == before + 1
+    _close(out, flash_attention.attention_plain(q, k, v, hd ** -0.5))
+
+
 def test_wrappers_raise_on_unsupported_input(dev):
     g = _gen(dev, 4)
     w = _i4(g, dev, 256, 256)
@@ -132,3 +147,6 @@ def test_wrappers_raise_on_unsupported_input(dev):
         quant.int4i_matmul(torch.randn(1, 256, device=dev), w.values, w.scale)
     with pytest.raises(ValueError):
         quant.int4i_matmul(_bf16(g, dev, 1, 512), w.values, w.scale)
+    q = _bf16(g, dev, 1, 2, 8, 32)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, q, q, 32 ** -0.5)

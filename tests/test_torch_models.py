@@ -45,12 +45,13 @@ def test_gpt_prefill_and_decode_steps(weights, as_lists):
                         for layer in jp["layers"]]
     elif as_lists:      # JAX pairs list caches with unrolled layers
         jp = jgpt.unstack_layers(jp)
-    tp = convert_params(jp)
+    tp = convert_params(jp, "cpu")
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 5, 64)).astype(np.float32)
     steps = rng.standard_normal((3, 2, 1, 64)).astype(np.float32)
     jc = jkv.init_cache(jcfg, 2, 16, jnp.float32, as_lists)
-    tc = kv_cache.init_cache(tcfg, 2, 16, torch.float32, as_lists)
+    tc = kv_cache.init_cache(tcfg, 2, 16, torch.float32, as_lists,
+                                device="cpu")
     jh, jc = jgpt.prefill(jp, jcfg, jnp.asarray(x), jc)
     th, tc = gpt.prefill(tp, tcfg, torch.from_numpy(x), tc)
     np.testing.assert_allclose(th.numpy(), _np(jh), **TOL)
@@ -69,7 +70,7 @@ def test_gpt_forward_and_lm_head():
     jcfg = JaxGPTConfig.from_name("tiny-backbone")
     tcfg = GPTConfig.from_name("tiny-backbone")
     jp = jgpt.init_params(jax.random.PRNGKey(2), jcfg)
-    tp = convert_params(jp)
+    tp = convert_params(jp, "cpu")
     x = np.random.default_rng(1).standard_normal((2, 7, 64)).astype(np.float32)
     jh = jgpt.forward(jp, jcfg, jnp.asarray(x))
     th = gpt.forward(tp, tcfg, torch.from_numpy(x))
@@ -100,13 +101,14 @@ def models(request):
     grid = np.zeros((1, 16, 9), np.int64)
     mask = np.zeros((1, 16, 9), bool)
     grid[0, :len(g)], mask[0, :len(g)] = g, m
-    return jcfg, jp, UnifiedModelConfig.tiny(), convert_params(jp), grid, mask, len(g)
+    return jcfg, jp, UnifiedModelConfig.tiny(), convert_params(jp, "cpu"), grid, mask, len(g)
 
 
 def test_unified_prefill_and_decode_frame(models):
     jcfg, jp, tcfg, tp, grid, mask, length = models
     jc = junified.init_caches(jcfg, 1, dtype=jnp.float32, seq_len=32)
-    tc = unified.init_caches(tcfg, 1, dtype=torch.float32, seq_len=32)
+    tc = unified.init_caches(tcfg, 1, dtype=torch.float32, seq_len=32,
+                             device="cpu")
     jc = junified.prefill(jp, jcfg, jnp.asarray(grid[:, :-1]),
                           jnp.asarray(mask[:, :-1]), jc)
     tc = unified.prefill(tp, tcfg, torch.from_numpy(grid[:, :-1]),
@@ -128,7 +130,8 @@ def test_decode_frame_greedy_identical(models, use_cfg):
     b = 2 if use_cfg else 1
     grid, mask = np.repeat(grid, b, 0), np.repeat(mask, b, 0)
     jc = junified.init_caches(jcfg, b, dtype=jnp.float32, seq_len=32)
-    tc = unified.init_caches(tcfg, b, dtype=torch.float32, seq_len=32)
+    tc = unified.init_caches(tcfg, b, dtype=torch.float32, seq_len=32,
+                             device="cpu")
     jc = junified.prefill(jp, jcfg, jnp.asarray(grid[:, :-1]),
                           jnp.asarray(mask[:, :-1]), jc)
     tc = unified.prefill(tp, tcfg, torch.from_numpy(grid[:, :-1]),

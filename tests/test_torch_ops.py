@@ -71,7 +71,8 @@ def test_rms_norm(dtype):
 def test_rope_tables_exact_and_apply(adj):
     padj = None if adj is None else config.RoPEAdjustments()
     jc, js = jrope.rope_cache(300, 64, base=500000.0, adjustments=adj)
-    tc, tsn = rope.rope_cache(300, 64, base=500000.0, adjustments=padj)
+    tc, tsn = rope.rope_cache(300, 64, base=500000.0, adjustments=padj,
+                               device="cpu")
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(tsn.numpy(), np.asarray(js))
     x = np.random.default_rng(1).standard_normal((2, 4, 300, 64)).astype(np.float32)
@@ -156,7 +157,8 @@ def test_kv_cache_init_and_update(as_lists):
     jcfg = JaxGPTConfig.from_name("tiny-expert")
     tcfg = config.GPTConfig.from_name("tiny-expert")
     jc = jkv.init_cache(jcfg, 2, 10, jnp.float32, as_lists)
-    tc = kv_cache.init_cache(tcfg, 2, 10, torch.float32, as_lists)
+    tc = kv_cache.init_cache(tcfg, 2, 10, torch.float32, as_lists,
+                             device="cpu")
     assert tc.max_seq == jc.max_seq
 
     def first(c):       # layer 0: a list item or a view of the stack
@@ -169,7 +171,8 @@ def test_kv_cache_init_and_update(as_lists):
     jk, jv = jkv.update_layer(first(jc.k), first(jc.v), _j(kn), _j(vn),
                               jnp.int32(4))
     for pos in (4, torch.tensor([4])):
-        tc = kv_cache.init_cache(tcfg, 2, 10, torch.float32, as_lists)
+        tc = kv_cache.init_cache(tcfg, 2, 10, torch.float32, as_lists,
+                             device="cpu")
         tk, tv = kv_cache.update_layer(first(tc.k), first(tc.v), _t(kn),
                                        _t(vn), pos)
         np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))

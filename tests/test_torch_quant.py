@@ -72,9 +72,9 @@ def test_chunk_major_round_trip(fn):
         jw = jq.to_interleaved(jw)
     jc = jq.chunk_major(jw, 128)
     assert jq.is_chunk_major(jc) and np.asarray(jc.values).ndim == 3
-    tc = convert_params(jc)
+    tc = convert_params(jc, "cpu")
     _same(tc, jw)
-    _same(quant.chunk_major(convert_params(jw), 128), jc)
+    _same(quant.chunk_major(convert_params(jw, "cpu"), 128), jc)
 
 
 @pytest.mark.parametrize("fn", ["quantize", "quantize4"])
@@ -167,12 +167,12 @@ def test_unified_serving_params_byte_identical():
     jp = junified.init_params(jax.random.PRNGKey(0), jcfg)
     int4 = ("backbone", "decoder", "understanding_expert", "generation_expert",
             "audio_head", "projection_w")
-    tp = convert_params(jp)
+    tp = convert_params(jp, "cpu")
     tserve = unified.prepare_serving_params(
         quant.quantize_unified_params(tp, int4_modules=int4), dtype=torch.float32)
     jserve = convert_params(junified.prepare_serving_params(
         jq.quantize_unified_params(jp, int4_modules=int4), dtype=jnp.float32,
-        cfg=jcfg))
+        cfg=jcfg), "cpu")
     tl, jl = dict(_leaves(tserve)), dict(_leaves(jserve))
     assert tl.keys() == jl.keys()
     for path, t in tl.items():
@@ -196,7 +196,7 @@ def test_grouped_not_ported():
 
 def test_bf16_bridge_exact():
     x = jnp.asarray(_w((4, 8))).astype(jnp.bfloat16)
-    t = to_tensor(x)
+    t = to_tensor(x, "cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(),
                                   np.asarray(x.astype(jnp.float32)))

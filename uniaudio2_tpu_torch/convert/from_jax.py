@@ -1,6 +1,7 @@
 """Bridge from the JAX package's parameter trees to the port's.
 
-The input is a tree of dicts, lists, numpy-convertible arrays (bf16 arrays
+The input is a tree of dicts, lists, ``None`` leaves (the ScalarAE's
+absent "pre"/"post" stages), numpy-convertible arrays (bf16 arrays
 included) and quantized containers: any object with ``.values``/``.scale``
 whose class is named like one of the port's containers. This module does
 not import JAX: callers hand it arrays (``np.asarray`` of JAX arrays, or
@@ -21,7 +22,7 @@ _CONTAINERS = {cls.__name__: cls for cls in quant.QUANTIZED}
 _GROUPED = ("QuantizedLinear4G", "QuantizedLinearC4G", "QuantizedLinearI4G")
 
 
-def to_tensor(a, device="cpu") -> torch.Tensor:
+def to_tensor(a, device="cuda") -> torch.Tensor:
     arr = np.asarray(a)
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
@@ -30,8 +31,11 @@ def to_tensor(a, device="cpu") -> torch.Tensor:
     return t.to(device)
 
 
-def convert_params(tree, device="cpu"):
-    """JAX parameter tree -> the port's tree (same keys and nesting)."""
+def convert_params(tree, device="cuda"):
+    """JAX parameter tree -> the port's tree (same keys and nesting; lists
+    stay lists and ``None`` stays ``None``)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: convert_params(v, device) for k, v in tree.items()}
     if isinstance(tree, list):

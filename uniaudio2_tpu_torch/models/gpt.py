@@ -42,7 +42,7 @@ def _no_moe(cfg: GPTConfig) -> None:
 
 
 def init_params(cfg: GPTConfig, generator: torch.Generator,
-                dtype=torch.float32, device="cpu") -> Params:
+                dtype=torch.float32, device="cuda") -> Params:
     """Random init of the reference's scheme: normal(0, 0.02) for linears
     and embeddings, ones for RMSNorm weights."""
     _no_moe(cfg)

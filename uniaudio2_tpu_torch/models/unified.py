@@ -38,7 +38,7 @@ class UnifiedCaches(NamedTuple):
 
 
 def init_params(cfg: UnifiedModelConfig, generator: torch.Generator,
-                dtype=torch.float32, device="cpu") -> Params:
+                dtype=torch.float32, device="cuda") -> Params:
     bcfg, dcfg = cfg.backbone, cfg.decoder
     audio_vocab = cfg.tokens.audio_vocab
     ncb = cfg.tokens.num_codebooks
@@ -63,7 +63,7 @@ def init_params(cfg: UnifiedModelConfig, generator: torch.Generator,
 
 def init_caches(cfg: UnifiedModelConfig, batch: int, dtype=torch.bfloat16,
                 seq_len: Optional[int] = None, as_lists: bool = False,
-                device="cpu") -> UnifiedCaches:
+                device="cuda") -> UnifiedCaches:
     s = seq_len or cfg.max_seq_len
     return UnifiedCaches(
         backbone=init_cache(cfg.backbone, batch, s, dtype, as_lists, device),

@@ -25,7 +25,8 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("gemv_int4i.cu", "gemv_int8.cu", "qkv_rope.cu", "fused_swiglu.cu")
+SOURCES = ("gemv_int4i.cu", "gemv_int8.cu", "qkv_rope.cu", "fused_swiglu.cu",
+           "flash_attn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -42,6 +43,8 @@ _SIGNATURES = {
     # ldw3, eps, stream
     "ua2_fused_swiglu_int4i": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, o, BH, T, hd, scale, stream
+    "ua2_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -34,7 +34,7 @@ class KVCache(NamedTuple):
 
 def init_cache(
     cfg: GPTConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
-    as_lists: bool = False, device: "torch.device | str" = "cpu",
+    as_lists: bool = False, device: "torch.device | str" = "cuda",
 ) -> KVCache:
     if dtype == torch.int8:
         raise NotImplementedError(

@@ -46,7 +46,7 @@ def rope_cache(
     n_elem: int,
     base: float = 10000.0,
     adjustments: Optional[RoPEAdjustments] = None,
-    device: "torch.device | str" = "cpu",
+    device: "torch.device | str" = "cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     cos, sin = _rope_cache_np(seq_len, n_elem, float(base), adjustments)
     return (torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device))
