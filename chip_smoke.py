@@ -42,7 +42,24 @@ caught):
    (c) `StreamingCodecDecoder` fed the 500 frames in pieces, against (b);
    (d) TTS end to end as scripts/bench_tts_e2e.py times it on the TPU:
    int4all `generate_audio` for 175 frames, then the codec decode of 125
-   semantic frames; RTF = (stage 1 + stage 2) / 10 s.
+   semantic frames; RTF = (stage 1 + stage 2) / 10 s;
+7. training at full `UnifiedModelConfig()` width (the serving model and
+   the codec freed first), seeded random bf16 weights, `adamw_lean`:
+   (a) `build_train_step` (grad clip 1.0, per-layer remat, chunked CE) on
+   one fixed batch from `LengthBatcher` over a synthetic TTS + ASR set
+   (max_length 2048, batch_scale 4096), lr 3e-4 after a 1-step warm-up:
+   one warm-up step, 5 timed steps; loss, grad_norm and seconds per step,
+   tokens/s, peak memory, model-FLOP share of 989 TFLOP/s, lean launches
+   against the leaf predicate's count; then one optimizer update from the
+   same gradients and state through the kernel and through its twin, both
+   on the card, bit-identical on every fused leaf;
+   (b) `python -m uniaudio2_tpu_torch.train.train` (its `main`) at full
+   width on the same set written as .pt / text / task-json files under
+   build/: 2 steps, one epoch, `ep0.checkpoint` written, then read back
+   through `maybe_resume` into a fresh state and compared, then deleted.
+
+Phase 3 also holds the fused lean-update kernel to its twin at full-width
+leaf shapes (bit-identical, bf16 g and p).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -52,6 +69,12 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 runs phases 1-2, then one 30 s window's codec solve and ScalarAE decode
 under torch.profiler, and prints the device time by kernel class (flash
 attention, GEMMs, convolutions, the rest) and the top kernels.
+
+    python3 chip_smoke.py --profile-train
+
+runs phases 1-2, then phase 7a's train step (after a warm-up step) under
+torch.profiler, and prints the device time by kernel class and the top
+kernels.
 """
 
 from __future__ import annotations
@@ -98,6 +121,7 @@ FRAMES = 128
 # Peaks of one H100 SXM (NVIDIA data sheet; dense bf16 tensor-core rate and
 # HBM3 bandwidth), for the bound columns.
 PEAK_BF16 = 989e12
+PEAK_F32 = 67e12        # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12
 INT4ALL = ("backbone", "decoder", "understanding_expert", "generation_expert",
            "audio_head", "projection_w")
@@ -172,10 +196,10 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, peak=PEAK_BF16):
     """Least time on the card (ms) and what sets it: the bytes the call must
-    move at PEAK_BYTES or its operations at PEAK_BF16, the larger."""
-    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flops / PEAK_BF16 * 1e3
+    move at PEAK_BYTES or its operations at ``peak``, the larger."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -352,7 +376,74 @@ def phase_kernels(torch, dev):
               row=(b, t) == (2, 750))              # the 30 s window
         print(f"[3] flash_attention T={t}: SDPA ran {sdpa_backend(torch, q, k, v)}",
               flush=True)
+    lean_cases(torch, dev, gen, timer, results)
     return results
+
+
+# Full-width leaves of the train step's fused update: one layer's fc1_w,
+# the stacked norm gains, the understanding expert's stacked qkv_w,
+# audio_embeddings, and the largest leaf (the backbone's stacked fc1_w),
+# which is the kernels line's row.
+LEAN_SHAPES = ((3072, 8192), (28, 3072), (3, 3072, 5120), (98400, 3072),
+               (28, 3072, 8192))
+LEAN_ROW = (28, 3072, 8192)
+
+
+def lean_args(torch, dev, gen, shape):
+    """Inputs of one leaf's fused update: bf16 g and p, the int8 moment and
+    its block scales, and rsqrt factors of a plausible size."""
+    nsb = shape[-1] // 256
+    return ((torch.randn(shape, generator=gen, device=dev) * 1e-3).bfloat16(),
+            torch.randint(-127, 128, shape, generator=gen, device=dev,
+                          dtype=torch.int8),
+            torch.rand(shape[:-1] + (nsb,), generator=gen, device=dev) * 1e-5,
+            (torch.randn(shape, generator=gen, device=dev) * 0.02).bfloat16(),
+            torch.rand(shape[:-1], generator=gen, device=dev) + 0.5,
+            torch.rand(shape[:-2] + shape[-1:], generator=gen, device=dev) * 1e-3)
+
+
+def lean_cases(torch, dev, gen, timer, results):
+    """The fused lean update against its twin, both on the card: every
+    output must be bit-identical."""
+    from uniaudio2_tpu_torch.ops import lean_update as lu
+
+    kw = dict(b1=0.9, wd=0.01, eps=1e-8)
+    scalars = (1.0 / (1.0 - 0.9 ** 3), 3e-4)          # inv_mc at step 3, lr
+    entry = results.setdefault("lean_update", {"max_abs_err": 0.0})
+    for shape in LEAN_SHAPES:
+        args = lean_args(torch, dev, gen, shape)
+
+        def run():
+            return lu.fused_lean_update(*args, *scalars, **kw)
+
+        def plain():
+            return lu.fused_lean_update_plain(*args, *scalars, **kw)
+
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        diffs = [int((o != r).sum()) for o, r in zip(out, ref)]
+        err = max((o.float() - r.float()).abs().max().item()
+                  for o, r in zip(out, ref))
+        if any(diffs):
+            fail(f"lean_update {shape}: kernel != twin, mismatches "
+                 f"(upd, m_q, m_scale) = {diffs}, max_abs_err {err:.3e}")
+        ms, plain_ms = timer(run), timer(plain, reps=5)
+        n = args[0].numel()
+        # g, m_q, p read and upd, m_q' written (8 B an element); the block
+        # scales read and written, the rsqrt factors read once; ~14 float32
+        # operations an element (3 FMAs, 2 divisions) off the tensor cores
+        n_bytes = 8 * n + nbytes(args[2]) * 2 + nbytes(args[4], args[5])
+        bound_ms, bound_by = bound(n_bytes, 14 * n, PEAK_F32)
+        row = shape == LEAN_ROW
+        if row:
+            entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
+        print(f"[3] lean_update     {str(shape):34s} mismatches {diffs} "
+              f"(bit-identical required) kernel {ms:.4f} ms twin "
+              f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{n_bytes / ms / 1e6:.0f} GB/s; library none{' [row]' if row else ''}",
+              flush=True)
+        del args, out, ref
 
 
 def build_model(torch, dev):
@@ -854,6 +945,306 @@ def profile_codec(torch, dev, cfg, dec):
         print(f"[P]   {ms:9.3f} ms  {kind(name)[:12]:12s} {name[:110]}", flush=True)
 
 
+# The synthetic training set: TTS and ASR examples of 1900-2000 grid steps,
+# so that LengthBatcher (batch_scale 4096, max_length 2048) packs two a batch.
+TRAIN_EXAMPLES = 8
+TRAIN_LR = 3e-4
+
+
+def train_examples(cfg, seed=0):
+    """{id: example} as `data.loading.load_task_dataset` returns them: text
+    ids below 128000, reasoning codes below reason_bos, semantic codes below
+    semantic_bos."""
+    import numpy as np
+    from uniaudio2_tpu_torch.engine.tasks import TASK_FORMATS
+
+    rng = np.random.default_rng(seed)
+    ts = cfg.tokens
+    out = {}
+    for i in range(TRAIN_EXAMPLES):
+        task = ("TTS", "ASR")[i % 2]
+        n_text = 60 + 10 * i
+        # grid steps: text + 2 specials, two audio segments + BOS/EOS each
+        audio = 2000 - 12 * i - n_text - 6
+        out[f"{task}_utt{i}"] = {
+            "task": task, "loss_key": list(TASK_FORMATS[task]["loss_key"]),
+            "transcription_seq": " ".join(
+                str(x) for x in rng.integers(0, 128000, n_text)),
+            "reason_seq": rng.integers(0, ts.reason_bos, (8, audio // 2)),
+            "semantic_seq": rng.integers(0, ts.semantic_bos,
+                                         (8, audio - audio // 2)),
+        }
+    return out
+
+
+def train_flops(cfg, b, s):
+    """Model FLOPs of one train step at batch (b, s): 3x the forward's
+    matrix products (forward + backward, the remat recompute not counted):
+    every stack's linear layers and its attention products (the full S x S
+    square, as computed), the projection, and the text and audio heads of
+    the chunked CE."""
+    def stack(g, rows, seq):
+        hd, h, q = g.head_size, g.n_head, g.n_query_groups
+        lin = g.n_embd * (h + 2 * q) * hd + h * hd * g.n_embd \
+            + 3 * g.n_embd * g.intermediate_size
+        return g.n_layer * (2 * lin * rows * seq + 4 * rows * seq * seq * h * hd)
+
+    ncb = cfg.tokens.num_codebooks
+    d, dd = cfg.backbone.n_embd, cfg.decoder.n_embd
+    fwd = (stack(cfg.backbone, b, s) + stack(cfg.understanding_expert, b, s)
+           + stack(cfg.generation_expert, b, s) + stack(cfg.decoder, b * s, ncb)
+           + 2 * d * dd * b * s * ncb
+           + 2 * d * cfg.backbone.padded_vocab_size * b * s
+           + ncb * 2 * dd * cfg.tokens.audio_vocab * b * s)
+    return 3 * fwd
+
+
+def build_training(torch, dev):
+    """Full-width params, the adamw_lean train step and one fixed batch."""
+    from uniaudio2_tpu_torch.config import UnifiedModelConfig
+    from uniaudio2_tpu_torch.data.batching import LengthBatcher
+    from uniaudio2_tpu_torch.models import gpt, unified
+    from uniaudio2_tpu_torch.train import schedule, trainer
+    from uniaudio2_tpu_torch.train.train import IntTok
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = UnifiedModelConfig()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = unified.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                     dtype=torch.bfloat16, device=dev)
+    sched = schedule.warmup_lr(TRAIN_LR, 1)
+    tx = trainer.make_optimizer(sched, grad_clip=1.0, optimizer="adamw_lean")
+    state = trainer.init_train_state(params, tx, device=dev)
+    del params
+    torch.cuda.synchronize()
+    batcher = LengthBatcher(train_examples(cfg), cfg.tokens, batch_scale=4096,
+                            text_tokenizer=IntTok(), max_length=2048)
+    raw = next(batcher.batches(epoch=0))
+    batch = trainer.to_batch(raw, dev)
+    print(f"[7a] full UnifiedModelConfig, {gpt.param_count(state.params) / 1e9:.3f} "
+          f"B bf16 params + adamw_lean state in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB; batch grid "
+          f"{tuple(raw['grid'].shape)} ({len(batcher._built)} examples)", flush=True)
+    step = trainer.build_train_step(cfg, tx, remat=True)
+    return cfg, sched, state, step, batch, raw
+
+
+def phase_train(torch, dev):
+    """(a) The full-width adamw_lean train step. Returns the lean kernel's
+    launches on the main path."""
+    from uniaudio2_tpu_torch.ops import lean_update as lu
+    from uniaudio2_tpu_torch.train import lean_opt, optim, trainer
+
+    cfg, sched, state, step, batch, raw = build_training(torch, dev)
+    leaves = optim.tree_leaves(state.params)
+    lean = state.opt_state[1]
+    fused = sum(lean_opt.fused_leaf(p, s) for p, s in
+                zip(leaves, optim.tree_leaves(lean.leaves)))
+    b, s1, _ = batch.grid.shape
+    s = s1 - 1
+    real = int((raw["grid_mask"].any(-1).sum(-1) - 1).sum())   # unpadded
+    torch.cuda.reset_peak_memory_stats()
+    lu.fused_lean_update.launches = 0
+    losses, secs = [], []
+    for i in range(6):                               # 1 warm-up + 5 timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"[7a] step {i} ({'warm-up' if i == 0 else 'timed'}): loss {loss:.4f} "
+              f"grad_norm {gnorm:.4f} {dt:.3f} s", flush=True)
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"train step {i}: loss {loss} grad_norm {gnorm} not finite")
+        if i:
+            losses.append(loss)
+            secs.append(dt)
+    launches = lu.fused_lean_update.launches
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(secs)
+    flops = train_flops(cfg, b, s)
+    print(f"[7a] batch (B, S) = ({b}, {s}): {b * s} tokens a step ({real} "
+          f"unpadded); step {step_s:.3f} s (median of 5, min {min(secs):.3f}) = "
+          f"{b * s / step_s:.0f} train tokens/s ({real / step_s:.0f} unpadded); "
+          f"peak memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated)", flush=True)
+    print(f"[7a] model FLOPs a step {flops:.4g} (3 x the forward's products: "
+          f"linear layers, full S x S attention, projection, CE heads; remat "
+          f"not counted) = {flops / step_s / 1e12:.1f} TFLOP/s, "
+          f"{flops / step_s / PEAK_BF16:.4f} of 989 TFLOP/s", flush=True)
+    print(f"[7a] lean launches {launches} = {launches / 6:.1f} per optimizer step; "
+          f"the leaf predicate gives {fused} fused leaves of {len(leaves)}",
+          flush=True)
+    if launches != 6 * fused or launches == 0:
+        fail(f"lean launches {launches} != 6 steps x {fused} fused leaves")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall over the timed steps: {losses}")
+
+    # one optimizer update from the same gradients and state, kernel vs twin
+    params = state.params
+    with torch.enable_grad():
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = trainer.loss_fn(params, cfg, batch, remat=True)
+        grads = torch.autograd.grad(loss, leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+    del loss
+    lean = state.opt_state[1]
+    mc, vc, inv_mc, lr = lean_opt.step_scalars(lean.count + 1, sched, 0.9, 0.95)
+    kw = dict(b1=0.9, wd=0.01, eps=1e-8)
+    compared, mism = 0, [0, 0, 0]
+    for g, p, st in zip(grads, leaves, optim.tree_leaves(lean.leaves)):
+        if not lean_opt.fused_leaf(p, st):
+            continue
+        _, a_row, b_col = lean_opt.fused_inputs(g, st, vc, 0.95)
+        args = (g.contiguous(), st.m_q, st.m_scale, p, a_row, b_col, inv_mc, lr)
+        kern = lu.fused_lean_update(*args, **kw)
+        twin = lu.fused_lean_update_plain(*args, **kw)
+        for j, (x, y) in enumerate(zip(kern, twin)):
+            mism[j] += int((x != y).sum())
+        compared += 1
+        del kern, twin, args, a_row, b_col
+    torch.cuda.synchronize()
+    print(f"[7a] one update through the kernel and the twin on the card: "
+          f"{compared} fused leaves, mismatches (upd, m_q, m_scale) = {mism}",
+          flush=True)
+    if any(mism) or compared != fused:
+        fail(f"full-tree update: kernel != twin ({mism}) over {compared} leaves")
+    return launches
+
+
+def write_train_files(cfg, root):
+    """The synthetic set as the reference's task files: reason.pt and
+    semantic.pt (id -> (8, T) codes), trans.txt (id ids...) and one task
+    json each for TTS and ASR."""
+    import torch
+
+    ex = train_examples(cfg)
+    root.mkdir(parents=True, exist_ok=True)
+    codes = {k: {} for k in ("reason_seq", "semantic_seq")}
+    with open(root / "trans.txt", "w", encoding="utf-8") as f:
+        for eid, e in ex.items():
+            uid = eid.split("_", 1)[1]
+            for k in codes:
+                codes[k][uid] = torch.from_numpy(e[k])
+            f.write(f"{uid} {e['transcription_seq']}\n")
+    keys = {"transcription_seq": str(root / "trans.txt")}
+    for k, v in codes.items():
+        torch.save(v, str(root / f"{k}.pt"))
+        keys[k] = str(root / f"{k}.pt")
+    for task in ("TTS", "ASR"):
+        (root / f"{task.lower()}.json").write_text(
+            json.dumps({"task": task, "keys": keys}))
+    return str(root / "*.json")
+
+
+def phase_train_cli(torch, dev):
+    """(b) The train entry point at full width: 2 steps, a checkpoint, and
+    the checkpoint read back into a fresh state."""
+    import shutil
+    from uniaudio2_tpu_torch.config import UnifiedModelConfig
+    from uniaudio2_tpu_torch.models import unified
+    from uniaudio2_tpu_torch.train import checkpoint as ckpt
+    from uniaudio2_tpu_torch.train import schedule, trainer
+    from uniaudio2_tpu_torch.train import train as train_cli
+
+    cfg = UnifiedModelConfig()
+    root = ROOT / "build" / "smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    pattern = write_train_files(cfg, root / "data")
+    exp = root / "exp"
+    free = shutil.disk_usage(ROOT).free
+    saves = []
+    save = ckpt.save_checkpoint
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        path = save(*args, **kw)
+        saves.append((time.perf_counter() - t0, path))
+        return path
+
+    t0 = time.perf_counter()
+    with mock.patch.object(ckpt, "save_checkpoint", timed_save):
+        state = train_cli.main([
+            "--train_data_jsons", pattern, "--exp_dir", str(exp),
+            "--debug_steps", "2", "--n_epoch", "1", "--optimizer", "adamw_lean",
+            "--batch_scale", "4096", "--max_length", "2048"])
+    wall = time.perf_counter() - t0
+    if len(saves) != 1 or state.step != 2:
+        fail(f"train.main: {len(saves)} checkpoints, step {state.step}")
+    write_s, path = saves[0]
+    size = sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+    print(f"[7b] train.main at full width, 2 steps + ep0.checkpoint: {wall:.1f} s; "
+          f"checkpoint written in {write_s:.1f} s, {size / 2 ** 30:.2f} GiB "
+          f"({free / 2 ** 30:.0f} GiB free before)", flush=True)
+    with torch.no_grad():
+        fresh = unified.init_params(cfg, torch.Generator(device=dev).manual_seed(5),
+                                    dtype=torch.bfloat16, device=dev)
+    tx = trainer.make_optimizer(schedule.warmup_lr(1e-4, 10000),
+                                optimizer="adamw_lean")
+    init = trainer.init_train_state(fresh, tx, device=dev)
+    del fresh
+    t0 = time.perf_counter()
+    got, start, _ = ckpt.maybe_resume(str(exp), init)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    same = (torch.equal(got.params["projection_w"], state.params["projection_w"])
+            and torch.equal(got.opt_state[1].leaves["audio_embeddings"].m_q,
+                            state.opt_state[1].leaves["audio_embeddings"].m_q))
+    print(f"[7b] maybe_resume read it back in {read_s:.1f} s: start epoch {start}, "
+          f"step {got.step}, projection_w and the audio_embeddings moment "
+          f"{'equal' if same else 'DIFFER'}", flush=True)
+    if start != 1 or got.step != 2 or not same:
+        fail("the checkpoint did not restore the state train.main ended with")
+    shutil.rmtree(root)
+
+
+def profile_train(torch, dev):
+    """Phase 7a's train step under torch.profiler: device time by class."""
+    cfg, _, state, step, batch, _ = build_training(torch, dev)
+    state, _ = step(state, batch)                      # warm-up
+    torch.cuda.synchronize()
+    prof = torch.profiler
+    with prof.profile(activities=[prof.ProfilerActivity.CPU,
+                                  prof.ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels, launches = {}, 0
+    for e in p.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.device_time / 1e3
+            launches += 1
+
+    def kind(name):
+        n = name.lower()
+        if "lean_update_kernel" in n:
+            return "lean update (this port)"
+        if any(k in n for k in ("gemm", "nvjet", "cutlass", "cublas", "xmma")):
+            return "GEMMs (cuBLAS)"
+        if any(k in n for k in ("softmax", "reduce", "norm")):
+            return "softmax, reductions, norms"
+        if any(k in n for k in ("index", "scatter", "gather", "embedding")):
+            return "gathers and scatters"
+        return "other (elementwise, copies)"
+
+    classes = {}
+    for name, ms in kernels.items():
+        classes[kind(name)] = classes.get(kind(name), 0.0) + ms
+    busy = sum(kernels.values())
+    print(f"[P] one full-width train step: wall {wall:.1f} ms (profiler on), "
+          f"{launches} device kernels, {busy:.1f} ms (busy share {busy / wall:.3f})",
+          flush=True)
+    for k, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
+        print(f"[P] {k:32s} {ms:10.3f} ms  {ms / busy:.3f} of device time", flush=True)
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:25]:
+        print(f"[P]   {ms:10.3f} ms  {kind(name)[:12]:12s} {name[:110]}", flush=True)
+
+
 def main():
     dev, card = phase_device()
     import torch
@@ -865,6 +1256,9 @@ def main():
         ccfg, dec = build_codec(torch, dev)
         profile_codec(torch, dev, ccfg, dec)
         return
+    if "--profile-train" in sys.argv[1:]:
+        profile_train(torch, dev)
+        return
     kernels = phase_kernels(torch, dev)
     cfg, params = build_model(torch, dev)
     launches = phase_model(torch, dev, cfg, params)
@@ -874,11 +1268,17 @@ def main():
     launches["flash_attention"], codes, wav = phase_decode(torch, ccfg, dec)
     phase_stream(ccfg, dec, codes, wav)
     phase_tts(torch, cfg, params, ccfg, dec)
+    del params, dec, codes, wav
+    torch.cuda.empty_cache()
+    launches["lean_update"] = phase_train(torch, dev)
+    torch.cuda.empty_cache()
+    phase_train_cli(torch, dev)
     meta = {"qkv_rope_step": ("qkv_rope.cu", "uniaudio2_tpu/ops/qkv_step.py:172"),
             "fused_swiglu": ("fused_swiglu.cu", "uniaudio2_tpu/ops/fused_mlp.py:225"),
             "int4i_matmul": ("gemv_int4i.cu", "uniaudio2_tpu/ops/quant.py:948"),
             "int8_matmul": ("gemv_int8.cu", "uniaudio2_tpu/ops/quant.py:483"),
-            "flash_attention": ("flash_attn.cu", "uniaudio2_tpu/codec/dit.py:174")}
+            "flash_attention": ("flash_attn.cu", "uniaudio2_tpu/codec/dit.py:174"),
+            "lean_update": ("lean_update.cu", "uniaudio2_tpu/ops/lean_update.py:100")}
     rows = []
     for name, (src, replaces) in meta.items():
         k = kernels[name]

@@ -15,12 +15,21 @@ roundings is a relative 2^-9 (0.2 %); a few of them stacked, at the worst
 element of a tile, stay below 2 % of the output's range. The flash
 attention kernel rounds the unnormalised probabilities to bf16 where its
 twin rounds the normalised ones (one 2^-9 each), within the same bound.
+The lean-update kernel rounds every operation as its twin does, so the two
+must agree to the bit. `quant.matmul`'s bf16 tensor-core product (the
+training forward's) is held to its float32 form: both sum in float32 in
+another order and round once to bf16, so they differ by one bf16 ulp
+(at most 2^-7 of the value) plus the float32 sums' order and the tensor
+cores' accumulation, 1e-3 x max|ref|.
 """
 
 import pytest
 import torch
 
-from uniaudio2_tpu_torch.ops import flash_attention, fused_mlp, qkv_step, quant
+from uniaudio2_tpu_torch.ops import (
+    flash_attention, fused_mlp, lean_update, qkv_step, quant,
+)
+from uniaudio2_tpu_torch.train import lean_opt
 
 pytestmark = pytest.mark.cuda
 RTOL = 2e-2
@@ -140,6 +149,78 @@ def test_flash_attention(dev, b, h, t, hd):
     _close(out, flash_attention.attention_plain(q, k, v, hd ** -0.5))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(48, 256), (2, 24, 512), (16, 1024),
+                                   (28, 768), (300, 3072)])
+def test_lean_update(dev, shape, dtype):
+    g = _gen(dev, 6)
+    nsb = shape[-1] // 256
+    args = ((torch.randn(shape, generator=g, device=dev) * 0.05).to(dtype),
+            torch.randint(-127, 128, shape, generator=g, device=dev,
+                          dtype=torch.int8),
+            torch.rand(shape[:-1] + (nsb,), generator=g, device=dev) * 1e-3,
+            (torch.randn(shape, generator=g, device=dev) * 0.1).to(dtype),
+            torch.rand(shape[:-1], generator=g, device=dev) * 10 + 1,
+            torch.rand(shape[:-2] + shape[-1:], generator=g, device=dev) * 1e-2)
+    kw = dict(b1=0.9, wd=0.01, eps=1e-8)
+    before = lean_update.fused_lean_update.launches
+    out = lean_update.fused_lean_update(*args, 1.0 / (1 - 0.9 ** 3), 3e-4, **kw)
+    torch.cuda.synchronize()
+    assert lean_update.fused_lean_update.launches == before + 1
+    ref = lean_update.fused_lean_update_plain(*args, 1.0 / (1 - 0.9 ** 3),
+                                              3e-4, **kw)
+    for o, r in zip(out, ref):
+        assert o.dtype == r.dtype and o.shape == r.shape
+        assert torch.equal(o, r), int((o != r).sum())
+
+
+def test_adamw_lean_sends_card_leaves_to_the_kernel(dev):
+    """Every admitted leaf on the card launches the kernel, in "auto" and
+    "on"; "off" (the plain chain, for CPU leaves) raises there."""
+    g = _gen(dev, 7)
+    params = {"w": _bf16(g, dev, 8, 512), "gain": _bf16(g, dev, 64)}
+    grads = {k: v * 0.01 for k, v in params.items()}
+    for mode in ("auto", "on"):
+        tx = lean_opt.adamw_lean(1e-3, fused=mode)
+        before = lean_update.fused_lean_update.launches
+        tx.update(grads, tx.init(params, device=dev), params)
+        torch.cuda.synchronize()
+        assert lean_update.fused_lean_update.launches == before + 1, mode
+    tx = lean_opt.adamw_lean(1e-3, fused="off")
+    with pytest.raises(ValueError):
+        tx.update(grads, tx.init(params, device=dev), params)
+
+
+@pytest.mark.parametrize("m,k,n", [(3966, 3072, 8192), (3966, 8192, 3072),
+                                   (16384, 2048, 5632)])
+def test_bf16_matmul_matches_float32_form(dev, m, k, n):
+    """The training forward's bf16 product against the float32 form at
+    full-width training shapes (backbone fc1 / mlp_proj at (B, S) =
+    (2, 1983); the local decoder's 16,384 rows); with a residual
+    `quant.matmul` takes the float32 form itself."""
+    g = _gen(dev, 8)
+    x, w = _bf16(g, dev, m, k), _bf16(g, dev, k, n, std=0.02)
+    res = _bf16(g, dev, m, n)
+    flags = torch.backends.cuda.matmul
+    saved = (flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction)
+    flags.allow_tf32 = False
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        out = quant.matmul(x, w)
+        ref = torch.matmul(x.float(), w.float())
+        with_res = quant.matmul(x, w, residual=res)
+        ref_res = (ref + res.float()).to(torch.bfloat16)
+        ref = ref.to(torch.bfloat16)
+    finally:
+        flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction = saved
+    assert out.dtype == ref.dtype == with_res.dtype == torch.bfloat16
+    rf = ref.float()
+    err = (out.float() - rf).abs()
+    assert bool((err <= 2.0 ** -7 * rf.abs() + 1e-3 * rf.abs().max()).all()), \
+        float(err.max())
+    assert torch.equal(with_res, ref_res)
+
+
 def test_wrappers_raise_on_unsupported_input(dev):
     g = _gen(dev, 4)
     w = _i4(g, dev, 256, 256)
@@ -150,3 +231,9 @@ def test_wrappers_raise_on_unsupported_input(dev):
     q = _bf16(g, dev, 1, 2, 8, 32)
     with pytest.raises(ValueError):
         flash_attention.flash_attention(q, q, q, 32 ** -0.5)
+    p = _bf16(g, dev, 4, 256)
+    with pytest.raises(ValueError):             # g in another dtype than p
+        lean_update.fused_lean_update(
+            p.float(), torch.zeros(4, 256, dtype=torch.int8, device=dev),
+            torch.zeros(4, 1, device=dev), p, torch.ones(4, device=dev),
+            torch.ones(256, device=dev), 1.0, 1e-3, b1=0.9, wd=0.0, eps=1e-8)

@@ -12,6 +12,11 @@ the JAX package dispatches to Pallas: `_qkv` -> `qkv_step.qkv_rope_step`,
 `_mlp` / `_mlp_block` -> `fused_mlp.fused_swiglu`, every other quantized
 product -> `quant.matmul` (the int4 / int8 GEMV kernels).
 
+`forward` is also the training forward: ``remat`` checkpoints the first k
+layers (``torch.utils.checkpoint``, non-reentrant), and the per-layer views
+of the stacked leaves come from one ``unbind``, so each stacked leaf gets
+its gradient from one stack in the backward pass.
+
 Not ported yet: MoE layers (ROADMAP queue 1 item 5), prefix-bounded
 attention reads (``attn_block``) and deferred KV writes (item 3).
 """
@@ -23,6 +28,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from uniaudio2_tpu_torch.config import GPTConfig
 from uniaudio2_tpu_torch.ops import fused_mlp, qkv_step
@@ -73,6 +79,15 @@ def init_params(cfg: GPTConfig, generator: torch.Generator,
     return params
 
 
+def param_count(params: Params) -> int:
+    """Number of parameters in a tree of tensors."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    return 0 if params is None else params.numel()
+
+
 def index_leaf(w, i: int):
     """Layer ``i`` of a stacked leaf (tensor or quantized container)."""
     if isinstance(w, tuple):
@@ -80,16 +95,22 @@ def index_leaf(w, i: int):
     return w[i]
 
 
+def _unbind(w):
+    """Per-layer views of a stacked leaf (tensor or quantized container)."""
+    if isinstance(w, tuple):
+        return [type(w)(*parts) for parts in zip(*(t.unbind(0) for t in w))]
+    return w.unbind(0)
+
+
 def unstack_layers(params: Params) -> Params:
     """Stacked layer leaves -> a list of per-layer dicts (views, no copy)."""
     layers = params["layers"]
     if isinstance(layers, list):
         return params
-    first = next(iter(layers.values()))
-    n_layer = (first[0] if isinstance(first, tuple) else first).shape[0]
+    views = {k: _unbind(v) for k, v in layers.items()}
+    n_layer = len(next(iter(views.values())))
     out = dict(params)
-    out["layers"] = [{k: index_leaf(v, i) for k, v in layers.items()}
-                     for i in range(n_layer)]
+    out["layers"] = [{k: v[i] for k, v in views.items()} for i in range(n_layer)]
     return out
 
 
@@ -178,9 +199,14 @@ def _layers(params: Params):
 
 def forward(params: Params, cfg: GPTConfig, x: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
-            extra_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+            extra_mask: Optional[torch.Tensor] = None,
+            remat: "bool | int" = False) -> torch.Tensor:
     """Full-sequence forward over continuous features (B, S, D) -> hidden
-    states after the final norm (B, S, D)."""
+    states after the final norm (B, S, D).
+
+    ``remat`` checkpoints each layer: backward keeps the per-layer inputs
+    and recomputes one layer's internals at a time. An int checkpoints the
+    first k layers only (selective remat); True is all, False or 0 none."""
     _no_moe(cfg)
     b, s, d = x.shape
     cos_t, sin_t = _rope_tables(
@@ -190,16 +216,25 @@ def forward(params: Params, cfg: GPTConfig, x: torch.Tensor, *,
     else:
         cos, sin = cos_t[positions], sin_t[positions]
     scale = 1.0 / math.sqrt(cfg.attention_scores_scalar or cfg.head_size)
-    layers = _layers(params)
-    for layer, win in zip(layers, _layer_windows(cfg, len(layers))):
-        hn = rms_norm(x, layer["norm1_w"], cfg.norm_eps)
+
+    def layer_fn(xc, layer, win):
+        hn = rms_norm(xc, layer["norm1_w"], cfg.norm_eps)
         q, k, v = _qkv(layer, cfg, hn, cos, sin)
         attn = causal_attention(q, k, v, scale=scale, extra_mask=extra_mask,
                                 logit_softcap=cfg.attention_logit_softcapping,
                                 window=win)
-        x = x + matmul(attn, layer["attn_proj_w"])
-        hn = rms_norm(x, layer["norm2_w"], cfg.norm_eps)
-        x = x + _mlp(layer, hn, cfg)
+        xc = xc + matmul(attn, layer["attn_proj_w"])
+        hn = rms_norm(xc, layer["norm2_w"], cfg.norm_eps)
+        return xc + _mlp(layer, hn, cfg)
+
+    layers = _layers(params)
+    n = len(layers)
+    k = n if remat is True else 0 if remat is False else max(0, min(int(remat), n))
+    for i, (layer, win) in enumerate(zip(layers, _layer_windows(cfg, n))):
+        if i < k:
+            x = checkpoint(layer_fn, x, layer, win, use_reentrant=False)
+        else:
+            x = layer_fn(x, layer, win)
     return rms_norm(x, params["ln_f_w"], cfg.norm_eps)
 
 

@@ -8,9 +8,12 @@ Parameters and KV caches are plain dicts / named tuples of tensors; caches
 are updated in place. Decoding takes explicit ``torch.Generator``s and
 never synchronises with the host inside a frame.
 
-Not ported yet: the training `forward` and `_local_decoder_teacher_forced`
-(ROADMAP queue 1 item 14 needs them), batched ``key_valid`` decoding and
-per-row keys (item 7).
+`forward` is the teacher-forced training forward (the reference's
+`Model_stage3.forward`), with the local decoder run densely at every step
+or at gathered audio steps (``decoder_positions``).
+
+Not ported yet: batched ``key_valid`` decoding and per-row keys (ROADMAP
+queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -135,6 +138,73 @@ def _fuse_input(params: Params, cfg: UnifiedModelConfig, tokens: torch.Tensor,
     text_embeds = gpt.embed(params["backbone"], tokens[:, :, -1])
     return (audio_input, text_embeds, mask[:, :, 0:1].to(dtype),
             mask[:, :, -1:].to(dtype))
+
+
+def forward(params: Params, cfg: UnifiedModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, tokens_mask: torch.Tensor, *,
+            extra_mask: Optional[torch.Tensor] = None,
+            return_hidden: bool = False, remat_layers: bool = False,
+            remat_backbone: "Optional[int]" = None,
+            remat_small: Optional[bool] = None,
+            decoder_positions: Optional[torch.Tensor] = None):
+    """Training forward (reference `model_new.py:402-454`).
+
+    tokens (B, S, 9) teacher-forced input grid; labels (B, S, 8) next-step
+    audio codes; tokens_mask (B, S+1, 9) bool (one step longer, sliced
+    here). ``remat_layers`` checkpoints every layer of every stack;
+    ``remat_backbone`` (an int: the first k backbone layers) and
+    ``remat_small`` (experts + local decoder) override it per stack.
+    ``decoder_positions`` (B, C) runs the local decoder only at those steps.
+    Returns text_logits (B, S, V_text) and audio_logits (B, S or C, 8,
+    V_audio), or with ``return_hidden`` the pre-head pair ``(h_final
+    (B, S, D), dec_h (B·S or B·C, 8, D_dec))`` for the chunked CE."""
+    remat_bb = remat_layers if remat_backbone is None else remat_backbone
+    remat_sm = remat_layers if remat_small is None else remat_small
+    audio_input, text_embeds, a_mask, t_mask = _fuse_input(
+        params, cfg, tokens, tokens_mask[:, :-1, :])
+    h_audio = gpt.forward(params["understanding_expert"],
+                          cfg.understanding_expert, audio_input,
+                          extra_mask=extra_mask, remat=remat_sm)
+    h = gpt.forward(params["backbone"], cfg.backbone,
+                    h_audio * a_mask + text_embeds * t_mask,
+                    extra_mask=extra_mask, remat=remat_bb)
+    h_gen = gpt.forward(params["generation_expert"], cfg.generation_expert,
+                        h * a_mask, extra_mask=extra_mask, remat=remat_sm)
+    h_final = h_gen * a_mask + h * t_mask
+    dec_in, dec_labels = h_final, labels
+    if decoder_positions is not None:
+        idx = decoder_positions.long()[:, :, None]
+        dec_in = torch.take_along_dim(h_final, idx, dim=1)          # (B, C, D)
+        dec_labels = torch.take_along_dim(labels, idx, dim=1)       # (B, C, 8)
+    if return_hidden:
+        return h_final, _local_decoder_teacher_forced(
+            params, cfg, dec_in, dec_labels, return_hidden=True, remat=remat_sm)
+    text_logits = gpt.lm_head(params["backbone"], h_final, cfg.backbone)
+    return text_logits, _local_decoder_teacher_forced(params, cfg, dec_in,
+                                                      dec_labels)
+
+
+def _local_decoder_teacher_forced(params: Params, cfg: UnifiedModelConfig,
+                                  h_final: torch.Tensor, labels: torch.Tensor,
+                                  return_hidden: bool = False,
+                                  remat: bool = False) -> torch.Tensor:
+    """The local RQ-decoder over every step at once: per step t the 8-long
+    causal sequence ``[h_final[t]; embed(labels[t, 0:7])]``, steps folded
+    into the batch, so the decoder sees (B*S, 8, D). Returns the per-head
+    logits (B, S, 8, V_audio) in float32, or the pre-head hidden states
+    (B*S, 8, D_dec)."""
+    b, s, d_b = h_final.shape
+    ncb = cfg.tokens.num_codebooks
+    local = _embed_audio_streams(params, cfg, labels[:, :, :ncb - 1])
+    curr = torch.cat([h_final[:, :, None, :], local], dim=2).reshape(
+        b * s, ncb, d_b)
+    proj = matmul(curr, params["projection_w"])
+    dec_h = gpt.forward(params["decoder"], cfg.decoder, proj, remat=remat)
+    if return_hidden:
+        return dec_h
+    logits = torch.einsum("bnd,ndv->bnv", dec_h.float(),
+                          params["audio_head"].float())
+    return logits.reshape(b, s, ncb, -1)
 
 
 def forward_text(params: Params, cfg: UnifiedModelConfig,

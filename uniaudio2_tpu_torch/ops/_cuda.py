@@ -26,11 +26,12 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("gemv_int4i.cu", "gemv_int8.cu", "qkv_rope.cu", "fused_swiglu.cu",
-           "flash_attn.cu")
+           "flash_attn.cu", "lean_update.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # x, w, scale, norm_w, residual, out, M, K, N, ldw, eps, out_f32, stream
     "ua2_gemv_int4i": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
@@ -45,6 +46,10 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, o, BH, T, hd, scale, stream
     "ua2_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # g, m_q, m_scale, p, a, b, upd, new_m_q, new_m_scale, rows,
+    # rows_per_lead, cols, is_bf16, b1, 1 - b1, wd, eps, inv_mc, -lr, stream
+    "ua2_lean_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                        _F, _F, _F, _F, _F, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -383,6 +383,15 @@ def matmul(x: torch.Tensor, w, out_dtype=None, pre_norm=None,
         return out.reshape(*lead, -1)
     if pre_norm is not None:
         x = rms_norm(x, pre_norm[0], pre_norm[1])
+    if (x.is_cuda and x.dtype == w.dtype == torch.bfloat16
+            and out_dtype in (None, torch.bfloat16) and residual is None):
+        # the training forward's products, on the tensor cores: bf16
+        # operands, float32 accumulation, one rounding to bf16. With
+        # torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+        # off (train.main turns it off) cuBLAS also sums split-K partials
+        # in float32, so this agrees with the float32 form below up to the
+        # order of the sums; with it on, partials may be rounded to bf16
+        return torch.matmul(x, w)
     out = torch.matmul(x.float(), w.float()).to(out_dtype or torch.float32)
     if residual is not None:
         out = out + residual.to(out.dtype)
