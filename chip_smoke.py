@@ -10,14 +10,14 @@ caught):
    from ``nvidia-smi``;
 2. build every CUDA kernel from ``uniaudio2_tpu_torch/csrc`` with nvcc
    (sm_90a) and print the build seconds;
-3. each kernel against its plain PyTorch twin at the serving path's
-   shapes (bf16 activations, M = 1, 2 — the CFG pair — and 63 — the
-   prefill bucket; the flash attention kernel at (B, H, hd) = (2, 24, 64)
-   and the codec windows' T = 186, 374 and 750, plus T = 130 and B = 1
-   for the tails), with the median CUDA-event time of each (L2 flushed
-   before every launch, as the decode loop finds it), the bound on the
-   card and, where one PyTorch call computes the same function, that
-   call's time;
+3. each kernel, in every weight form it has, against its plain PyTorch
+   twin at the serving path's shapes (bf16 activations, M = 1, 2 — the CFG
+   pair —, 63 — the prefill bucket 64 — and, for the GEMVs, 255 — bucket
+   256; the flash attention kernel at (B, H, hd) = (2, 24, 64) and the
+   codec windows' T = 186, 374 and 750, plus T = 130 and B = 1 for the
+   tails), with the median CUDA-event time of each (L2 flushed before every
+   launch, as the decode loop finds it), the bound on the card and, where
+   one PyTorch call computes the same function, that call's time;
 4. the full `UnifiedModelConfig()` (28x3072 backbone, 3 + 2 expert layers,
    4x2048 local decoder) with random bf16 weights from a seeded generator,
    int4 everywhere (int8 lm_head), as `bench.py` serves it:
@@ -30,6 +30,25 @@ caught):
    frame's backbone K rows compared; then three planted faults (nibble
    order swapped in every or in one attn_proj, RoPE sign flipped in the
    QKV kernel) that the same comparison must reject;
+8. (run after phase 5) every other serving configuration of the JAX CLI,
+   each built from the same seeded bf16 tree at full depth and width and
+   freed before the next: A ``int8``, B ``int4`` (decoder, heads and
+   projection int4, the rest int8), C ``int4allg`` (grouped scales), D
+   ``int4all`` not interleaved (K-split + column-packed) and E ``int4allg``
+   not interleaved. Each serves the TTS prompt, one CFG pair and the ASR
+   prompt for 16 frames, D and E also a prompt in bucket 256 (255 and 510
+   prefill rows, past the fused kernels' 128); frames/s, memory, and the
+   launch count of every kernel form against the count the tree implies.
+   Then the prefill and first frame: C against the CPU twins (phase 5's
+   bounds); D against the interleaved int4all run and E against C, on the
+   card, on the TTS prompt at buckets 64 and 256 and on the ASR prompt
+   (the same levels in another byte order: the logits within phase 5's
+   bounds, the frame's K rows within tighter ones, far tighter on the
+   first four backbone layers); and two planted faults that the K rows
+   must reject on both prompts (the K-split halves swapped in one
+   attn_proj, one layer's group scales shifted by one group), each
+   planted once in backbone layer 14, where the bound on all layers' K
+   rows must catch it, and once in layer 1, where the early layers' must;
 6. the codec at full `CodecConfig()` width (DiT 32 x 24 x 64, ScalarAE
    `default_24k`) with random bf16 weights from a seeded generator:
    (a) one DiT estimator evaluation at B = 2, T = 374 through the flash
@@ -103,6 +122,7 @@ RTOL = 2e-2
 # 0.99794 (codebook 0); the subtlest planted fault of phase 5 (one
 # backbone layer's attn_proj with its nibbles swapped) at best 0.254 and
 # 0.989 (K rows). The bounds lie between, and each control must fail them.
+# Readings in PERF_HISTORY.md.
 BOUNDS = {"text": (1e-1, 0.995), "codebook0": (1e-1, 0.995),
           "k_rows": (1e-1, 0.995)}
 # The codec DiT at B = 2, T = 374, flash kernel vs twin, both on the card:
@@ -115,9 +135,37 @@ BOUNDS = {"text": (1e-1, 0.995), "codebook0": (1e-1, 0.995),
 # mask dropped (1) 1.1e-2, 0.99994 and (2) 2.5e-2, 0.99997. At random init
 # the attention barely moves the velocity (its gates are ~0.06), so (2) is
 # what holds a fault inside the kernel; each bound lies between the sound
-# reading and the faults it must reject. Readings in PERF.md.
+# reading and the faults it must reject. Readings in PERF_HISTORY.md.
 DIT_BOUNDS = {"velocity": (1.3e-2, 0.9999), "attention": (1e-2, 0.9999)}
+# A grouped-scale GEMV scales and rounds each weight to bf16 before the
+# product, as its twin does: without a residual the two differ in the order
+# of one f32 sum and land within one bf16 ulp, 2^-7 x max|twin|.
+RTOL_GROUPED = 2.0 ** -7
+# The same quantized levels in another byte order (K-split + column-packed
+# against row-interleaved), both on the card: (max|diff| / max|ref|, min
+# cosine) per compared output of the prefill + first frame, on two prompts
+# (TTS and ASR). The sums run in another order, so single bf16 roundings
+# flip and spread through 33 layers. At the end of the network that leaves
+# no room for a tighter bound: on the H100 the sound runs read up to 7.4e-2
+# and cosine 0.99697 on the text logits (ASR prompt), where a fault deep in
+# the network reads 0.124 (TTS prompt), so the logits keep BOUNDS and only
+# have to pass. What rejects a fault is the frame's K rows, which see the
+# residual stream layer by layer:
+#  * `k_rows`, all 28 backbone layers: sound <= 4.2e-2 / >= 0.99939; the
+#    faults planted in backbone layer 14 >= 0.150 / <= 0.99647;
+#  * `k_early`, the first EARLY_LAYERS backbone layers, where the flips have
+#    passed through at most seven layers: sound <= 1.6e-2 / >= 0.99992; the
+#    same faults planted in backbone layer 1 >= 0.201 / <= 0.9795. This is
+#    the tight one, ten times tighter than BOUNDS in 1 - cosine.
+# Each bound lies between its two readings; the layer-14 faults must fail
+# `k_rows` and the layer-1 faults `k_early`, on both prompts. The codebook-0
+# logits are compared on the TTS prompt only: the ASR path never forms them,
+# and at its last (text) position the sound runs read 0.125 / 0.9932.
+# Readings in PERF.md.
+EARLY_LAYERS = 4
+FORMAT_BOUNDS = {**BOUNDS, "k_rows": (8e-2, 0.998), "k_early": (4e-2, 0.9995)}
 FRAMES = 128
+FORMAT_FRAMES = 16      # frames of each request of phase 8
 # Peaks of one H100 SXM (NVIDIA data sheet; dense bf16 tensor-core rate and
 # HBM3 bandwidth), for the bound columns.
 PEAK_BF16 = 989e12
@@ -204,19 +252,59 @@ def bound(n_bytes, flops, peak=PEAK_BF16):
 
 
 def int4_tinygemm(torch, w):
-    """``w`` (row-interleaved int4, per-channel scale) repacked once for
-    ``torch._weight_int4pack_mm``: levels + 8 as uint4, the scale repeated
-    over groups of 256 rows, zero points 0; the same function."""
-    v = w.values.to(torch.int32) & 0xFF
-    lo, hi = v & 0xF, v >> 4
-    lo, hi = lo - 16 * (lo >= 8).int(), hi - 16 * (hi >= 8).int()
-    k2, n = v.shape[0], w.scale.shape[0]
-    q = torch.stack([lo, hi], 1).reshape(2 * k2, -1)[:, :n].T + 8   # (N, K)
+    """Any int4 container repacked once for ``torch._weight_int4pack_mm``:
+    levels + 8 as uint4, zero points 0, bf16 scales per group of rows (the
+    container's own groups, or the per-channel scale repeated over groups
+    of 256 rows). Returns (packed weight, group size, scales and zeros)."""
+    from uniaudio2_tpu_torch.ops import quant
+
+    q = (quant.levels(w).T + 8).contiguous()                         # (N, K)
     packed = ((q[:, ::2] << 4) | q[:, 1::2]).to(torch.uint8).contiguous()
-    groups = 2 * k2 // 256
-    sz = torch.stack([w.scale.expand(groups, n), torch.zeros_like(
-        w.scale).expand(groups, n)], -1).to(torch.bfloat16).contiguous()
-    return torch._convert_weight_to_int4pack(packed, 8), sz
+    n, k = q.shape
+    scale = w.scale if w.scale.ndim == 2 else w.scale.expand(k // 256, n)
+    sz = torch.stack([scale, torch.zeros_like(scale)], -1).to(
+        torch.bfloat16).contiguous()
+    return (torch._convert_weight_to_int4pack(packed, 8), k // scale.shape[0],
+            sz)
+
+
+# Rows of the kernels line: one per kernel and weight form. A name without
+# a colon is the kernel's first ported form (row-interleaved per-channel
+# int4 for the fused kernels).
+GEMV_ROWS = {"int8": "int8_matmul", "int4i": "int4i_matmul",
+             "int4ig": "int4i_matmul:int4ig", "int4": "int4_matmul",
+             "int4g": "int4g_matmul", "int4c": "int4c_matmul",
+             "int4cg": "int4cg_matmul"}
+
+
+def qkv_row(form):
+    return "qkv_rope_step" if form == "int4i" else f"qkv_rope_step:{form}"
+
+
+def swiglu_row(form):
+    return "fused_swiglu" if form == "int4i+int4i" else f"fused_swiglu:{form}"
+
+
+def make_weight(torch, gen, dev, form, k, n):
+    """A random (k, n) weight in the container of ``form`` (the JAX
+    package's mode names), groups of `quant.INT4_GROUP` rows."""
+    from uniaudio2_tpu_torch.ops import quant
+
+    w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+    if form == "int8":
+        return quant.quantize(w)
+    q = {"int4": quant.quantize4, "int4i": quant.quantize4,
+         "int4c": quant.quantize4_cols, "int4g": quant.quantize4_grouped,
+         "int4ig": quant.quantize4_grouped,
+         "int4cg": quant.quantize4_cols_grouped}[form](w)
+    return quant.to_interleaved(q) if form in ("int4i", "int4ig") else q
+
+
+def weight_bytes(w):
+    """Bytes a kernel must read of ``w``: its true columns and its scale."""
+    n = w.scale.shape[-1]
+    cols = n - n // 2 if type(w).__name__.startswith("QuantizedLinearC4") else n
+    return w.values.shape[0] * cols + nbytes(w.scale)
 
 
 def sdpa_backend(torch, q, k, v):
@@ -243,14 +331,10 @@ def phase_kernels(torch, dev):
     def bf16(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    def i4(k, n, cols=False):
-        w = torch.randn((k, n), generator=gen, device=dev) * 0.02
-        return quant.to_interleaved(
-            quant.quantize4_cols(w) if cols else quant.quantize4(w))
-
     results = {}
 
-    def check(kernel, label, run, plain, case=None, library=None, row=False):
+    def check(kernel, label, run, plain, case=None, library=None, row=False,
+              rtol=RTOL):
         """``case`` = (bytes, flops) of the call, for its bound; ``library``
         is one PyTorch call of the same function; ``row`` marks the case
         the kernel's row of the kernels line reports."""
@@ -265,7 +349,7 @@ def phase_kernels(torch, dev):
             if not bool(torch.isfinite(o.float()).all()):
                 fail(f"{kernel} {label}: non-finite output")
             e = (o.float() - r.float()).abs().max().item()
-            tol = RTOL * r.float().abs().max().item()
+            tol = rtol * r.float().abs().max().item()
             if e > tol:
                 fail(f"{kernel} {label}: max_abs_err {e:.4g} > {tol:.4g}")
             err = max(err, e)
@@ -281,69 +365,111 @@ def phase_kernels(torch, dev):
             entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=lib_ms)
             extra += " [row]"
-        print(f"[3] {kernel:15s} {label:34s} max_abs_err {err:.3e} "
-              f"(tol {RTOL} x max|twin|) kernel {ms:.4f} ms twin {plain_ms:.4f} ms"
-              f"{extra}", flush=True)
+        print(f"[3] {kernel:27s} {label:34s} max_abs_err {err:.3e} "
+              f"(tol {rtol:.3g} x max|twin|) kernel {ms:.4f} ms twin "
+              f"{plain_ms:.4f} ms{extra}", flush=True)
         return lib_ms
 
-    for m in (1, 2, 63):
-        for name, (k, h, g, hd) in (("backbone", (3072, 24, 8, 128)),
-                                    ("decoder", (2048, 32, 8, 64))):
-            w = i4(k, (h + 2 * g) * hd)
-            x, nw = bf16(m, k), bf16(k)
-            ang = torch.rand(hd // 2, generator=gen, device=dev) * 6.0
-            cos, sin = torch.cos(torch.cat([ang, ang])), torch.sin(torch.cat([ang, ang]))
-            args = (x, w, nw, 1e-5, cos, sin, h, g, hd)
-            n = (h + 2 * g) * hd
-            ref_case = None
-            if m == 1 and name == "backbone":      # q, k, v out: n bf16
-                ref_case = (nbytes(x, w.values[:, :n], w.scale, nw, cos, sin)
-                            + 2 * m * n, 2 * m * k * n)
-            check("qkv_rope_step", f"{name} {k}->{n} M={m}",
-                  lambda: qkv_step.qkv_rope_step(*args),
-                  lambda: qkv_step.qkv_rope_step_plain(*args), ref_case,
-                  row=ref_case is not None)
-    for m in (1, 2, 63):
-        for label, k, n, res, out_dtype in (
-                ("attn_proj +res", 3072, 3072, True, None),
-                ("decoder attn_proj +res", 2048, 2048, True, None),
-                ("audio_head f32", 2048, 12300, False, torch.float32),
-                ("projection", 3072, 2048, False, None),
-                ("prefill qkv", 3072, 5120, False, None)):
-            w = i4(k, n)
-            x = bf16(m, k)
-            kw = dict(out_dtype=out_dtype, residual=bf16(m, n) if res else None)
-            ref_case = library = None
-            if m == 1 and label == "projection":   # a plain product: the
-                wp, sz = int4_tinygemm(torch, w)    # library computes it too
-                ref_case = (nbytes(x, w.values[:, :n], w.scale) + 2 * m * n,
-                            2 * m * k * n)
+    # the fused QKV step, every mode; row: the backbone's at M = 1
+    for form in ("int4i", "int8", "int4", "int4g", "int4ig"):
+        for m in (1, 2, 63):
+            for name, (k, h, g, hd) in (("backbone", (3072, 24, 8, 128)),
+                                        ("decoder", (2048, 32, 8, 64))):
+                n = (h + 2 * g) * hd
+                w = make_weight(torch, gen, dev, form, k, n)
+                x, nw = bf16(m, k), bf16(k)
+                ang = torch.rand(hd // 2, generator=gen, device=dev) * 6.0
+                cos, sin = (torch.cos(torch.cat([ang, ang])),
+                            torch.sin(torch.cat([ang, ang])))
+                args = (x, w, nw, 1e-5, cos, sin, h, g, hd)
+                case = (nbytes(x, nw, cos, sin) + weight_bytes(w) + 2 * m * n,
+                        2 * m * k * n)                    # q, k, v out: bf16
+                check(qkv_row(form), f"{name} {k}->{n} M={m}",
+                      lambda: qkv_step.qkv_rope_step(*args),
+                      lambda: qkv_step.qkv_rope_step_plain(*args), case,
+                      row=m == 1 and name == "backbone")
+    # the GEMVs over K-axis-packed weights; row: the projection at M = 1,
+    # a plain product, which the library computes too. M = 255 is the
+    # prefill of a bucket-256 prompt, bound by operations.
+    for form in ("int4i", "int4ig", "int4", "int4g", "int8"):
+        fn = {"int4i": quant.int4i_matmul, "int4ig": quant.int4i_matmul,
+              "int4": quant.int4_matmul, "int4g": quant.int4g_matmul,
+              "int8": quant.int8_matmul}[form]
+        for m in (1, 2, 63, 255):
+            for label, k, n, res, out_dtype in (
+                    ("attn_proj +res", 3072, 3072, True, None),
+                    ("decoder attn_proj +res", 2048, 2048, True, None),
+                    ("audio_head f32", 2048, 12300, False, torch.float32),
+                    ("projection", 3072, 2048, False, None),
+                    ("prefill qkv", 3072, 5120, False, None)):
+                if form == "int8" and label in ("decoder attn_proj +res",
+                                                "projection"):
+                    continue        # int8's row is the lm_head, below
+                w = make_weight(torch, gen, dev, form, k, n)
+                x = bf16(m, k)
+                kw = dict(out_dtype=out_dtype,
+                          residual=bf16(m, n) if res else None)
+                out_bytes = 4 if out_dtype is torch.float32 else 2
+                case = (nbytes(x) + weight_bytes(w)
+                        + (2 * res + out_bytes) * m * n, 2 * m * k * n)
+                library = None
+                row = m == 1 and label == "projection"
+                if row:
+                    wp, group, sz = int4_tinygemm(torch, w)
 
-                def library():
-                    return torch._weight_int4pack_mm(x, wp, 256, sz)
-            check("int4i_matmul", f"{label} {k}->{n} M={m}",
-                  lambda: quant.int4i_matmul(x, w.values, w.scale, **kw),
-                  lambda: quant.int4i_matmul_plain(x, w.values, w.scale, **kw),
-                  ref_case, library, row=ref_case is not None)
-            if library is not None:
-                lib_err = (library().float() - quant.int4i_matmul_plain(
-                    x, w.values, w.scale).float()).abs().max().item()
-                print(f"[3] int4i_matmul library _weight_int4pack_mm vs twin: "
-                      f"max_abs_err {lib_err:.3e}", flush=True)
-    for m in (1, 2, 63):
-        for label, k, i in (("backbone", 3072, 8192), ("decoder", 2048, 8192)):
-            w1, w2, w3 = i4(k, i), i4(k, i), i4(i, k, cols=True)
-            x = bf16(m, k)
-            kw = dict(norm_w=bf16(k), residual=bf16(m, k))
-            ref_case = None
-            if m == 1 and label == "backbone":
-                ref_case = (nbytes(x, kw["norm_w"], kw["residual"], w1.values,
-                                   w1.scale, w2.values, w2.scale, w3.values,
-                                   w3.scale) + 2 * m * k, 6 * m * k * i)
-            check("fused_swiglu", f"{label} {k}->{i}->{k} M={m}",
-                  lambda: fused_mlp.fused_swiglu(x, w1, w2, w3, **kw),
-                  lambda: fused_mlp.fused_swiglu_plain(x, w1, w2, w3, **kw),
-                  ref_case, row=ref_case is not None)
+                    def library():
+                        return torch._weight_int4pack_mm(x, wp, group, sz)
+                grouped = form.endswith("g") and not res
+                check(GEMV_ROWS[form], f"{label} {k}->{n} M={m}",
+                      lambda: fn(x, w.values, w.scale, **kw),
+                      lambda: quant.matmul_plain(x, w, **kw), case, library,
+                      row=row, rtol=RTOL_GROUPED if grouped else RTOL)
+                if library is not None:
+                    lib_err = (library().float() - quant.matmul_plain(
+                        x, w).float()).abs().max().item()
+                    print(f"[3] {GEMV_ROWS[form]} library _weight_int4pack_mm "
+                          f"(groups of {group}) vs twin: max_abs_err "
+                          f"{lib_err:.3e}", flush=True)
+    # the column-packed GEMVs (the MLP down-projection): alone they run at a
+    # prefill of more than 128 rows; row: the backbone's at M = 255
+    for form in ("int4c", "int4cg"):
+        fn = {"int4c": quant.int4c_matmul, "int4cg": quant.int4cg_matmul}[form]
+        for m in (1, 2, 63, 255):
+            for label, k, n in (("mlp_proj", 8192, 3072),
+                                ("decoder mlp_proj", 8192, 2048)):
+                w = make_weight(torch, gen, dev, form, k, n)
+                x = bf16(m, k)
+                case = (nbytes(x) + weight_bytes(w) + 2 * m * n, 2 * m * k * n)
+                library = None
+                row = m == 255 and label == "mlp_proj"
+                if row:
+                    wp, group, sz = int4_tinygemm(torch, w)
+
+                    def library():
+                        return torch._weight_int4pack_mm(x, wp, group, sz)
+                check(GEMV_ROWS[form], f"{label} {k}->{n} M={m}",
+                      lambda: fn(x, w.values, w.scale),
+                      lambda: quant.matmul_plain(x, w), case, library, row=row,
+                      rtol=RTOL_GROUPED if form == "int4cg" else RTOL)
+    # the fused SwiGLU half-block in the forms the serving trees hold; row:
+    # the backbone's at M = 1
+    for up, down in (("int4i", "int4i"), ("int8", "int8"), ("int4", "int4c"),
+                     ("int4g", "int4cg"), ("int4ig", "int4ig")):
+        for m in (1, 2, 63):
+            for label, k, i in (("backbone", 3072, 8192),
+                                ("decoder", 2048, 8192)):
+                w1, w2 = (make_weight(torch, gen, dev, up, k, i)
+                          for _ in range(2))
+                w3 = make_weight(torch, gen, dev, down, i, k)
+                x = bf16(m, k)
+                kw = dict(norm_w=bf16(k), residual=bf16(m, k))
+                case = (nbytes(x, kw["norm_w"], kw["residual"])
+                        + sum(weight_bytes(w) for w in (w1, w2, w3))
+                        + 2 * m * k, 6 * m * k * i)
+                check(swiglu_row(f"{up}+{down}"), f"{label} {k}->{i}->{k} M={m}",
+                      lambda: fused_mlp.fused_swiglu(x, w1, w2, w3, **kw),
+                      lambda: fused_mlp.fused_swiglu_plain(x, w1, w2, w3, **kw),
+                      case, row=m == 1 and label == "backbone")
     n = 128256
     w = quant.quantize(torch.randn((3072, n), generator=gen, device=dev) * 0.02)
     w_lib = w.values[:, :n].T.contiguous()     # (N, K) int8 for the library
@@ -447,6 +573,8 @@ def lean_cases(torch, dev, gen, timer, results):
 
 
 def build_model(torch, dev):
+    """The seeded bf16 tree (kept for phase 8) and its int4all serving
+    form."""
     from uniaudio2_tpu_torch.config import UnifiedModelConfig
     from uniaudio2_tpu_torch.models import unified
     from uniaudio2_tpu_torch.ops import quant
@@ -455,15 +583,16 @@ def build_model(torch, dev):
     t0 = time.perf_counter()
     with torch.no_grad():
         gen = torch.Generator(device=dev).manual_seed(0)
-        params = unified.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
-        params = quant.quantize_unified_params(params, int4_modules=INT4ALL)
-        params = unified.prepare_serving_params(params)
+        base = unified.init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+        before = torch.cuda.memory_allocated()
+        params = unified.prepare_serving_params(
+            quant.quantize_unified_params(base, int4_modules=INT4ALL))
     torch.cuda.synchronize()
     print(f"[4] full UnifiedModelConfig int4all serving params in "
           f"{time.perf_counter() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card",
-          flush=True)
-    return cfg, params
+          f"{(torch.cuda.memory_allocated() - before) / 2 ** 30:.2f} GiB on the "
+          f"card beside the {before / 2 ** 30:.2f} GiB bf16 tree", flush=True)
+    return cfg, base, params
 
 
 def prompts(cfg):
@@ -481,31 +610,105 @@ def prompts(cfg):
     return tts, neg, asr
 
 
+def long_prompts(cfg):
+    """A TTS prompt and its CFG negative that land in bucket 256."""
+    import numpy as np
+    from uniaudio2_tpu_torch.engine import decode, tasks
+
+    prompt = np.arange(1, 24, dtype=np.int64) % 100
+    text = np.arange(5, 205, dtype=np.int64) % 100
+    tts = tasks.prepare_tts(prompt, text, cfg.tokens)
+    if decode.pick_bucket(tts[0].shape[0]) != 256:
+        fail(f"the long prompt ({tts[0].shape[0]} steps) is not in bucket 256")
+    return tts, tasks.prepare_tts_cfg_negative(prompt, text, cfg.tokens)
+
+
 def counters():
+    """Row of the kernels line -> (wrapper, form or None for a wrapper of
+    one form)."""
     from uniaudio2_tpu_torch.ops import fused_mlp, qkv_step, quant
 
-    return {"qkv_rope_step": qkv_step.qkv_rope_step,
-            "fused_swiglu": fused_mlp.fused_swiglu,
-            "int4i_matmul": quant.int4i_matmul,
-            "int8_matmul": quant.int8_matmul}
+    rows = {"int8_matmul": (quant.int8_matmul, None),
+            "int4i_matmul": (quant.int4i_matmul, "int4i"),
+            "int4i_matmul:int4ig": (quant.int4i_matmul, "int4ig"),
+            "int4_matmul": (quant.int4_matmul, None),
+            "int4g_matmul": (quant.int4g_matmul, None),
+            "int4c_matmul": (quant.int4c_matmul, None),
+            "int4cg_matmul": (quant.int4cg_matmul, None)}
+    for form in ("int4i", "int8", "int4", "int4g", "int4ig"):
+        rows[qkv_row(form)] = (qkv_step.qkv_rope_step, form)
+    for form in ("int4i+int4i", "int8+int8", "int4+int4c", "int4g+int4cg",
+                 "int4ig+int4ig"):
+        rows[swiglu_row(form)] = (fused_mlp.fused_swiglu, form)
+    return rows
 
 
-def expected_launches(cfg, mode: str, frames: int):
-    """Kernel launches of one request: prefill of the 3 + 28 + 2 expert and
-    backbone layers (int4 QKV and attn_proj GEMVs, fused MLP), then per
-    frame every layer's QKV step, attn_proj (+residual) and fused MLP; audio
-    frames add the 4-layer decoder x 8 codebooks, 8 audio heads and the
-    projection; text frames add the int8 lm_head."""
-    big = (cfg.understanding_expert.n_layer + cfg.backbone.n_layer
-           + cfg.generation_expert.n_layer)
-    dec = cfg.decoder.n_layer * cfg.tokens.num_codebooks
-    per = big + (dec if mode == "audio" else 0)
-    return {"qkv_rope_step": per * frames,
-            "fused_swiglu": per * frames + big,
-            "int4i_matmul": (per + (cfg.tokens.num_codebooks + 1
-                                    if mode == "audio" else 0)) * frames
-            + 2 * big,
-            "int8_matmul": frames if mode == "text" else 0}
+def reset_counts():
+    from uniaudio2_tpu_torch.ops import _cuda
+
+    for fn, _ in counters().values():
+        _cuda.reset_count(fn)
+
+
+def read_counts():
+    """Launches by row since `reset_counts`; fails on a form no row lists."""
+    rows = counters()
+    got = {name: fn.launches if form is None else fn.forms.get(form, 0)
+           for name, (fn, form) in rows.items()}
+    for fn in {fn for fn, _ in rows.values()}:
+        listed = {form for f, form in rows.values() if f is fn}
+        extra = set(fn.forms) - listed
+        if extra:
+            fail(f"{fn.__name__} launched forms no row lists: {extra}")
+    return got
+
+
+def expected_launches(cfg, params, mode: str, frames: int, prefill_rows: int):
+    """Kernel launches of one request over the serving tree ``params``, by
+    row: each launch goes to the kernel and form of its weight's container.
+    Prefill of the 3 + 28 + 2 expert and backbone layers: QKV and attn_proj
+    GEMVs and, up to 128 rows, the fused MLP, else gate, up and down GEMVs.
+    Then per frame every layer's QKV step, attn_proj (+residual) and fused
+    MLP; audio frames add the 4-layer decoder x 8 codebooks, 8 audio heads
+    and the projection; text frames add the lm_head."""
+    from uniaudio2_tpu_torch.ops.fused_mlp import FORMS
+
+    def gemv(w):
+        return GEMV_ROWS[FORMS[type(w)]]
+
+    want = dict.fromkeys(counters(), 0)
+    ncb = cfg.tokens.num_codebooks
+    steps = {"understanding_expert": frames, "backbone": frames,
+             "generation_expert": frames,
+             "decoder": ncb * frames if mode == "audio" else 0}
+    for sub, n in steps.items():
+        for layer in params[sub]["layers"]:
+            qkv, proj = layer["qkv_w"], layer["attn_proj_w"]
+            up, down = layer["fc1_w"], layer["mlp_proj_w"]
+            mlp = swiglu_row(f"{FORMS[type(up)]}+{FORMS[type(down)]}")
+            want[qkv_row(FORMS[type(qkv)])] += n
+            want[gemv(proj)] += n
+            want[mlp] += n
+            if sub == "decoder":
+                continue                      # the prefill skips the decoder
+            want[gemv(qkv)] += 1
+            want[gemv(proj)] += 1
+            if prefill_rows <= 128:
+                want[mlp] += 1
+            else:
+                want[gemv(up)] += 2
+                want[gemv(down)] += 1
+    if mode == "audio":
+        for head in params["audio_head"]:
+            want[gemv(head)] += frames
+        want[gemv(params["projection_w"])] += frames
+    else:
+        want[gemv(params["backbone"]["lm_head_w"])] += frames
+    return want
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
 
 
 def phase_model(torch, dev, cfg, params):
@@ -518,10 +721,8 @@ def phase_model(torch, dev, cfg, params):
     DecodeEngine(params, cfg, max_frames=2, buckets=(64,)).generate_audio(
         g, m, temperature=0.9, topk=50, seed=0)
     eng = DecodeEngine(params, cfg, max_frames=FRAMES, buckets=(64,))
-    fns = counters()
-    for fn in fns.values():
-        fn.launches = 0
-    want = dict.fromkeys(fns, 0)
+    reset_counts()
+    want = dict.fromkeys(counters(), 0)
     runs = (("tts", "audio", dict(use_cfg=False)),
             ("tts_cfg", "audio", dict(use_cfg=True, cfg_scale=1.5,
                                       neg_grid=ng, neg_mask=nm)),
@@ -545,19 +746,21 @@ def phase_model(torch, dev, cfg, params):
         n = eng.last_steps
         if n < 1:
             fail(f"{label}: no frame decoded")
-        for k, v in expected_launches(cfg, mode, n).items():
+        rows = 63 * (2 if kw.get("use_cfg") else 1)
+        for k, v in expected_launches(cfg, params, mode, n, rows).items():
             want[k] += v
         rate = n / dt
         extra = (f", {rate * ts.num_codebooks:.1f} audio tokens/s"
                  if mode == "audio" else "")
         print(f"[4] {label}: {n} frames in {dt:.3f} s = {rate:.2f} frames/s"
               f"{extra}; output {out.shape}", flush=True)
-    got = {k: fn.launches for k, fn in fns.items()}
-    print(f"[4] launches {json.dumps(got)} expected {json.dumps(want)}",
-          flush=True)
+    got = read_counts()
+    print(f"[4] launches {json.dumps(nonzero(got))} expected "
+          f"{json.dumps(nonzero(want))}", flush=True)
     if got != want:
         fail(f"launch counts {got} != the path's {want}")
-    missing = [k for k, v in got.items() if v == 0]
+    missing = [k for k in ("qkv_rope_step", "fused_swiglu", "int4i_matmul",
+                           "int8_matmul") if got[k] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     print(f"[4] peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
@@ -565,25 +768,27 @@ def phase_model(torch, dev, cfg, params):
     return got
 
 
-def first_frame(torch, cfg, params, grid, mask, device):
+def first_frame(torch, cfg, params, grid, mask, device, bucket=64):
     """Prefill + the first frame on ``device`` (kernels on the card, twins on
     the CPU): the text logits, the codebook-0 logits, and the K rows the
     frame wrote into the 28 backbone layers' caches (the QKV + RoPE
-    kernel's output, which the logits of a random model barely see)."""
+    kernel's output, which the logits of a random model barely see). The
+    prompt is padded to ``bucket``, so the prefill runs bucket - 1 rows."""
     from uniaudio2_tpu_torch.models import gpt, unified
     from uniaudio2_tpu_torch.ops.kv_cache import init_cache
     from uniaudio2_tpu_torch.ops.quant import matmul
 
     par = cfg.tokens.parallel_number
     length = grid.shape[0]
-    g = torch.zeros((1, 64, par), dtype=torch.int64)
-    msk = torch.zeros((1, 64, par), dtype=torch.bool)
+    g = torch.zeros((1, bucket, par), dtype=torch.int64)
+    msk = torch.zeros((1, bucket, par), dtype=torch.bool)
     g[0, :length] = torch.from_numpy(grid)
     msk[0, :length] = torch.from_numpy(mask)
     g, msk = g.to(device), msk.to(device)
     with torch.no_grad():
-        caches = unified.init_caches(cfg, 1, dtype=torch.bfloat16, seq_len=256,
-                                     as_lists=True, device=device)
+        caches = unified.init_caches(cfg, 1, dtype=torch.bfloat16,
+                                     seq_len=bucket + 192, as_lists=True,
+                                     device=device)
         unified.prefill(params, cfg, g[:, :-1], msk[:, :-1], caches)
         last = length - 1
         h, _ = unified.decode_hidden(
@@ -598,8 +803,9 @@ def first_frame(torch, cfg, params, grid, mask, device):
         cb0 = matmul(dh[:, -1], params["audio_head"][0],
                      out_dtype=torch.float32)
         k_rows = torch.stack([k[0, :, last] for k in caches.backbone.k])
+    k_rows = k_rows.float().cpu()
     return {"text": text.float().cpu(), "codebook0": cb0.float().cpu(),
-            "k_rows": k_rows.float().cpu()}
+            "k_rows": k_rows, "k_early": k_rows[:EARLY_LAYERS]}
 
 
 def to_cpu(tree):
@@ -646,7 +852,7 @@ def rope_sign_flipped():
         return orig(x, w, nw, eps, cos, -sin, *rest)
 
     # the wrapper counts its launches on the function its module holds
-    flipped.launches = 0
+    flipped.launches, flipped.forms = 0, {}
     return mock.patch.object(qkv_step, "qkv_rope_step", flipped)
 
 
@@ -660,9 +866,27 @@ def compare(torch, name, a, b):
     return rel, cos
 
 
+def rejected(torch, tag, label, got, ref, bounds):
+    """Print each compared output of a first frame against ``ref``; return
+    the names that fall outside ``bounds``."""
+    caught = []
+    for name, (rtol, min_cos) in bounds.items():
+        rel, cos = compare(torch, name, got[name], ref[name])
+        ok = rel <= rtol and cos >= min_cos
+        if not ok:
+            caught.append(name)
+        same = ("" if name.startswith("k_") else ", argmax equal %d" % int(
+            (got[name].argmax(-1) == ref[name].argmax(-1)).all()))
+        print(f"{tag} {label}: {name} {tuple(got[name].shape)} max_abs_err "
+              f"{rel:.4e} x max|ref| (tol {rtol}), cosine {cos:.6f} (min "
+              f"{min_cos}){same}{'' if ok else '  REJECTED'}", flush=True)
+    return caught
+
+
 def phase_logits(torch, dev, cfg, params):
     """The first frame through the kernels against the twins, then planted
-    faults (controls) that the same comparison must reject."""
+    faults (controls) that the same comparison must reject. Returns the
+    sound run's outputs on the card."""
     import contextlib
 
     (g, m), _, _ = prompts(cfg)
@@ -679,28 +903,214 @@ def phase_logits(torch, dev, cfg, params):
          contextlib.nullcontext),
         ("control: RoPE sign flipped in the QKV kernel", params,
          rope_sign_flipped))
-    verdicts = {}
+    verdicts, sound = {}, None
     for label, p, ctx in runs:
         with ctx():
             kern = first_frame(torch, cfg, p, g, m, dev)
-        caught = []
-        for name, (rtol, min_cos) in BOUNDS.items():
-            rel, cos = compare(torch, name, kern[name], plain[name])
-            ok = rel <= rtol and cos >= min_cos
-            if not ok:
-                caught.append(name)
-            same = ("" if name == "k_rows" else ", argmax equal %d" % int(
-                (kern[name].argmax(-1) == plain[name].argmax(-1)).all()))
-            print(f"[5] {label}: {name} {tuple(kern[name].shape)} max_abs_err "
-                  f"{rel:.4e} x max|ref| (tol {rtol}), cosine {cos:.6f} (min "
-                  f"{min_cos}){same}{'' if ok else '  REJECTED'}", flush=True)
-        verdicts[label] = caught
+        if label == "sound":
+            sound = kern
+        verdicts[label] = rejected(torch, "[5]", label, kern, plain, BOUNDS)
     print(f"[5] twins {t1 - t0:.1f} s on the CPU", flush=True)
     if verdicts["sound"]:
         fail(f"{verdicts['sound']}: kernels and twins disagree")
     missed = [k for k, v in verdicts.items() if k != "sound" and not v]
     if missed:
         fail(f"the comparison passed planted faults: {missed}")
+    return sound
+
+
+# Phase 8's serving configurations, as the JAX CLI spells them: (int4
+# modules, grouped scales, row-interleaved layout) and the rows of the
+# kernels line each must launch.
+INT4 = ("decoder", "audio_head", "projection_w")
+FORMATS = {
+    "A int8": ((), False, True,
+               ("int8_matmul", "qkv_rope_step:int8", "fused_swiglu:int8+int8")),
+    "B int4": (INT4, False, True,
+               ("int8_matmul", "int4i_matmul", "qkv_rope_step:int8",
+                "qkv_rope_step", "fused_swiglu:int8+int8", "fused_swiglu")),
+    "C int4allg": (INT4ALL, True, True,
+                   ("int8_matmul", "int4i_matmul:int4ig", "qkv_rope_step:int4ig",
+                    "fused_swiglu:int4ig+int4ig")),
+    "D int4all, not interleaved": (
+        INT4ALL, False, False,
+        ("int8_matmul", "int4_matmul", "int4c_matmul", "qkv_rope_step:int4",
+         "fused_swiglu:int4+int4c")),
+    "E int4allg, not interleaved": (
+        INT4ALL, True, False,
+        ("int8_matmul", "int4g_matmul", "int4cg_matmul", "qkv_rope_step:int4g",
+         "fused_swiglu:int4g+int4cg")),
+}
+
+
+def serve_format(torch, cfg, params, label, ksplit):
+    """Serve the TTS prompt, one CFG pair and the ASR prompt (and, for the
+    K-split trees, a bucket-256 prompt alone and as a CFG pair) from
+    ``params``; frames/s of each, launches by row against the tree's
+    count. Returns the launches."""
+    import numpy as np
+    from uniaudio2_tpu_torch.engine.decode import DecodeEngine
+
+    (g, m), (ng, nm), (ag, am) = prompts(cfg)
+    eng = DecodeEngine(params, cfg, max_frames=FORMAT_FRAMES, buckets=(64,))
+    cfg_kw = dict(use_cfg=True, cfg_scale=1.5)
+    runs = [("tts", eng, "audio", 63, (g, m), {}),
+            ("tts_cfg", eng, "audio", 126, (g, m),
+             dict(cfg_kw, neg_grid=ng, neg_mask=nm)),
+            ("asr", eng, "text", 63, (ag, am), {})]
+    if ksplit:
+        # bucket 256 gives a 512-slot cache, where "auto" would pick the int8
+        # KV cache and prefix-bounded attention, which the port lacks so far
+        long_eng = DecodeEngine(params, cfg, max_frames=FORMAT_FRAMES // 2,
+                                buckets=(256,), attn_block=0, kv_quant="off")
+        (lg, lm), (lng, lnm) = long_prompts(cfg)
+        runs += [("tts bucket 256", long_eng, "audio", 255, (lg, lm), {}),
+                 ("tts_cfg bucket 256", long_eng, "audio", 510, (lg, lm),
+                  dict(cfg_kw, neg_grid=lng, neg_mask=lnm))]
+    reset_counts()
+    want = dict.fromkeys(counters(), 0)
+    for name, engine, mode, rows, (grid, mask), kw in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "audio":
+            reason, semantic = engine.generate_audio(
+                grid, mask, temperature=0.9, topk=50, seed=1, **kw)
+            out = np.concatenate([reason, semantic], axis=1)
+            bad = out.shape[0] != cfg.tokens.num_codebooks or out.size and (
+                out.min() < 0 or out.max() >= cfg.tokens.audio_vocab)
+        else:
+            out = engine.generate_text(grid, mask, temperature=0.9, topk=50,
+                                       seed=1)
+            bad = out.size and (out.min() < 0 or out.max()
+                                >= cfg.backbone.padded_vocab_size)
+        dt = time.perf_counter() - t0
+        n = engine.last_steps
+        if bad or n < 1:
+            fail(f"{label} {name}: bad tokens {out.shape} after {n} frames")
+        for k, v in expected_launches(cfg, params, mode, n, rows).items():
+            want[k] += v
+        print(f"[8] {label}: {name}: {n} frames in {dt:.3f} s = {n / dt:.2f} "
+              f"frames/s (prefill of {rows} rows included); output {out.shape}",
+              flush=True)
+    got = read_counts()
+    print(f"[8] {label}: launches {json.dumps(nonzero(got))}", flush=True)
+    if got != want:
+        fail(f"{label}: launch counts {nonzero(got)} != the tree's "
+             f"{nonzero(want)}")
+    return got
+
+
+def with_layer(params, sub, index, change):
+    """``params`` with ``change`` applied to every quantized leaf of layer
+    ``index`` of ``sub``."""
+    out = dict(params)
+    gp = dict(params[sub])
+    gp["layers"] = [
+        {k: change(k, v) if isinstance(v, tuple) else v for k, v in lay.items()}
+        if i == index else lay for i, lay in enumerate(gp["layers"])]
+    out[sub] = gp
+    return out
+
+
+def phase_formats(torch, dev, cfg, base, int4all, sound64):
+    """Phase 8: every other serving configuration from the bf16 tree
+    ``base``. ``int4all`` is phase 4's tree and ``sound64`` its first frame
+    on the card (phase 5). Returns the launches by row, summed."""
+    from uniaudio2_tpu_torch.models import unified
+    from uniaudio2_tpu_torch.ops import quant
+
+    (g, m), _, (ag, am) = prompts(cfg)
+    # the compared first frames: (name, grid, mask, bucket)
+    probes = (("tts prompt, bucket 64", g, m, 64),
+              ("tts prompt, bucket 256", g, m, 256),
+              ("asr prompt, bucket 64", ag, am, 64))
+
+    def first_frames(p, which=probes):
+        return {name: first_frame(torch, cfg, p, gr, ma, dev, bucket)
+                for name, gr, ma, bucket in which}
+
+    def bounds_of(probe):
+        return {k: v for k, v in FORMAT_BOUNDS.items()
+                if k != "codebook0" or probe.startswith("tts")}
+
+    total = dict.fromkeys(counters(), 0)
+    # configuration letter -> probe name -> outputs
+    frames = {"int4all": {probes[0][0]: sound64,
+                          **first_frames(int4all, probes[1:])}}
+    verdicts = {}
+    for label, (modules, grouped, interleave, need) in FORMATS.items():
+        letter = label[0]
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            params = unified.prepare_serving_params(
+                quant.quantize_unified_params(base, int4_modules=modules,
+                                              grouped=grouped),
+                interleave=interleave)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - before
+        scales = sum(v.scale.numel() * 4 for sub in (
+            "backbone", "decoder", "understanding_expert", "generation_expert")
+            for lay in params[sub]["layers"] for v in lay.values()
+            if isinstance(v, quant.GROUPED))
+        print(f"[8] {label}: serving params in {time.perf_counter() - t0:.1f} s, "
+              f"{held / 2 ** 30:.2f} GiB on the card beside the bf16 embeddings "
+              f"they share with the bf16 tree ({scales / 2 ** 30:.3f} GiB of it "
+              f"the layers' group scales)", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        got = serve_format(torch, cfg, params, label, ksplit=not interleave)
+        print(f"[8] {label}: peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+              f" GiB (the bf16 tree and phase 4's int4all tree included)",
+              flush=True)
+        missing = [k for k in need if got[k] == 0]
+        if missing:
+            fail(f"{label}: kernels never launched: {missing}")
+        for k, v in got.items():
+            total[k] += v
+        if letter == "C":
+            t0 = time.perf_counter()
+            plain = first_frame(torch, cfg, to_cpu(params), g, m, "cpu")
+            print(f"[8] {label}: twins {time.perf_counter() - t0:.1f} s on the "
+                  f"CPU", flush=True)
+            frames["C"] = first_frames(params)
+            verdicts["C vs the CPU twins"] = rejected(
+                torch, "[8]", f"{label} vs the CPU twins",
+                frames["C"][probes[0][0]], plain, BOUNDS)
+        if letter in "DE":
+            ref = "int4all" if letter == "D" else "C"
+            for probe, out in first_frames(params).items():
+                name = f"{letter} vs {ref}, {probe}"
+                verdicts[name] = rejected(
+                    torch, "[8]", f"{label} vs {ref} (interleaved), {probe}",
+                    out, frames[ref][probe], bounds_of(probe))
+            if letter == "D":
+                what = "K-split halves swapped in the attn_proj of backbone layer"
+                change = lambda k, v: (swap_nibbles(torch, v)
+                                       if k == "attn_proj_w" else v)
+            else:
+                what = "group scales shifted by one group in backbone layer"
+                change = lambda k, v: type(v)(
+                    v.values, torch.roll(v.scale, 1, 0).contiguous())
+            # the K rows must reject the fault: all layers' for layer 14,
+            # the early layers' (the tight bound) for layer 1
+            for layer, must in ((14, "k_rows"), (1, "k_early")):
+                bad = with_layer(params, "backbone", layer, change)
+                for probe, out in first_frames(bad, probes[::2]).items():
+                    fault = f"control: {what} {layer}, {probe}"
+                    caught = rejected(torch, "[8]", fault, out,
+                                      frames[ref][probe], bounds_of(probe))
+                    verdicts[fault] = [k for k in caught if k == must]
+                del bad
+        del params
+        torch.cuda.empty_cache()
+    wrong = [k for k, v in verdicts.items() if not k.startswith("control") and v]
+    if wrong:
+        fail(f"configurations disagree with their reference: {wrong}")
+    missed = [k for k, v in verdicts.items() if k.startswith("control") and not v]
+    if missed:
+        fail(f"phase 8's comparisons passed planted faults: {missed}")
+    return total
 
 
 def build_codec(torch, dev):
@@ -1260,9 +1670,13 @@ def main():
         profile_train(torch, dev)
         return
     kernels = phase_kernels(torch, dev)
-    cfg, params = build_model(torch, dev)
+    cfg, base, params = build_model(torch, dev)
     launches = phase_model(torch, dev, cfg, params)
-    phase_logits(torch, dev, cfg, params)
+    sound = phase_logits(torch, dev, cfg, params)
+    for k, v in phase_formats(torch, dev, cfg, base, params, sound).items():
+        launches[k] += v
+    del base
+    torch.cuda.empty_cache()
     ccfg, dec = build_codec(torch, dev)
     phase_estimator(torch, dev, ccfg, dec)
     launches["flash_attention"], codes, wav = phase_decode(torch, ccfg, dec)
@@ -1273,12 +1687,22 @@ def main():
     launches["lean_update"] = phase_train(torch, dev)
     torch.cuda.empty_cache()
     phase_train_cli(torch, dev)
-    meta = {"qkv_rope_step": ("qkv_rope.cu", "uniaudio2_tpu/ops/qkv_step.py:172"),
-            "fused_swiglu": ("fused_swiglu.cu", "uniaudio2_tpu/ops/fused_mlp.py:225"),
-            "int4i_matmul": ("gemv_int4i.cu", "uniaudio2_tpu/ops/quant.py:948"),
+    qkv = ("qkv_rope.cu", "uniaudio2_tpu/ops/qkv_step.py:172")
+    mlp = ("fused_swiglu.cu", "uniaudio2_tpu/ops/fused_mlp.py:225")
+    i4 = ("gemv_int4i.cu", "uniaudio2_tpu/ops/quant.py:948")
+    meta = {"int4i_matmul": i4, "int4i_matmul:int4ig": i4,
             "int8_matmul": ("gemv_int8.cu", "uniaudio2_tpu/ops/quant.py:483"),
+            "int4_matmul": ("gemv_int4.cu", "uniaudio2_tpu/ops/quant.py:597"),
+            "int4g_matmul": ("gemv_int4g.cu", "uniaudio2_tpu/ops/quant.py:712"),
+            "int4c_matmul": ("gemv_int4c.cu", "uniaudio2_tpu/ops/quant.py:799"),
+            "int4cg_matmul": ("gemv_int4cg.cu", "uniaudio2_tpu/ops/quant.py:864"),
             "flash_attention": ("flash_attn.cu", "uniaudio2_tpu/codec/dit.py:174"),
             "lean_update": ("lean_update.cu", "uniaudio2_tpu/ops/lean_update.py:100")}
+    for name in counters():
+        if name.startswith("qkv_rope_step"):
+            meta[name] = qkv
+        elif name.startswith("fused_swiglu"):
+            meta[name] = mlp
     rows = []
     for name, (src, replaces) in meta.items():
         k = kernels[name]

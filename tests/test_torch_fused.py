@@ -111,7 +111,9 @@ def test_can_fuse_gates(layer):
     qkv = tl["qkv_w"]
     assert qkv_step.can_fuse(qkv, x, 4, 2, 64)
     assert not qkv_step.can_fuse(qkv, torch.zeros(129, 256), 4, 2, 64)
-    assert not qkv_step.can_fuse(quant.quantize(torch.randn(256, 512)), x, 4, 2, 64)
+    assert qkv_step.can_fuse(quant.quantize(torch.randn(256, 512)), x, 4, 2, 64)
+    assert not qkv_step.can_fuse(quant.quantize4_cols(torch.randn(256, 512)),
+                                 x, 4, 2, 64)          # column-packed
     assert not qkv_step.can_fuse(qkv, x, 3, 1, 128)        # width mismatch
     padded = quant.to_interleaved(quant.quantize4(torch.randn(256, 640)))
     assert not qkv_step.can_fuse(padded, x, 6, 2, 64)      # lane-padded

@@ -15,6 +15,10 @@ roundings is a relative 2^-9 (0.2 %); a few of them stacked, at the worst
 element of a tile, stay below 2 % of the output's range. The flash
 attention kernel rounds the unnormalised probabilities to bf16 where its
 twin rounds the normalised ones (one 2^-9 each), within the same bound.
+The grouped-scale GEMVs (`int4ig`, `int4g`, `int4cg`) scale and round each
+weight to bf16 before the product exactly as their twins do, so without a
+residual the two differ only in the order of the f32 sum and land within
+one bf16 ulp of each other: 2^-7 x max|twin| (RTOL_GROUPED).
 The lean-update kernel rounds every operation as its twin does, so the two
 must agree to the bit. `quant.matmul`'s bf16 tensor-core product (the
 training forward's) is held to its float32 form: both sum in float32 in
@@ -33,6 +37,7 @@ from uniaudio2_tpu_torch.train import lean_opt
 
 pytestmark = pytest.mark.cuda
 RTOL = 2e-2
+RTOL_GROUPED = 2.0 ** -7
 
 
 @pytest.fixture(scope="module")
@@ -58,10 +63,27 @@ def _i4(gen, dev, k, n, cols=False):
     return quant.to_interleaved(q)
 
 
-def _close(out, ref):
+def _make(gen, dev, form, k, n, group=128):
+    """A random (k, n) weight in the container of ``form`` (the JAX
+    package's mode names)."""
+    w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+    if form == "int8":
+        return quant.quantize(w)
+    q = {"int4": quant.quantize4, "int4i": quant.quantize4,
+         "int4c": quant.quantize4_cols}.get(form)
+    if q is None:
+        q = {"int4g": quant.quantize4_grouped, "int4ig": quant.quantize4_grouped,
+             "int4cg": quant.quantize4_cols_grouped}[form]
+        w = q(w, group)
+    else:
+        w = q(w)
+    return quant.to_interleaved(w) if form in ("int4i", "int4ig") else w
+
+
+def _close(out, ref, rtol=RTOL):
     assert out.shape == ref.shape and out.dtype == ref.dtype
     err = (out.float() - ref.float()).abs().max().item()
-    bound = RTOL * ref.float().abs().max().item()
+    bound = rtol * ref.float().abs().max().item()
     assert err <= bound, (err, bound)
 
 
@@ -99,6 +121,106 @@ def test_int8_matmul(dev, m, norm, res, out_dtype):
     out = quant.int8_matmul(x, w.values, w.scale, **kw)
     torch.cuda.synchronize()
     _close(out, quant.int8_matmul_plain(x, w.values, w.scale, **kw))
+
+
+GEMV_FORMS = {"int8": quant.int8_matmul, "int4i": quant.int4i_matmul,
+              "int4ig": quant.int4i_matmul, "int4": quant.int4_matmul,
+              "int4g": quant.int4g_matmul, "int4c": quant.int4c_matmul,
+              "int4cg": quant.int4cg_matmul}
+
+
+@pytest.mark.parametrize("m", [1, 2, 63, 130])
+@pytest.mark.parametrize("norm,res,out_dtype", FOLDS)
+@pytest.mark.parametrize("form", list(GEMV_FORMS))
+def test_matmul_every_form(dev, form, m, norm, res, out_dtype):
+    """`quant.matmul` sends every container to its kernel (one launch) and
+    agrees with the dequantize-then-product twin; odd widths exercise the
+    padded storage and, for the column-packed forms, both trims."""
+    g = _gen(dev, 9)
+    k, n = 512, 600
+    w = _make(g, dev, form, k, n, group=64)
+    x = _bf16(g, dev, m, k)
+    kw = dict(out_dtype=out_dtype,
+              pre_norm=(_bf16(g, dev, k), 1e-5) if norm else None,
+              residual=_bf16(g, dev, m, n, std=0.1) if res else None)
+    before = GEMV_FORMS[form].launches
+    out = quant.matmul(x, w, **kw)
+    torch.cuda.synchronize()
+    assert GEMV_FORMS[form].launches == before + 1
+    grouped_plain = form.endswith("g") and not res
+    _close(out, quant.matmul_plain(x, w, **kw),
+           RTOL_GROUPED if grouped_plain else RTOL)
+
+
+@pytest.mark.parametrize("k", [64, 192, 320])
+@pytest.mark.parametrize("norm,res,out_dtype", FOLDS)
+@pytest.mark.parametrize("form", list(GEMV_FORMS))
+def test_matmul_launches_at_any_width(dev, form, k, norm, res, out_dtype):
+    """Contraction widths the JAX dispatcher hands to its dequantize-then-
+    product form (`kernel_eligible` false: K not a multiple of 256, or of
+    128 for int8 and the column-packed forms) still launch the container's
+    kernel on the card, once, and agree with the twin."""
+    g = _gen(dev, 12)
+    n, m = 200, 3
+    w = _make(g, dev, form, k, n, group=32)
+    assert not quant.kernel_eligible(w, k)
+    x = _bf16(g, dev, m, k)
+    kw = dict(out_dtype=out_dtype,
+              pre_norm=(_bf16(g, dev, k), 1e-5) if norm else None,
+              residual=_bf16(g, dev, m, n, std=0.1) if res else None)
+    before = GEMV_FORMS[form].launches
+    out = quant.matmul(x, w, **kw)
+    torch.cuda.synchronize()
+    assert GEMV_FORMS[form].launches == before + 1
+    grouped_plain = form.endswith("g") and not res
+    _close(out, quant.matmul_plain(x, w, **kw),
+           RTOL_GROUPED if grouped_plain else RTOL)
+
+
+@pytest.mark.parametrize("form", ["int8", "int4", "int4g", "int4i", "int4ig"])
+@pytest.mark.parametrize("b", [1, 5])
+@pytest.mark.parametrize("h,g_,hd", [(8, 4, 64), (4, 2, 128)])
+def test_qkv_rope_step_every_mode(dev, form, b, h, g_, hd):
+    g = _gen(dev, 10)
+    k = 512
+    w = _make(g, dev, form, k, (h + 2 * g_) * hd, group=64)
+    x = _bf16(g, dev, b, k)
+    nw = _bf16(g, dev, k)
+    ang = torch.rand(hd // 2, generator=g, device=dev) * 6.0
+    cos = torch.cos(torch.cat([ang, ang]))
+    sin = torch.sin(torch.cat([ang, ang]))
+    assert qkv_step.can_fuse(w, x, h, g_, hd)
+    before = qkv_step.qkv_rope_step.forms.get(form, 0)
+    out = qkv_step.qkv_rope_step(x, w, nw, 1e-5, cos, sin, h, g_, hd)
+    torch.cuda.synchronize()
+    assert qkv_step.qkv_rope_step.forms[form] == before + 1
+    ref = qkv_step.qkv_rope_step_plain(x, w, nw, 1e-5, cos, sin, h, g_, hd)
+    for o, r in zip(out, ref):
+        _close(o, r)
+
+
+SWIGLU_FORMS = [(a, b) for a in ("int8", "int4", "int4g")
+                for b in ("int8", "int4c", "int4cg")] \
+    + [(a, b) for a in ("int4i", "int4ig") for b in ("int8", "int4i", "int4ig")]
+
+
+@pytest.mark.parametrize("m", [1, 63])
+@pytest.mark.parametrize("folded", [False, True])
+@pytest.mark.parametrize("up,down", SWIGLU_FORMS)
+def test_fused_swiglu_every_form(dev, up, down, m, folded):
+    g = _gen(dev, 11)
+    k, i, n = 512, 1024, 520
+    w1, w2 = _make(g, dev, up, k, i, 64), _make(g, dev, up, k, i, 64)
+    w3 = _make(g, dev, down, i, n, 64)
+    x = _bf16(g, dev, m, k)
+    kw = dict(norm_w=_bf16(g, dev, k), residual=_bf16(g, dev, m, n)) \
+        if folded else {}
+    assert fused_mlp.can_fuse(w1, w2, w3, x)
+    before = fused_mlp.fused_swiglu.forms.get(f"{up}+{down}", 0)
+    out = fused_mlp.fused_swiglu(x, w1, w2, w3, **kw)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_swiglu.forms[f"{up}+{down}"] == before + 1
+    _close(out, fused_mlp.fused_swiglu_plain(x, w1, w2, w3, **kw))
 
 
 @pytest.mark.parametrize("b", [1, 2, 5])
@@ -228,6 +350,14 @@ def test_wrappers_raise_on_unsupported_input(dev):
         quant.int4i_matmul(torch.randn(1, 256, device=dev), w.values, w.scale)
     with pytest.raises(ValueError):
         quant.int4i_matmul(_bf16(g, dev, 1, 512), w.values, w.scale)
+    x = _bf16(g, dev, 1, 256)
+    with pytest.raises(ValueError):             # a grouped scale, per-channel kernel
+        quant.int4_matmul(x, w.values, w.scale[None].repeat(2, 1))
+    with pytest.raises(ValueError):             # 3 groups do not split K/2
+        quant.int4g_matmul(x, w.values, w.scale[None].repeat(3, 1).contiguous())
+    k4 = _make(g, dev, "int4", 256, 256)
+    with pytest.raises(ValueError):             # a K-split down-projection
+        fused_mlp.fused_swiglu(x, k4, k4, k4)
     q = _bf16(g, dev, 1, 2, 8, 32)
     with pytest.raises(ValueError):
         flash_attention.flash_attention(q, q, q, 32 ** -0.5)

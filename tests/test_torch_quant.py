@@ -188,10 +188,19 @@ def test_unified_serving_params_byte_identical():
 
 
 def test_grouped_not_ported():
-    with pytest.raises(NotImplementedError):
-        quant.quantize_unified_params({}, grouped=True)
-    with pytest.raises(NotImplementedError):
-        convert_params(jq.quantize4_grouped(jnp.asarray(_w((256, 128)))))
+    """No grouped format is left unported: the grouped tree quantizes, a
+    grouped container crosses the bridge with its bytes, and `matmul`
+    takes it."""
+    tp = convert_params(junified.init_params(jax.random.PRNGKey(0),
+                                             JaxConfig.tiny()), "cpu")
+    quant.quantize_unified_params(tp, int4_modules=("decoder",), grouped=True)
+    jw = jq.quantize4_grouped(jnp.asarray(_w((256, 128))))
+    tw = convert_params(jw, "cpu")
+    _same(tw, jw)
+    x = _w((2, 256), 1)
+    np.testing.assert_allclose(
+        quant.matmul(torch.from_numpy(x), tw).numpy(),
+        np.asarray(jq.matmul(jnp.asarray(x), jw)), **F32)
 
 
 def test_bf16_bridge_exact():

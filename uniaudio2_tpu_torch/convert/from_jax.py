@@ -7,8 +7,9 @@ whose class is named like one of the port's containers. This module does
 not import JAX: callers hand it arrays (``np.asarray`` of JAX arrays, or
 the JAX tree itself, whose arrays convert through ``np.asarray``).
 
-Chunk-major leaves (the TPU serving layout ``(C, K*, bc)``) are un-chunked
-to the port's row-major ``(K*, C*bc)``; all bytes are kept as they are.
+All seven containers cross, per-channel and grouped. Chunk-major leaves
+(the TPU serving layout ``(C, K*, bc)``) are un-chunked to the port's
+row-major ``(K*, C*bc)``; all bytes are kept as they are.
 `convert_lean_state` carries an `adamw_lean` optimizer state the same way.
 """
 
@@ -20,7 +21,6 @@ import torch
 from uniaudio2_tpu_torch.ops import quant
 
 _CONTAINERS = {cls.__name__: cls for cls in quant.QUANTIZED}
-_GROUPED = ("QuantizedLinear4G", "QuantizedLinearC4G", "QuantizedLinearI4G")
 
 
 def to_tensor(a, device="cuda") -> torch.Tensor:
@@ -42,9 +42,6 @@ def convert_params(tree, device="cuda"):
     if isinstance(tree, list):
         return [convert_params(v, device) for v in tree]
     name = type(tree).__name__
-    if name in _GROUPED:
-        raise NotImplementedError(
-            f"{name}: grouped-scale weights are not ported yet (ROADMAP queue 2)")
     if name in _CONTAINERS and hasattr(tree, "values"):
         w = _CONTAINERS[name](to_tensor(tree.values, device),
                               to_tensor(tree.scale, device))

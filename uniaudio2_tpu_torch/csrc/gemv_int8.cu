@@ -6,9 +6,9 @@
 //
 //   out (M, N) = [rmsnorm(x)] (M, K) @ W (K, N) * scale (N,) [+ res]
 //
-// W is (K, ldw) int8 with ldw >= N (512-aligned storage). On the serving
-// path it is the text lm_head, 3072 x 128256 (stored 128512), f32 logits,
-// read once per ASR frame.
+// W is (K, ldw) int8 with ldw >= N (512-aligned storage). Under int4
+// weights it is the text lm_head, 3072 x 128256 (stored 128512), f32 logits,
+// read once per ASR frame; under int8 weights it is every projection.
 //
 // Bound: weight bytes (K*N: 395 MB for the lm_head, about 118 us at the
 // H100's 3.35 TB/s) against M*K*N multiply-adds. The shared design
@@ -17,9 +17,10 @@
 #include "gemv_common.cuh"
 
 extern "C" int ua2_gemv_int8(const void* x, const void* w, const void* scale,
-                             const void* norm_w, const void* residual, void* out,
-                             int M, int K, int N, int ldw, float eps, int out_f32,
-                             void* stream) {
-  return ua2::launch_gemv<false>(x, w, scale, norm_w, residual, out, M, K, N, ldw,
-                                 eps, out_f32, static_cast<cudaStream_t>(stream));
+                    const void* norm_w, const void* residual, void* out, int M,
+                    int K, int N, int ldw, int G, float eps, int out_f32,
+                    void* stream) {
+  return ua2::launch_gemv<ua2::INT8, false>(x, w, scale, norm_w, residual, out, M, K,
+                                          N, ldw, G, eps, out_f32,
+                                          static_cast<cudaStream_t>(stream));
 }

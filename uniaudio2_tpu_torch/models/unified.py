@@ -26,8 +26,7 @@ from uniaudio2_tpu_torch.config import UnifiedModelConfig
 from uniaudio2_tpu_torch.models import gpt
 from uniaudio2_tpu_torch.ops.kv_cache import KVCache, init_cache
 from uniaudio2_tpu_torch.ops.quant import (
-    QuantizedLinear, QuantizedLinear4, dequantize, dequantize4, matmul,
-    to_interleaved,
+    QUANTIZED, dequantize_any, matmul, to_interleaved,
 )
 from uniaudio2_tpu_torch.ops.sampling import cfg_mix, sample_topk
 
@@ -78,45 +77,44 @@ def init_caches(cfg: UnifiedModelConfig, batch: int, dtype=torch.bfloat16,
 
 
 def prepare_serving_params(params: Params, dtype=torch.bfloat16,
-                           unroll: bool = True) -> Params:
+                           unroll: bool = True,
+                           interleave: bool = True) -> Params:
     """Serving-time layout (semantics unchanged):
 
     1. fold ``audio_embeddings @ projection_w`` into one gathered table
        ``audio_embeddings_proj`` (the local decoder's 7 embedding
        microsteps then skip the projection);
     2. with ``unroll``, per-layer weight lists and per-codebook heads;
-    3. with ``unroll``, row-interleaved int4 (`to_interleaved`) for every
-       int4 leaf, the layout of the port's int4 kernels.
+    3. with ``unroll`` and ``interleave``, row-interleaved int4
+       (`to_interleaved`) for every int4 leaf, per-channel or grouped.
+       ``interleave=False`` keeps the K-split / column-packed bytes the
+       quantizers wrote (the JAX package's ``UA2_INT4I=0``).
 
     The JAX package's chunk-major step is a TPU DMA layout; the port keeps
     weights row-major."""
     w = params["projection_w"]
-    if isinstance(w, QuantizedLinear):
-        w = dequantize(w, torch.float32)
-    elif isinstance(w, QuantizedLinear4):
-        w = dequantize4(w, torch.float32)
-    elif isinstance(w, tuple):
-        raise NotImplementedError(
-            f"{type(w).__name__} projection_w is not ported yet")
+    if isinstance(w, QUANTIZED):
+        w = dequantize_any(w, torch.float32)
     out = dict(params)
     out["audio_embeddings_proj"] = torch.matmul(
         params["audio_embeddings"].float(), w.float()).to(dtype)
     if not unroll:
         return out
+    relayout = to_interleaved if interleave else (lambda leaf: leaf)
     for sub in ("backbone", "decoder", "understanding_expert",
                 "generation_expert"):
         gp = gpt.unstack_layers(out[sub])
-        gp["layers"] = [{k: to_interleaved(v) for k, v in layer.items()}
+        gp["layers"] = [{k: relayout(v) for k, v in layer.items()}
                         for layer in gp["layers"]]
         if "lm_head_w" in gp:
-            gp["lm_head_w"] = to_interleaved(gp["lm_head_w"])
+            gp["lm_head_w"] = relayout(gp["lm_head_w"])
         out[sub] = gp
     head = out["audio_head"]
     if not isinstance(head, list):
         ncb = (head[0] if isinstance(head, tuple) else head).shape[0]
         head = [gpt.index_leaf(head, i) for i in range(ncb)]
-    out["audio_head"] = [to_interleaved(h) for h in head]
-    out["projection_w"] = to_interleaved(out["projection_w"])
+    out["audio_head"] = [relayout(h) for h in head]
+    out["projection_w"] = relayout(out["projection_w"])
     return out
 
 

@@ -25,25 +25,32 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("gemv_int4i.cu", "gemv_int8.cu", "qkv_rope.cu", "fused_swiglu.cu",
+SOURCES = ("gemv_int4i.cu", "gemv_int8.cu", "gemv_int4.cu", "gemv_int4g.cu",
+           "gemv_int4c.cu", "gemv_int4cg.cu", "qkv_rope.cu", "fused_swiglu.cu",
            "flash_attn.cu", "lean_update.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
+# x, w, scale, norm_w, residual, out, M, K, N, ldw, G, eps, out_f32, stream
+# (G scale groups, 0 = per-channel)
+_GEMV = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]
 _SIGNATURES = {
-    # x, w, scale, norm_w, residual, out, M, K, N, ldw, eps, out_f32, stream
-    "ua2_gemv_int4i": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "ua2_gemv_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    "ua2_gemv_int4i": _GEMV,
+    "ua2_gemv_int8": _GEMV,
+    "ua2_gemv_int4": _GEMV,
+    "ua2_gemv_int4g": _GEMV,
+    "ua2_gemv_int4c": _GEMV,
+    "ua2_gemv_int4cg": _GEMV,
     # x, w, scale, norm_w, cos, sin, q, k, v, B, K, n_head, n_groups,
-    # head_size, eps, stream
-    "ua2_qkv_rope_int4i": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _I, _F, _P],
+    # head_size, layout, G, eps, stream
+    "ua2_qkv_rope": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _I, _I, _F, _P],
     # x, w1, s1, w2, s2, w3, s3, norm_w, residual, h, out, M, K, I, N,
-    # ldw3, eps, stream
-    "ua2_fused_swiglu_int4i": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _F, _P],
+    # ldw3, layout12, G12, layout3, G3, eps, stream
+    "ua2_fused_swiglu": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, o, BH, T, hd, scale, stream
     "ua2_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     # g, m_q, m_scale, p, a, b, upd, new_m_q, new_m_scale, rows,
@@ -135,6 +142,19 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = lib().ua2_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def count(fn, form: Optional[str] = None) -> None:
+    """One launch of wrapper ``fn``: its ``launches`` count and, for a
+    wrapper with several weight forms, its count of ``form``."""
+    fn.launches += 1
+    if form is not None:
+        fn.forms[form] = fn.forms.get(form, 0) + 1
+
+
+def reset_count(fn) -> None:
+    fn.launches = 0
+    fn.forms = {}
 
 
 def ptr(t) -> Optional[int]:

@@ -4,28 +4,37 @@
 Containers, quantizers and layouts are byte-identical to the JAX
 package's: the same ``values`` (int8 storage, last axis zero-padded to a
 multiple of 512, or 128 for small N) and the same f32 ``scale`` of TRUE
-width. The port stores serving weights row-major; chunk-major
-(``(C, K*, bc)``) is the TPU's contiguous-DMA layout, kept here only for
-the bridge (`convert.from_jax`), which un-chunks such leaves once at load
-time, and for the tests. The GEMV wrappers raise on a chunk-major leaf.
+width, per output channel (``(N,)``) or per ``group`` input rows and
+output channel (``(G, N)``, the ``*G`` containers). The port stores
+serving weights row-major; chunk-major (``(C, K*, bc)``) is the TPU's
+contiguous-DMA layout, kept here only for the bridge (`convert.from_jax`),
+which un-chunks such leaves once at load time, and for the tests. The
+GEMV wrappers raise on a chunk-major leaf.
 
-Two kernels of the JAX package live here, as CUDA C++ for ``sm_90a``
-(``csrc/gemv_int4i.cu`` and ``csrc/gemv_int8.cu``):
+Six kernels of the JAX package live here, as CUDA C++ for ``sm_90a``
+(``csrc/gemv_*.cu`` over the shared ``csrc/gemv_common.cuh``):
 
-* `int4i_matmul` replaces `_pallas_int4i_matmul` (row-interleaved int4);
-* `int8_matmul` replaces `_pallas_int8_matmul` (per-channel int8).
+* `int4i_matmul` replaces `_pallas_int4i_matmul` (row-interleaved int4,
+  per-channel or grouped scales);
+* `int8_matmul` replaces `_pallas_int8_matmul` (per-channel int8);
+* `int4_matmul` replaces `_pallas_int4_matmul` (K-split int4);
+* `int4g_matmul` replaces `_pallas_int4g_matmul` (K-split, grouped);
+* `int4c_matmul` replaces `_pallas_int4c_matmul` (column-packed int4);
+* `int4cg_matmul` replaces `_pallas_int4cg_matmul` (column-packed,
+  grouped).
 
-Each wrapper takes its plain twin (`int4i_matmul_plain`,
-`int8_matmul_plain`) only for a tensor on the CPU; for a CUDA tensor it
-launches the kernel or raises. The twins follow the JAX package's XLA
-fallback (`quant.matmul`): the scale is folded into the weight, which is
-rounded to ``x.dtype`` before an f32-accumulated product cast to
-``x.dtype``. The kernels follow the Pallas kernels: the unscaled int
-weights are dotted in f32 and the scale is applied to the f32 sum, then the
-residual, then one cast to the output dtype.
-
-Grouped-scale formats (`QuantizedLinear4G`/`C4G`/`I4G`) are not ported yet
-(ROADMAP queue 2, kernels 1-3 variants and 6, 8).
+Each wrapper takes its plain twin (``*_plain``) only for a tensor on the
+CPU; for a CUDA tensor it launches the kernel or raises. The twins follow
+the JAX package's XLA fallback (`quant.matmul`): the scale is folded into
+the weight, which is rounded to ``x.dtype`` before an f32-accumulated
+product cast to ``x.dtype``. The kernels follow the Pallas kernels. With
+per-channel scales the unscaled int weights are dotted in f32 and the
+scale is applied to the f32 sum, then the residual, then one cast to the
+output dtype. With grouped scales the f32 scale is multiplied into the
+weight, the product rounded to ``x.dtype`` and then dotted in f32: the
+twin's arithmetic up to the order of the sum. The column-packed kernels
+fold neither the norm nor the residual (`matmul` applies both around
+them, as the JAX package does).
 """
 
 from __future__ import annotations
@@ -53,9 +62,26 @@ class QuantizedLinear4(NamedTuple):
     scale: torch.Tensor
 
 
+class QuantizedLinear4G(NamedTuple):
+    """`QuantizedLinear4` with one scale per ``group`` input rows per output
+    channel: scale (..., G, N), G = K / group; group g covers rows
+    [g*group, (g+1)*group). K/2 is divisible by ``group``, so each nibble
+    half holds whole groups."""
+
+    values: torch.Tensor
+    scale: torch.Tensor
+
+
 class QuantizedLinearC4(NamedTuple):
     """Column-packed int4: byte [k, n] holds columns n (low nibble) and
     n + N/2 (high nibble). values (..., K, ceil(N/2) padded)."""
+
+    values: torch.Tensor
+    scale: torch.Tensor
+
+
+class QuantizedLinearC4G(NamedTuple):
+    """`QuantizedLinearC4` with group-wise scales: scale (..., G, N)."""
 
     values: torch.Tensor
     scale: torch.Tensor
@@ -70,8 +96,18 @@ class QuantizedLinearI4(NamedTuple):
     scale: torch.Tensor
 
 
+class QuantizedLinearI4G(NamedTuple):
+    """`QuantizedLinearI4` with group-wise scales: scale (G, N), K-axis
+    groups of K/G rows exactly as `QuantizedLinear4G`."""
+
+    values: torch.Tensor
+    scale: torch.Tensor
+
+
+GROUPED = (QuantizedLinear4G, QuantizedLinearC4G, QuantizedLinearI4G)
 QUANTIZED = (QuantizedLinear, QuantizedLinear4, QuantizedLinearC4,
-             QuantizedLinearI4)
+             QuantizedLinearI4) + GROUPED
+INT4_GROUP = 128
 
 
 def _align(n: int) -> int:
@@ -106,6 +142,19 @@ def _symmetric(w: torch.Tensor, levels: float):
     return q, scale
 
 
+def _symmetric_grouped(w: torch.Tensor, group: int):
+    """int4 levels (..., K, N) and scales (..., G, N), one per ``group``
+    rows and column."""
+    wf = w.float()
+    k, n = wf.shape[-2:]
+    lead = wf.shape[:-2]
+    wg = wf.reshape(*lead, k // group, group, n)
+    amax = torch.amax(torch.abs(wg), dim=-2, keepdim=True)
+    scale = amax / 7.0 + 1e-12
+    q = torch.clamp(torch.round(wg / scale), -7.0, 7.0).to(torch.int32)
+    return q.reshape(*lead, k, n), scale[..., 0, :]
+
+
 def quantize(w: torch.Tensor) -> QuantizedLinear:
     """Per-output-channel symmetric int8 (last axis = output features)."""
     q, scale = _symmetric(w, 127.0)
@@ -122,6 +171,17 @@ def quantize4(w: torch.Tensor) -> QuantizedLinear4:
     return QuantizedLinear4(_pad_last(packed), scale[..., 0, :])
 
 
+def quantize4_grouped(w: torch.Tensor,
+                      group: int = INT4_GROUP) -> QuantizedLinear4G:
+    """Symmetric int4 with per-(group, column) scales, K-split packing."""
+    k = w.shape[-2]
+    if k % (2 * group):
+        raise ValueError("group must divide K/2")
+    q, scale = _symmetric_grouped(w, group)
+    packed = _pack_nibbles(q[..., : k // 2, :], q[..., k // 2:, :])
+    return QuantizedLinear4G(_pad_last(packed), scale)
+
+
 def quantize4_cols(w: torch.Tensor) -> QuantizedLinearC4:
     """Per-output-channel symmetric int4, packed along the output axis."""
     n = w.shape[-1]
@@ -130,6 +190,19 @@ def quantize4_cols(w: torch.Tensor) -> QuantizedLinearC4:
     q, scale = _symmetric(w, 7.0)
     packed = _pack_nibbles(q[..., :, : n // 2], q[..., :, n // 2:])
     return QuantizedLinearC4(_pad_last(packed), scale[..., 0, :])
+
+
+def quantize4_cols_grouped(w: torch.Tensor,
+                           group: int = INT4_GROUP) -> QuantizedLinearC4G:
+    """Symmetric int4, column-packed, per-(group, column) scales."""
+    k, n = w.shape[-2:]
+    if n % 2:
+        raise ValueError("column int4 packing needs even N")
+    if k % group:
+        raise ValueError("group must divide K")
+    q, scale = _symmetric_grouped(w, group)
+    packed = _pack_nibbles(q[..., :, : n // 2], q[..., :, n // 2:])
+    return QuantizedLinearC4G(_pad_last(packed), scale)
 
 
 def _unpack4(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -147,17 +220,19 @@ def _unchunk_values(v: torch.Tensor) -> torch.Tensor:
 
 
 def is_chunk_major(w) -> bool:
-    """Chunk-major values carry two more axes than their per-channel scale
-    (layer-stacked values carry one more on both)."""
-    return w.values.ndim - w.scale.ndim == 2
+    """Chunk-major values carry one more axis than row-major ones, on the
+    values only (layer stacking adds one to values AND scale): two more
+    than a per-channel scale, one more than a grouped (G, N) scale."""
+    return w.values.ndim - w.scale.ndim == (1 if isinstance(w, GROUPED) else 2)
 
 
 def chunk_major(w, bc: int):
     """(K*, N) -> (N/bc, K*, bc), zero-padding N up to a multiple of ``bc``
     (the TPU serving layout of `uniaudio2_tpu.ops.quant.chunk_major`; the
     port's kernels read row-major storage). No-op for other leaves, for
-    stacked or already chunked values and for N <= bc."""
-    if not isinstance(w, QUANTIZED) or isinstance(w, QuantizedLinearC4):
+    column-packed, stacked or already chunked values and for N <= bc."""
+    if not isinstance(w, QUANTIZED) or isinstance(
+            w, (QuantizedLinearC4, QuantizedLinearC4G)):
         return w
     v = w.values
     if v.ndim != 2 or v.shape[-1] <= bc:
@@ -169,24 +244,84 @@ def chunk_major(w, bc: int):
                    w.scale)
 
 
-def dequantize(w: QuantizedLinear, dtype=torch.bfloat16) -> torch.Tensor:
+def _ksplit_levels(w) -> torch.Tensor:
+    """K-split bytes -> (..., K, N) int32 levels in row order."""
     n = w.scale.shape[-1]
-    return (w.values[..., :n].float() * w.scale[..., None, :]).to(dtype)
+    return torch.cat(_unpack4(w.values[..., :n]), dim=-2)
 
 
-def dequantize4(w: QuantizedLinear4, dtype=torch.bfloat16) -> torch.Tensor:
-    n = w.scale.shape[-1]
-    lo, hi = _unpack4(w.values[..., :n])
-    full = torch.cat([lo, hi], dim=-2).float()
-    return (full * w.scale[..., None, :]).to(dtype)
-
-
-def dequantize4_cols(w: QuantizedLinearC4, dtype=torch.bfloat16) -> torch.Tensor:
+def _cols_levels(w) -> torch.Tensor:
+    """Column-packed bytes -> (..., K, N) int32 levels in column order."""
     n = w.scale.shape[-1]
     nh = n // 2
     lo, hi = _unpack4(w.values)
-    full = torch.cat([lo[..., :nh], hi[..., : n - nh]], dim=-1).float()
-    return (full * w.scale[..., None, :]).to(dtype)
+    return torch.cat([lo[..., :nh], hi[..., : n - nh]], dim=-1)
+
+
+def _interleaved_levels(w) -> torch.Tensor:
+    """Row-interleaved bytes -> (..., K, N) int32 levels in row order."""
+    n = w.scale.shape[-1]
+    lo, hi = _unpack4(w.values[..., :n])
+    return torch.stack([lo, hi], dim=-2).reshape(
+        *lo.shape[:-2], 2 * lo.shape[-2], n)
+
+
+def _scaled(full: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """Levels (..., K, N) times a per-channel (..., N) scale."""
+    return (full.float() * scale[..., None, :]).to(dtype)
+
+
+def _scaled_grouped(full: torch.Tensor, scale: torch.Tensor,
+                    dtype) -> torch.Tensor:
+    """Levels (..., K, N) times a grouped (..., G, N) scale."""
+    k, n = full.shape[-2:]
+    g = scale.shape[-2]
+    lead = full.shape[:-2]
+    out = full.float().reshape(*lead, g, k // g, n) * scale[..., :, None, :]
+    return out.reshape(*lead, k, n).to(dtype)
+
+
+_LEVELS = {
+    QuantizedLinear: lambda w: w.values[..., : w.scale.shape[-1]],
+    QuantizedLinear4: _ksplit_levels,
+    QuantizedLinear4G: _ksplit_levels,
+    QuantizedLinearC4: _cols_levels,
+    QuantizedLinearC4G: _cols_levels,
+    QuantizedLinearI4: _interleaved_levels,
+    QuantizedLinearI4G: _interleaved_levels,
+}
+
+
+def levels(w) -> torch.Tensor:
+    """The integer levels (..., K, N) of any quantized container, rows and
+    columns in their true order, padding trimmed."""
+    return _LEVELS[type(w)](w)
+
+
+def dequantize_any(w, dtype=torch.bfloat16) -> torch.Tensor:
+    """The (..., K, N) weight of any quantized container, in ``dtype``:
+    levels times scale in f32, then one cast."""
+    scaled = _scaled_grouped if isinstance(w, GROUPED) else _scaled
+    return scaled(levels(w), w.scale, dtype)
+
+
+def _dequantizer(cls):
+    def dequantize_one(w, dtype=torch.bfloat16) -> torch.Tensor:
+        if type(w) is not cls:
+            raise TypeError(f"expected {cls.__name__}, got {type(w).__name__}")
+        return dequantize_any(w, dtype)
+    dequantize_one.__doc__ = f"`dequantize_any` of a {cls.__name__} only."
+    return dequantize_one
+
+
+# the JAX package's names, one per container
+dequantize = _dequantizer(QuantizedLinear)
+dequantize4 = _dequantizer(QuantizedLinear4)
+dequantize4_grouped = _dequantizer(QuantizedLinear4G)
+dequantize4_cols = _dequantizer(QuantizedLinearC4)
+dequantize4_cols_grouped = _dequantizer(QuantizedLinearC4G)
+dequantize4_interleaved = _dequantizer(QuantizedLinearI4)
+dequantize4_interleaved_grouped = _dequantizer(QuantizedLinearI4G)
 
 
 def _interleave_rows(full: torch.Tensor) -> torch.Tensor:
@@ -197,34 +332,26 @@ def _interleave_rows(full: torch.Tensor) -> torch.Tensor:
 
 def to_interleaved(w):
     """Serving re-layout: K-split / column-packed int4 -> row-interleaved.
-    Same quantized values and scales; no-op for other leaves and for
-    stacked values."""
-    if isinstance(w, QuantizedLinear4):
+    Same quantized values and scales (per-channel or grouped); no-op for
+    other leaves and for stacked values."""
+    if isinstance(w, (QuantizedLinear4, QuantizedLinear4G)):
         if w.values.ndim != 2:
             return w
-        lo, hi = _unpack4(w.values)
-        return QuantizedLinearI4(_interleave_rows(torch.cat([lo, hi], dim=-2)),
-                                 w.scale)
-    if isinstance(w, QuantizedLinearC4):
+        cls = (QuantizedLinearI4G if isinstance(w, QuantizedLinear4G)
+               else QuantizedLinearI4)
+        return cls(_interleave_rows(torch.cat(_unpack4(w.values), dim=-2)),
+                   w.scale)
+    if isinstance(w, (QuantizedLinearC4, QuantizedLinearC4G)):
         if w.values.ndim != 2:
             return w
         n = w.scale.shape[-1]
-        nh = n // 2
-        lo, hi = _unpack4(w.values)
-        full = torch.cat([lo[..., :nh], hi[..., : n - nh]], dim=-1)
+        full = _cols_levels(w)
         if n % _align(n):
             full = torch.nn.functional.pad(full, (0, _align(n) - n % _align(n)))
-        return QuantizedLinearI4(_interleave_rows(full), w.scale)
+        cls = (QuantizedLinearI4G if isinstance(w, QuantizedLinearC4G)
+               else QuantizedLinearI4)
+        return cls(_interleave_rows(full), w.scale)
     return w
-
-
-def dequantize4_interleaved(w: QuantizedLinearI4,
-                            dtype=torch.bfloat16) -> torch.Tensor:
-    n = w.scale.shape[-1]
-    lo, hi = _unpack4(w.values[..., :n])
-    k2 = lo.shape[-2]
-    full = torch.stack([lo, hi], dim=-2).reshape(*lo.shape[:-2], 2 * k2, n)
-    return (full.float() * w.scale[..., None, :]).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -242,21 +369,62 @@ def _fallback(x, wd, out_dtype, pre_norm, residual):
     return out.to(out_dtype) if out_dtype is not None else out
 
 
+def matmul_plain(x, w, *, out_dtype=None, pre_norm=None, residual=None):
+    """x (M, K) @ the dequantized container ``w`` -> (M, N): the plain twin
+    of every GEMV kernel, by container type."""
+    return _fallback(x, dequantize_any(w, x.dtype), out_dtype, pre_norm,
+                     residual)
+
+
 def int4i_matmul_plain(x, values, scale, *, out_dtype=None, pre_norm=None,
                        residual=None):
-    """Plain twin of `int4i_matmul`: x (M, K) @ dequantized I4 -> (M, N)."""
-    wd = dequantize4_interleaved(QuantizedLinearI4(values, scale), x.dtype)
-    return _fallback(x, wd, out_dtype, pre_norm, residual)
+    """Plain twin of `int4i_matmul` (per-channel or grouped scale)."""
+    cls = QuantizedLinearI4G if scale.ndim == 2 else QuantizedLinearI4
+    return matmul_plain(x, cls(values, scale), out_dtype=out_dtype,
+                        pre_norm=pre_norm, residual=residual)
 
 
 def int8_matmul_plain(x, values, scale, *, out_dtype=None, pre_norm=None,
                       residual=None):
     """Plain twin of `int8_matmul`: x (M, K) @ dequantized int8 -> (M, N)."""
-    wd = dequantize(QuantizedLinear(values, scale), x.dtype)
-    return _fallback(x, wd, out_dtype, pre_norm, residual)
+    return matmul_plain(x, QuantizedLinear(values, scale), out_dtype=out_dtype,
+                        pre_norm=pre_norm, residual=residual)
+
+
+def int4_matmul_plain(x, values, scale, *, out_dtype=None, pre_norm=None,
+                      residual=None):
+    """Plain twin of `int4_matmul`: x (M, K) @ dequantized K-split int4."""
+    return matmul_plain(x, QuantizedLinear4(values, scale), out_dtype=out_dtype,
+                        pre_norm=pre_norm, residual=residual)
+
+
+def int4g_matmul_plain(x, values, scale, *, out_dtype=None, pre_norm=None,
+                       residual=None):
+    """Plain twin of `int4g_matmul`: K-split int4, grouped scale (G, N)."""
+    return matmul_plain(x, QuantizedLinear4G(values, scale),
+                        out_dtype=out_dtype, pre_norm=pre_norm,
+                        residual=residual)
+
+
+def int4c_matmul_plain(x, values, scale, *, out_dtype=None):
+    """Plain twin of `int4c_matmul`: x (M, K) @ dequantized column-packed
+    int4 (no norm, no residual)."""
+    return matmul_plain(x, QuantizedLinearC4(values, scale), out_dtype=out_dtype)
+
+
+def int4cg_matmul_plain(x, values, scale, *, out_dtype=None):
+    """Plain twin of `int4cg_matmul`: column-packed int4, grouped scale."""
+    return matmul_plain(x, QuantizedLinearC4G(values, scale),
+                        out_dtype=out_dtype)
 
 
 GEMV_TILE_N = 64     # output columns per block of the GEMV kernels
+# weight layouts, as csrc/gemv_common.cuh numbers them
+LAYOUT_INT8, LAYOUT_I4, LAYOUT_K4, LAYOUT_C4 = 0, 1, 2, 3
+LAYOUTS = {QuantizedLinear: LAYOUT_INT8, QuantizedLinearI4: LAYOUT_I4,
+           QuantizedLinearI4G: LAYOUT_I4, QuantizedLinear4: LAYOUT_K4,
+           QuantizedLinear4G: LAYOUT_K4, QuantizedLinearC4: LAYOUT_C4,
+           QuantizedLinearC4G: LAYOUT_C4}
 
 
 def check_operand(t, name, dtype, shape, device):
@@ -268,32 +436,50 @@ def check_operand(t, name, dtype, shape, device):
             f"(contiguous={t.is_contiguous()})")
 
 
-def _check_layout(fn_name, values, scale):
-    """Row-major 2-D values and a per-channel scale, on every device."""
-    if scale.ndim != 1:
-        raise NotImplementedError(
-            "grouped-scale weights are not ported yet (ROADMAP queue 2)")
+def check_weight(name, layout, values, scale, k, device) -> Tuple[int, int]:
+    """Validate one row-major quantized weight of contraction width ``k``
+    against the kernels' layout rules, on any device. Returns (N, G): the
+    true output width and the number of scale groups (0 = per-channel)."""
     if values.ndim != 2:
-        raise ValueError(f"{fn_name}: values must be row-major 2-D, got "
+        raise ValueError(f"{name}: values must be row-major 2-D, got "
                          f"{tuple(values.shape)} (chunk-major leaves are "
                          f"un-chunked by convert.from_jax at load time)")
+    if scale.ndim not in (1, 2) or (scale.ndim == 2 and layout == LAYOUT_INT8):
+        raise ValueError(f"{name}: scale {tuple(scale.shape)} does not fit "
+                         f"the layout")
+    n = scale.shape[-1]
+    g = scale.shape[0] if scale.ndim == 2 else 0
+    kb, ldw = values.shape
+    packed_rows = layout in (LAYOUT_I4, LAYOUT_K4)
+    width = n - n // 2 if layout == LAYOUT_C4 else n
+    if kb * (2 if packed_rows else 1) != k or ldw < width \
+            or ldw % GEMV_TILE_N:
+        raise ValueError(f"{name}: values {tuple(values.shape)} do not fit "
+                         f"K = {k} / scale {tuple(scale.shape)}")
+    if g:
+        # a byte's two rows lie in one group (interleaved: an even group
+        # size) or each nibble half holds whole groups (K-split: even G)
+        ok = k % g == 0 and {LAYOUT_I4: (k // g) % 2 == 0,
+                             LAYOUT_K4: g % 2 == 0,
+                             LAYOUT_C4: True}[layout]
+        if not ok:
+            raise ValueError(f"{name}: {g} scale groups do not divide "
+                             f"K = {k} in this layout")
+    check_operand(values, f"{name}.values", torch.int8, (kb, ldw), device)
+    check_operand(scale, f"{name}.scale", torch.float32, tuple(scale.shape),
+                  device)
+    return n, g
 
 
-def _launch_gemv(fn_name, rows_per_byte, x, values, scale, out_dtype,
-                 pre_norm, residual):
+def _launch_gemv(fn_name, layout, x, values, scale, out_dtype, pre_norm,
+                 residual):
     dev = x.device
     if x.ndim != 2 or x.dtype != torch.bfloat16:
         raise ValueError(f"{fn_name}: x must be 2-D bf16, got "
                          f"{x.dtype} {tuple(x.shape)}")
     m, k = x.shape
-    kb, ldw = values.shape
-    n = scale.shape[0]
-    if kb * rows_per_byte != k or ldw < n or ldw % GEMV_TILE_N:
-        raise ValueError(f"{fn_name}: values {tuple(values.shape)} do not "
-                         f"fit x {tuple(x.shape)} / scale ({n},)")
+    n, g = check_weight(fn_name, layout, values, scale, k, dev)
     check_operand(x, "x", torch.bfloat16, (m, k), dev)
-    check_operand(values, "values", torch.int8, (kb, ldw), dev)
-    check_operand(scale, "scale", torch.float32, (n,), dev)
     norm_w, eps = (None, 1e-5) if pre_norm is None else pre_norm
     if norm_w is not None:
         check_operand(norm_w, "norm_w", torch.bfloat16, (k,), dev)
@@ -307,30 +493,46 @@ def _launch_gemv(fn_name, rows_per_byte, x, values, scale, out_dtype,
     lib = _cuda.lib()
     err = getattr(lib, fn_name)(
         _cuda.ptr(x), _cuda.ptr(values), _cuda.ptr(scale), _cuda.ptr(norm_w),
-        _cuda.ptr(residual), _cuda.ptr(out), m, k, n, ldw, float(eps),
-        int(out.dtype == torch.float32), _cuda.stream_of(x))
+        _cuda.ptr(residual), _cuda.ptr(out), m, k, n, values.shape[1], g,
+        float(eps), int(out.dtype == torch.float32), _cuda.stream_of(x))
     _cuda.check(err, fn_name)
+    return out
+
+
+def _gemv(wrapper, c_name, cls, x, values, scale, out_dtype, pre_norm=None,
+          residual=None, form=None):
+    """The body of every GEMV wrapper: validate ``values`` / ``scale`` as a
+    container of type ``cls``, then the plain twin for a CPU tensor, else
+    one launch of the C entry point ``c_name``, counted on ``wrapper``."""
+    name = wrapper.__name__
+    if (scale.ndim == 2) != (cls in GROUPED):
+        raise ValueError(
+            f"{name}: expected a "
+            f"{'grouped (G, N)' if cls in GROUPED else 'per-channel (N,)'} "
+            f"scale, got {tuple(scale.shape)}")
+    if x.device.type == "cpu":
+        check_weight(name, LAYOUTS[cls], values, scale, x.shape[-1], x.device)
+        return matmul_plain(x, cls(values, scale), out_dtype=out_dtype,
+                            pre_norm=pre_norm, residual=residual)
+    out = _launch_gemv(c_name, LAYOUTS[cls], x, values, scale, out_dtype,
+                       pre_norm, residual)
+    _cuda.count(wrapper, form)
     return out
 
 
 def int4i_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
                  residual=None):
-    """x (M, K) bf16 @ row-interleaved int4 (K/2, N_pad) * scale (N,)
-    [+ residual (M, N)] -> (M, N), with an optional RMSNorm prologue
-    ``pre_norm=(weight, eps)``. CUDA kernel ``ua2_gemv_int4i``
+    """x (M, K) bf16 @ row-interleaved int4 (K/2, N_pad) * scale ((N,), or
+    grouped (G, N)) [+ residual (M, N)] -> (M, N), with an optional RMSNorm
+    prologue ``pre_norm=(weight, eps)``. CUDA kernel ``ua2_gemv_int4i``
     (replaces `_pallas_int4i_matmul`, uniaudio2_tpu/ops/quant.py:948); the
-    plain twin for CPU tensors."""
-    _check_layout("int4i_matmul", values, scale)
-    if x.device.type == "cpu":
-        return int4i_matmul_plain(x, values, scale, out_dtype=out_dtype,
-                                  pre_norm=pre_norm, residual=residual)
-    out = _launch_gemv("ua2_gemv_int4i", 2, x, values, scale, out_dtype,
-                       pre_norm, residual)
-    int4i_matmul.launches += 1
-    return out
-
-
-int4i_matmul.launches = 0
+    plain twin for CPU tensors. ``.forms`` counts the launches of the
+    "int4i" (per-channel) and "int4ig" (grouped) forms."""
+    grouped = scale.ndim == 2
+    return _gemv(int4i_matmul, "ua2_gemv_int4i",
+                 QuantizedLinearI4G if grouped else QuantizedLinearI4, x,
+                 values, scale, out_dtype, pre_norm, residual,
+                 form="int4ig" if grouped else "int4i")
 
 
 def int8_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
@@ -339,17 +541,78 @@ def int8_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
     optional RMSNorm prologue. CUDA kernel ``ua2_gemv_int8`` (replaces
     `_pallas_int8_matmul`, uniaudio2_tpu/ops/quant.py:483); the plain twin
     for CPU tensors."""
-    _check_layout("int8_matmul", values, scale)
-    if x.device.type == "cpu":
-        return int8_matmul_plain(x, values, scale, out_dtype=out_dtype,
-                                 pre_norm=pre_norm, residual=residual)
-    out = _launch_gemv("ua2_gemv_int8", 1, x, values, scale, out_dtype,
-                       pre_norm, residual)
-    int8_matmul.launches += 1
-    return out
+    return _gemv(int8_matmul, "ua2_gemv_int8", QuantizedLinear, x, values,
+                 scale, out_dtype, pre_norm, residual)
 
 
-int8_matmul.launches = 0
+def int4_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
+                residual=None):
+    """x (M, K) bf16 @ K-split int4 (K/2, N_pad) * scale (N,) [+ residual]
+    -> (M, N), optional RMSNorm prologue: byte [r, n] holds row r (low
+    nibble) and row r + K/2 (high). CUDA kernel ``ua2_gemv_int4`` (replaces
+    `_pallas_int4_matmul`, uniaudio2_tpu/ops/quant.py:597); the plain twin
+    for CPU tensors."""
+    return _gemv(int4_matmul, "ua2_gemv_int4", QuantizedLinear4, x, values,
+                 scale, out_dtype, pre_norm, residual)
+
+
+def int4g_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
+                 residual=None):
+    """`int4_matmul` with a grouped scale (G, N): rows of the low nibbles
+    take groups [0, G/2), rows of the high nibbles [G/2, G). CUDA kernel
+    ``ua2_gemv_int4g`` (replaces `_pallas_int4g_matmul`,
+    uniaudio2_tpu/ops/quant.py:712); the plain twin for CPU tensors."""
+    return _gemv(int4g_matmul, "ua2_gemv_int4g", QuantizedLinear4G, x, values,
+                 scale, out_dtype, pre_norm, residual)
+
+
+def int4c_matmul(x, values, scale, *, out_dtype=None):
+    """x (M, K) bf16 @ column-packed int4 (K, halfpad) * scale (N,) ->
+    (M, N): byte [k, n] holds column n (low nibble) and column n + N/2
+    (high). No norm and no residual, as the Pallas kernel. CUDA kernel
+    ``ua2_gemv_int4c`` (replaces `_pallas_int4c_matmul`,
+    uniaudio2_tpu/ops/quant.py:799); the plain twin for CPU tensors."""
+    return _gemv(int4c_matmul, "ua2_gemv_int4c", QuantizedLinearC4, x, values,
+                 scale, out_dtype)
+
+
+def int4cg_matmul(x, values, scale, *, out_dtype=None):
+    """`int4c_matmul` with a grouped scale (G, N). CUDA kernel
+    ``ua2_gemv_int4cg`` (replaces `_pallas_int4cg_matmul`,
+    uniaudio2_tpu/ops/quant.py:864); the plain twin for CPU tensors."""
+    return _gemv(int4cg_matmul, "ua2_gemv_int4cg", QuantizedLinearC4G, x,
+                 values, scale, out_dtype)
+
+
+for _fn in (int4i_matmul, int8_matmul, int4_matmul, int4g_matmul,
+            int4c_matmul, int4cg_matmul):
+    _cuda.reset_count(_fn)
+
+_GEMV = {QuantizedLinear: int8_matmul, QuantizedLinearI4: int4i_matmul,
+         QuantizedLinearI4G: int4i_matmul, QuantizedLinear4: int4_matmul,
+         QuantizedLinear4G: int4g_matmul, QuantizedLinearC4: int4c_matmul,
+         QuantizedLinearC4G: int4cg_matmul}
+
+
+def kernel_eligible(w, k: int) -> bool:
+    """The JAX package's predicate (`quant.matmul`) for sending a product
+    of contraction width ``k`` to the container's Pallas kernel; the others
+    dequantize and multiply there. The CUDA kernels have no such tiling
+    rule, so on the card `matmul` does not ask: here the predicate only
+    picks which of the two rounding orders the CPU twin follows."""
+    if isinstance(w, QuantizedLinear):
+        return k % 128 == 0
+    if isinstance(w, (QuantizedLinearC4, QuantizedLinearC4G)):
+        return k % 128 == 0 and (not isinstance(w, QuantizedLinearC4G)
+                                 or k % w.scale.shape[-2] == 0)
+    if k % 256:
+        return False
+    if isinstance(w, QuantizedLinearI4G):
+        return k % w.scale.shape[-2] == 0
+    if isinstance(w, QuantizedLinear4G):
+        g = w.scale.shape[-2]
+        return k % g == 0 and (k // 2) % (k // g) == 0
+    return True
 
 
 def matmul(x: torch.Tensor, w, out_dtype=None, pre_norm=None,
@@ -358,28 +621,38 @@ def matmul(x: torch.Tensor, w, out_dtype=None, pre_norm=None,
     quantized container. ``out_dtype`` forces the output dtype,
     ``pre_norm=(weight, eps)`` folds a leading RMSNorm of ``x``,
     ``residual`` (the output's shape) folds a residual add — the
-    `uniaudio2_tpu.ops.quant.matmul` contract."""
+    `uniaudio2_tpu.ops.quant.matmul` contract. On the card a quantized
+    product always launches its container's kernel (or raises where
+    `check_weight` refuses the leaf); on the CPU it follows the rounding
+    order of the branch the JAX dispatcher takes (`kernel_eligible`)."""
     lead = x.shape[:-1]
     k = x.shape[-1]
-    if isinstance(w, (QuantizedLinearI4, QuantizedLinear)):
-        kernel = int4i_matmul if isinstance(w, QuantizedLinearI4) \
-            else int8_matmul
+    if isinstance(w, QUANTIZED):
+        if w.values.ndim != 2:
+            raise ValueError(
+                f"matmul: {type(w).__name__} values must be row-major 2-D, "
+                f"got {tuple(w.values.shape)} (chunk-major leaves are "
+                f"un-chunked by convert.from_jax at load time)")
         n = w.scale.shape[-1]
-        res2 = None if residual is None else residual.reshape(-1, n).contiguous()
-        out = kernel(x.reshape(-1, k).contiguous(), w.values, w.scale,
-                     out_dtype=out_dtype, pre_norm=pre_norm, residual=res2)
-        return out.reshape(*lead, -1)
-    if isinstance(w, (QuantizedLinear4, QuantizedLinearC4)):
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                f"{type(w).__name__} has no CUDA kernel yet (ROADMAP queue 2 "
-                "kernels 5 and 7); serving weights are QuantizedLinearI4 "
-                "after prepare_serving_params")
-        wd = (dequantize4(w, x.dtype) if isinstance(w, QuantizedLinear4)
-              else dequantize4_cols(w, x.dtype))
-        n = w.scale.shape[-1]
-        out = _fallback(x.reshape(-1, k), wd, out_dtype, pre_norm,
-                        None if residual is None else residual.reshape(-1, n))
+        x2 = x.reshape(-1, k)
+        res2 = None if residual is None else residual.reshape(-1, n)
+        if x.device.type == "cpu" and not kernel_eligible(w, k):
+            out = _fallback(x2, dequantize_any(w, x.dtype), out_dtype,
+                            pre_norm, res2)
+        elif isinstance(w, (QuantizedLinearC4, QuantizedLinearC4G)):
+            # the column-packed kernels fold nothing: norm before, residual
+            # after the output was rounded
+            if pre_norm is not None:
+                x2 = rms_norm(x2, pre_norm[0], pre_norm[1])
+            out = _GEMV[type(w)](x2.contiguous(), w.values, w.scale,
+                                 out_dtype=out_dtype)
+            if res2 is not None:
+                out = out + res2.to(out.dtype)
+        else:
+            out = _GEMV[type(w)](
+                x2.contiguous(), w.values, w.scale, out_dtype=out_dtype,
+                pre_norm=pre_norm,
+                residual=None if res2 is None else res2.contiguous())
         return out.reshape(*lead, -1)
     if pre_norm is not None:
         x = rms_norm(x, pre_norm[0], pre_norm[1])
@@ -407,7 +680,17 @@ _GPT_QUANT_LEAVES = (
 )
 
 
-def _q(w: torch.Tensor, bits: int = 8, cols: bool = False):
+def _q(w: torch.Tensor, bits=8, cols: bool = False):
+    """Quantize one leaf. ``bits`` is 8, 4 (per-channel scales) or "4g"
+    (group-wise scales of `INT4_GROUP` rows); a leaf whose K the groups do
+    not divide falls back to per-channel int4, as in the JAX package."""
+    if bits == "4g":
+        k = w.shape[-2]
+        if cols and k % INT4_GROUP == 0:
+            return quantize4_cols_grouped(w)
+        if not cols and k % (2 * INT4_GROUP) == 0:
+            return quantize4_grouped(w)
+        bits = 4
     if bits == 4 and cols:
         return quantize4_cols(w)
     if bits == 4:
@@ -415,18 +698,18 @@ def _q(w: torch.Tensor, bits: int = 8, cols: bool = False):
     return quantize(w)
 
 
-def quantize_gpt_params(params, *, bits: int = 8,
-                        lm_head_bits: Optional[int] = None):
+def quantize_gpt_params(params, *, bits=8, lm_head_bits: Optional[int] = None):
     """Quantize a GPT tree's matmul weights (layer-stacked leaves get
-    per-layer scales); embeddings and norms stay as they are. The lm_head
-    stays int8 even under int4; under int4 the MLP down-projection is
-    column-packed. MoE expert stacks are not quantized (as in JAX)."""
+    per-layer scales); embeddings and norms stay as they are. ``bits`` is
+    8, 4 or "4g". The lm_head stays int8 even under int4; under int4 the
+    MLP down-projection is column-packed. MoE expert stacks are not
+    quantized (as in JAX)."""
     out = dict(params)
     layers = dict(params["layers"])
     for name in _GPT_QUANT_LEAVES:
         if name in layers and layers[name].ndim == 3:
             layers[name] = _q(layers[name], bits,
-                              cols=bits == 4 and name == "mlp_proj_w")
+                              cols=bits in (4, "4g") and name == "mlp_proj_w")
     out["layers"] = layers
     if "lm_head_w" in out:
         out["lm_head_w"] = _q(out["lm_head_w"], lm_head_bits or 8)
@@ -438,19 +721,16 @@ def quantize_unified_params(params, *, int4_modules: Tuple[str, ...] = (),
     """Quantize the unified model's weight matrices for serving: int4 for
     the submodules named in ``int4_modules`` ("backbone", "decoder",
     "understanding_expert", "generation_expert", "projection_w",
-    "audio_head"), int8 elsewhere."""
-    if grouped:
-        raise NotImplementedError(
-            "group-wise int4 (QuantizedLinear4G/C4G/I4G) is not ported yet "
-            "(ROADMAP queue 2, grouped variants of kernels 1-3)")
+    "audio_head"), int8 elsewhere; with ``grouped`` the int4 modules take
+    group-wise scales (`quantize4_grouped`)."""
+    four = "4g" if grouped else 4
     out = dict(params)
     for sub in ("backbone", "decoder", "understanding_expert",
                 "generation_expert"):
         out[sub] = quantize_gpt_params(
-            params[sub], bits=4 if sub in int4_modules else 8)
+            params[sub], bits=four if sub in int4_modules else 8)
     out["projection_w"] = _q(params["projection_w"],
-                             4 if "projection_w" in int4_modules else 8)
+                             four if "projection_w" in int4_modules else 8)
     out["audio_head"] = _q(params["audio_head"],
-                           4 if "audio_head" in int4_modules else 8)
+                           four if "audio_head" in int4_modules else 8)
     return out
-
