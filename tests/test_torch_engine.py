@@ -140,15 +140,10 @@ def test_resolve_policies_equal():
 
 
 def test_unported_paths_raise(engines):
+    """Batched, beam and n-gram decoding still raise. The cache policies
+    (int8 KV, ``attn_block``, deferred writes) are ported and held to JAX
+    in `test_torch_kv_engine*.py`."""
     _, teng, ((g, m), _, _) = engines
-    cfg = UnifiedModelConfig.tiny()
-    for kw in ({"kv_quant": "on"}, {"attn_block": 128},
-               {"kv_write": "deferred"}):
-        eng = decode.DecodeEngine(teng.params, cfg, max_frames=2,
-                                  cache_dtype=torch.float32, buckets=(64,),
-                                  **kw)
-        with pytest.raises(NotImplementedError):
-            eng.generate_audio(g, m, topk=1)
     with pytest.raises(NotImplementedError):
         teng.generate_text_batch([(g, m)])
     with pytest.raises(NotImplementedError):

@@ -19,6 +19,11 @@ The grouped-scale GEMVs (`int4ig`, `int4g`, `int4cg`) scale and round each
 weight to bf16 before the product exactly as their twins do, so without a
 residual the two differ only in the order of the f32 sum and land within
 one bf16 ulp of each other: 2^-7 x max|twin| (RTOL_GROUPED).
+The split-K int8 GEMV and its twin add exact f32 products in another
+order and round once, so they too agree within RTOL_GROUPED; the causal
+GQA flash form keeps the flash kernel's 2e-2. Both flash forms are held
+row by row (each query row to 2e-2 x its own max|twin|): a causal row i
+averages i + 1 values and is ~sqrt(1 / i) the size of row 0.
 The lean-update kernel rounds every operation as its twin does, so the two
 must agree to the bit. `quant.matmul`'s bf16 tensor-core product (the
 training forward's) is held to its float32 form: both sum in float32 in
@@ -31,7 +36,7 @@ import pytest
 import torch
 
 from uniaudio2_tpu_torch.ops import (
-    flash_attention, fused_mlp, lean_update, qkv_step, quant,
+    flash_attention, fused_mlp, lean_update, qkv_step, quant, splitk_gemv,
 )
 from uniaudio2_tpu_torch.train import lean_opt
 
@@ -85,6 +90,16 @@ def _close(out, ref, rtol=RTOL):
     err = (out.float() - ref.float()).abs().max().item()
     bound = rtol * ref.float().abs().max().item()
     assert err <= bound, (err, bound)
+
+
+def _close_rows(out, ref, rtol=RTOL):
+    """`_close` per row (last axis): each row within ``rtol`` x its own
+    max|ref|. Causal attention's late rows average many values and are far
+    smaller than row 0, a copy of v[0]."""
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    d, mag = (out.float() - ref.float()).abs(), ref.float().abs()
+    worst = (d.amax(-1) / mag.amax(-1)).max().item()
+    assert worst <= rtol, worst
 
 
 FOLDS = [(False, False, None), (True, False, None), (False, True, None),
@@ -268,7 +283,47 @@ def test_flash_attention(dev, b, h, t, hd):
     out = flash_attention.flash_attention(q, k, v, hd ** -0.5)
     torch.cuda.synchronize()
     assert flash_attention.flash_attention.launches == before + 1
-    _close(out, flash_attention.attention_plain(q, k, v, hd ** -0.5))
+    _close_rows(out, flash_attention.attention_plain(q, k, v, hd ** -0.5))
+
+
+@pytest.mark.parametrize("b,h,g_,t,hd", [(1, 24, 8, 2048, 128), (1, 24, 8, 1000, 128),
+                                          (1, 4, 2, 130, 128), (2, 6, 3, 77, 64),
+                                          (1, 8, 8, 64, 64), (1, 2, 1, 1, 128)])
+def test_flash_attention_causal_gqa(dev, b, h, g_, t, hd):
+    """The causal form with K/V heads mapped in place (h -> h / (H / G)),
+    T not a multiple of the 64-key tile included."""
+    g = _gen(dev, 6)
+    q = _bf16(g, dev, b, h, t, hd)
+    k, v = (_bf16(g, dev, b, g_, t, hd) for _ in range(2))
+    before = dict(flash_attention.flash_attention.forms)
+    out = flash_attention.flash_attention(q, k, v, hd ** -0.5, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.forms["causal"] == \
+        before.get("causal", 0) + 1
+    _close_rows(out, flash_attention.attention_plain(q, k, v, hd ** -0.5,
+                                                     causal=True))
+
+
+@pytest.mark.parametrize("k,n", [(3072, 8192), (8192, 3072), (2048, 8192),
+                                 (3072, 5120), (3072, 3072), (2048, 4096),
+                                 (256, 700), (96, 40), (2080, 1300)])
+def test_int8_splitk_gemv(dev, k, n):
+    """The split-K GEMV against its twin: both sum exact f32 products in
+    another order and round once, so one bf16 ulp, 2^-7 x max|twin|."""
+    g = _gen(dev, 7)
+    w = quant.quantize(torch.randn((k, n), generator=g, device=dev) * 0.02)
+    x = _bf16(g, dev, 1, k)
+    before = splitk_gemv.int8_splitk_gemv.launches
+    out = splitk_gemv.int8_splitk_gemv(x, w.values, w.scale)
+    torch.cuda.synchronize()
+    assert splitk_gemv.int8_splitk_gemv.launches == before + 1
+    ref = splitk_gemv.int8_splitk_gemv_plain(x, w.values, w.scale)
+    assert out.shape == ref.shape == (1, n) and out.dtype == torch.bfloat16
+    _close(out, ref, rtol=RTOL_GROUPED)
+    # the same function as the production int8 kernel, within its bound
+    _close(out, quant.int8_matmul_plain(x, w.values, w.scale))
+    again = splitk_gemv.int8_splitk_gemv(x, w.values, w.scale)
+    assert torch.equal(out, again)                  # fixed-order sums
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -361,6 +416,12 @@ def test_wrappers_raise_on_unsupported_input(dev):
     q = _bf16(g, dev, 1, 2, 8, 32)
     with pytest.raises(ValueError):
         flash_attention.flash_attention(q, q, q, 32 ** -0.5)
+    q, kv = _bf16(g, dev, 1, 6, 8, 64), _bf16(g, dev, 1, 4, 8, 64)
+    with pytest.raises(ValueError):             # 6 heads over 4 groups
+        flash_attention.flash_attention(q, kv, kv, 0.125, causal=True)
+    w8 = quant.quantize(torch.randn((64, 40), generator=g, device=dev))
+    with pytest.raises(ValueError):             # M = 2: a batch-1 kernel
+        splitk_gemv.int8_splitk_gemv(_bf16(g, dev, 2, 64), w8.values, w8.scale)
     p = _bf16(g, dev, 4, 256)
     with pytest.raises(ValueError):             # g in another dtype than p
         lean_update.fused_lean_update(

@@ -1,0 +1,21 @@
+"""The tests of `test_torch_kv_engine.py` (the port's `DecodeEngine` at its
+own defaults against the JAX engine, greedy tokens identical) with the
+int8 cache turned off: an f32 cache, block-128 prefix reads, inline writes.
+The code lives in that file; this one gives it its own ``engines``
+fixture, so that a parallel run spreads the policies over workers.
+"""
+
+import pytest
+
+import test_torch_kv_engine as base
+from test_torch_kv_engine import (  # noqa: F401  (collected here)
+    model,
+    one_thread,
+    test_generate_audio_identical_to_jax,
+    test_generate_text_identical_to_jax,
+)
+
+
+@pytest.fixture(scope="module", params=["kv_quant_off"])
+def engines(request, model):  # noqa: F811
+    return base.build(request.param, model)

@@ -180,6 +180,14 @@ def test_kv_cache_init_and_update(as_lists):
 
 
 def test_int8_kv_cache_not_ported():
-    with pytest.raises(NotImplementedError):
-        kv_cache.init_cache(config.GPTConfig.from_name("tiny-expert"), 1, 8,
-                            torch.int8)
+    """Once the marker of the unported int8 cache; the cache is ported now
+    (held to JAX in `test_torch_kv.py`): ``torch.int8`` builds `QuantKV`
+    entries, on the card unless the caller asks for the CPU."""
+    cfg = config.GPTConfig.from_name("tiny-expert")
+    c = kv_cache.init_cache(cfg, 1, 8, torch.int8, device="cpu")
+    assert isinstance(c.k, kv_cache.QuantKV) and c.max_seq == 8
+    assert c.k.q.dtype == torch.int8 and c.k.s.dtype == torch.float32
+    assert c.k.s.shape == c.k.q.shape[:-1]
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            kv_cache.init_cache(cfg, 1, 8, torch.int8)

@@ -141,9 +141,9 @@ def build(name):
         convert_params(params, "cpu"), int4_modules=modules, grouped=grouped)
     tserve = unified.prepare_serving_params(
         tquant, dtype=torch.float32, unroll=unroll, interleave=interleave)
-    # bucket 256 gives a 512-slot cache, where "auto" would pick the int8 KV
-    # cache and prefix-bounded attention: both engines are told not to
-    kw = dict(max_frames=FRAMES, buckets=(64, 256), attn_block=0, kv_quant="off")
+    # bucket 256 gives a 512-slot cache, where "auto" picks the int8 KV
+    # cache and block-128 prefix reads in both engines
+    kw = dict(max_frames=FRAMES, buckets=(64, 256))
     jeng = jdecode.DecodeEngine(jserve, jcfg, cache_dtype=jnp.float32, **kw)
     teng = decode.DecodeEngine(tserve, tcfg, cache_dtype=torch.float32, **kw)
     return dict(name=name, jeng=jeng, teng=teng, jquant=jquant,
@@ -182,6 +182,9 @@ def test_generate_audio_greedy_identical(served):
     np.testing.assert_array_equal(tr, jr)
     np.testing.assert_array_equal(tsem, js)
     assert served["teng"].last_steps == FRAMES
+    policy = served["teng"].last_policy
+    assert (policy["kv_dtype"], policy["attn_block"]) == (
+        (torch.int8, 128) if served["long"] else (torch.float32, 0))
 
 
 def test_generate_audio_cfg_greedy_identical(served):

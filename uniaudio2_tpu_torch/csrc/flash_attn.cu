@@ -1,24 +1,33 @@
-// Non-causal flash attention for the codec DiT, for sm_90a.
+// Flash attention for sm_90a: non-causal for the codec DiT, causal with
+// grouped K/V heads for the backbone's prefill probe.
 //
 // Replaces: `_flash_attention` (uniaudio2_tpu/codec/dit.py:174-193), which
 // calls JAX's bundled Pallas TPU `flash_attention` with the sequence padded
-// to 128 and segment ids masking the pad.
+// to 128 and segment ids masking the pad; and `bb_flash`
+// (scripts/profile_attention.py:102-108), the same bundled kernel with
+// `causal=True` over K/V repeated from G groups to H heads.
 //
-//   o[bh, i, :] = sum_j softmax_j(q[bh, i] . k[bh, j] * scale) v[bh, j, :]
+//   o[b, h, i, :] = sum_j softmax_j(q[b, h, i] . k[b, g, j] * scale) v[b, g, j, :]
+//   g = h / (H / G); causal: only keys j <= i
 //
-// q, k, v, o: (BH, T, HD) bf16, contiguous, HD in {64, 128}. Keys at j >= T
-// are masked out and rows i >= T are not written, so T needs no padding.
-// On the codec path BH = 2 x 24 (the CFG pair, 24 heads), HD = 64 and
-// T = 186, 374 or 750 (the 7.5, 15 and 30 s windows).
+// q, o: (B, H, T, HD), k, v: (B, G, T, HD) bf16, contiguous, HD in {64,
+// 128}, H % G == 0. The head map reads each group's K/V in place (nothing
+// repeated in memory: the same function as JAX's `jnp.repeat`). Keys at
+// j >= T are masked out and rows i >= T are not written, so T needs no
+// padding. On the codec path B = 2 (the CFG pair), H = G = 24, HD = 64 and
+// T = 186, 374 or 750 (the 7.5, 15 and 30 s windows); the prefill probe
+// runs B = 1, H = 24, G = 8, HD = 128, T = 2048, causal.
 //
-// Bound: 4 * BH * T^2 * HD operations (Q.K^T and P.V) against the bf16 dense
-// peak of 989 TFLOP/s, and the bytes of q, k, v and o (8 * BH * T * HD)
-// against 3.35 TB/s. At BH = 48, T = 750, HD = 64 that is 6.9 GFLOP (7.0 us)
-// against 18.4 MB (5.5 us): the tensor cores bound it, narrowly. The scores
-// (BH x T x T, 108 MB in f32 at T = 750) never touch device memory.
+// Bound: non-causal, 4 * B * H * T^2 * HD operations (Q.K^T and P.V)
+// against the bf16 dense peak of 989 TFLOP/s, and the bytes of q, k, v and
+// o against 3.35 TB/s. At B = 2, H = 24, T = 750, HD = 64 that is 6.9 GFLOP
+// (7.0 us) against 18.4 MB (5.5 us): the tensor cores bound it, narrowly.
+// Causal at the prefill shape: half the products, 25.8 GFLOP (26 us), against
+// 33.6 MB (10 us): the tensor cores bound it. The scores never touch device
+// memory.
 //
 // Design (the simple first version):
-//  * one block per (64-query tile, bh); 4 warps, each owning 16 query rows
+//  * one block per (64-query tile, b, h); 4 warps, each owning 16 query rows
 //    whose Q fragments it keeps in registers for the whole key loop;
 //  * K and V tiles of 64 keys are staged in shared memory (rows padded by
 //    8 bf16, so the fragment loads hit 32 distinct banks), zero past T;
@@ -28,8 +37,12 @@
 //  * online softmax in f32: running row max and sum, the scale folded with
 //    log2(e) into one exp2f; P is rounded to bf16 before P.V and the row sum
 //    adds the rounded values, so O / l is a convex combination;
+//  * causal: key tiles past the query tile's last row are never loaded, the
+//    diagonal tile masks j > i, and the query tiles run last first (the
+//    longest blocks start first);
 //  * O / l is rounded to bf16 once at the end; no atomics, so every run
-//    gives the same bits.
+//    gives the same bits. The non-causal path with H == G is the codec's
+//    kernel unchanged.
 // Not yet: wgmma, TMA, cp.async double buffering, warp specialisation.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,12 +90,13 @@ __device__ __forceinline__ float quad_sum(float v) {
 // rows g and g + 8, columns 2 * t4 (+1) and 2 * t4 + 8 (+1); B holds rows
 // 2 * t4 (+1) and 2 * t4 + 8 (+1) of column g; C holds rows g and g + 8,
 // columns 2 * t4 (+1).
-template <int HD>
+template <int HD, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, int T, float scale_log2) {
+                  __nv_bfloat16* __restrict__ o, int T, int H, int G,
+                  float scale_log2) {
   constexpr int LD = HD + 8;   // padded shared-memory row, in bf16
   constexpr int KS = HD / 16;  // k-steps of Q.K^T
   constexpr int NT = HD / 8;   // n-tiles of O
@@ -91,21 +105,28 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
   __shared__ __align__(16) __nv_bfloat16 ks[BK * LD];
   __shared__ __align__(16) __nv_bfloat16 vs[BK * LD];
 
+  // blockIdx.y = b * H + h; the K/V group of head h is h / (H / G)
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
   const size_t base = (size_t)blockIdx.y * T * HD;
+  const size_t kv_base = ((size_t)b * G + h / (H / G)) * T * HD;
+  const int tile = CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = tile * BQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = blockIdx.x * BQ + warp * 16 + g, r1 = r0 + 8;
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  // causal: keys past the tile's last row (q0 + BQ - 1) are never needed
+  const int k_end = CAUSAL ? min(T, q0 + BQ) : T;
 
   uint32_t qf[KS][4];
 #pragma unroll
   for (int s = 0; s < KS; ++s) {
     const int c = s * 16 + 2 * t4;
-    const __nv_bfloat16* q0 = q + base + (size_t)r0 * HD + c;
-    const __nv_bfloat16* q1 = q + base + (size_t)r1 * HD + c;
-    qf[s][0] = r0 < T ? ld32(q0) : 0u;
-    qf[s][1] = r1 < T ? ld32(q1) : 0u;
-    qf[s][2] = r0 < T ? ld32(q0 + 8) : 0u;
-    qf[s][3] = r1 < T ? ld32(q1 + 8) : 0u;
+    const __nv_bfloat16* qp0 = q + base + (size_t)r0 * HD + c;
+    const __nv_bfloat16* qp1 = q + base + (size_t)r1 * HD + c;
+    qf[s][0] = r0 < T ? ld32(qp0) : 0u;
+    qf[s][1] = r1 < T ? ld32(qp1) : 0u;
+    qf[s][2] = r0 < T ? ld32(qp0 + 8) : 0u;
+    qf[s][3] = r1 < T ? ld32(qp1 + 8) : 0u;
   }
 
   float acc[NT][4];
@@ -113,14 +134,14 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  for (int k0 = 0; k0 < T; k0 += BK) {
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();  // every warp is done with the previous tile
     for (int i = threadIdx.x; i < BK * CH; i += THREADS) {
       const int r = i / CH, c = (i % CH) * 8;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
       if (k0 + r < T) {
-        kv = *reinterpret_cast<const uint4*>(k + base + (size_t)(k0 + r) * HD + c);
-        vv = *reinterpret_cast<const uint4*>(v + base + (size_t)(k0 + r) * HD + c);
+        kv = *reinterpret_cast<const uint4*>(k + kv_base + (size_t)(k0 + r) * HD + c);
+        vv = *reinterpret_cast<const uint4*>(v + kv_base + (size_t)(k0 + r) * HD + c);
       }
       *reinterpret_cast<uint4*>(ks + r * LD + c) = kv;
       *reinterpret_cast<uint4*>(vs + r * LD + c) = vv;
@@ -138,18 +159,25 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
         mma_bf16(s[n], qf[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
     }
 
-    // Mask keys past T; running max of rows g and g + 8.
+    // Mask keys past T (and, causal, past the row); running max of rows g
+    // and g + 8.
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int n = 0; n < ST; ++n) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        if (k0 + n * 8 + 2 * t4 + e >= T) s[n][e] = s[n][2 + e] = -INFINITY;
+        const int j = k0 + n * 8 + 2 * t4 + e;
+        if (j >= T) s[n][e] = s[n][2 + e] = -INFINITY;
+        if (CAUSAL) {
+          if (j > r0) s[n][e] = -INFINITY;
+          if (j > r1) s[n][2 + e] = -INFINITY;
+        }
         mx0 = fmaxf(mx0, s[n][e]);
         mx1 = fmaxf(mx1, s[n][2 + e]);
       }
     }
-    // Every tile holds a key < T, so the new maxima are finite.
+    // Every tile holds a key < T, and causal, a key <= each row (key k0 <=
+    // q0 <= r0), so the new maxima are finite.
     const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
     const float al0 = exp2f((m0 - mn0) * scale_log2);
     const float al1 = exp2f((m1 - mn1) * scale_log2);
@@ -208,22 +236,26 @@ flash_attn_kernel(const __nv_bfloat16* __restrict__ q,
 
 }  // namespace
 
-// q, k, v, o: (BH, T, hd) bf16; scale multiplies q.k before the softmax.
-// Returns cudaGetLastError() (cudaErrorInvalidValue for an hd other than 64
-// or 128).
+// q, o: (B, H, T, hd), k, v: (B, G, T, hd) bf16; scale multiplies q.k before
+// the softmax; causal masks keys past each row. Returns cudaGetLastError()
+// (cudaErrorInvalidValue for an hd other than 64 or 128, or H % G != 0).
 extern "C" int ua2_flash_attn(const void* q, const void* k, const void* v, void* o,
-                              int BH, int T, int hd, float scale, void* stream) {
-  const dim3 grid((T + BQ - 1) / BQ, BH);
+                              int B, int H, int G, int T, int hd, float scale,
+                              int causal, void* stream) {
+  if (G <= 0 || H % G != 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((T + BQ - 1) / BQ, B * H);
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto args = [&](auto kernel) {
     kernel<<<grid, THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), T,
-        scale_log2);
+        H, G, scale_log2);
     return (int)cudaGetLastError();
   };
-  if (hd == 64) return args(flash_attn_kernel<64>);
-  if (hd == 128) return args(flash_attn_kernel<128>);
+  if (hd == 64) return causal ? args(flash_attn_kernel<64, true>)
+                              : args(flash_attn_kernel<64, false>);
+  if (hd == 128) return causal ? args(flash_attn_kernel<128, true>)
+                               : args(flash_attn_kernel<128, false>);
   return (int)cudaErrorInvalidValue;
 }

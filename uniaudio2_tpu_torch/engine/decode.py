@@ -13,9 +13,16 @@ Output protocol (two-phase audio): as in the JAX package, every frame goes
 into a (max_frames, 8) buffer with a phase tag, and `split_two_phase`
 reproduces the reference's list semantics (`tts_task.py:261-284`).
 
+Cache policies, as the JAX engine resolves them per program: the int8 KV
+cache (``kv_quant``, env ``UA2_KV_QUANT``), prefix-bounded attention reads
+(``attn_block``, env ``UA2_ATTN_BLOCK``) and deferred KV writes
+(``kv_write``, env ``UA2_KV_WRITE``). The three environment variables are
+the JAX engine's serving interface; they pick a policy, never a kernel or
+its twin. The prefix level of each frame is picked from the host's own
+count of the position (``last + step``), never read back from the device.
+
 Not ported yet (ROADMAP queue 1 item 7): batched ``generate_*_batch``,
-beam search and the host-driven n-gram blocking path; the int8 KV cache,
-prefix-bounded attention and deferred KV writes (item 3).
+beam search and the host-driven n-gram blocking path.
 """
 
 from __future__ import annotations
@@ -117,6 +124,7 @@ class DecodeEngine:
             params.get("backbone", {}).get("layers"), list
         ) and self.kv_write != "deferred"
         self.last_steps = 0     # frames run by the last generate_* call
+        self.last_policy = {}   # cache length and policies of that call
 
     def _pad_grid(self, grid, mask, use_cfg, neg_grid, neg_mask):
         length = grid.shape[0]
@@ -151,15 +159,11 @@ class DecodeEngine:
         max_frames = self.max_frames
         cache_len = min(cfg.max_seq_len,
                         -(-(bucket + max_frames) // 256) * 256)
-        if resolve_attn_block(self.attn_block, cache_len):
-            raise NotImplementedError(
-                "prefix-bounded attention (attn_block > 0) is not ported yet "
-                "(ROADMAP queue 1 item 3)")
-        if self.kv_write != "inline":
-            raise NotImplementedError(
-                "deferred KV writes are not ported yet (ROADMAP queue 1 item 3)")
+        attn_block = resolve_attn_block(self.attn_block, cache_len)
         cache_dtype = resolve_kv_quant(self.kv_quant, cache_len,
                                        self.cache_dtype, batch=batch)
+        self.last_policy = dict(cache_len=cache_len, kv_dtype=cache_dtype,
+                                attn_block=attn_block, kv_write=self.kv_write)
         caches = unified.init_caches(cfg, batch, dtype=cache_dtype,
                                      seq_len=cache_len,
                                      as_lists=self._cache_lists, device=dev)
@@ -186,7 +190,9 @@ class DecodeEngine:
                     self.params, cfg, tokens, tmask, caches, pos, generator,
                     temperature=temperature, topk=topk, forbid_prefix=forbid,
                     use_cfg=use_cfg, cfg_scale=cfg_scale,
-                    sample_text=mode == "text", sample_audio=mode == "audio")
+                    sample_text=mode == "text", sample_audio=mode == "audio",
+                    attn_block=attn_block, kv_write=self.kv_write,
+                    host_pos=last + step)
                 text_tok = frame[0, 0]          # row 0 = conditioned
                 audio_toks = frame[0, 1:]
                 if mode == "text":

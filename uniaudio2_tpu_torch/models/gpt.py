@@ -17,8 +17,12 @@ layers (``torch.utils.checkpoint``, non-reentrant), and the per-layer views
 of the stacked leaves come from one ``unbind``, so each stacked leaf gets
 its gradient from one stack in the backward pass.
 
-Not ported yet: MoE layers (ROADMAP queue 1 item 5), prefix-bounded
-attention reads (``attn_block``) and deferred KV writes (item 3).
+`decode_step` takes the JAX engine's cache policies: an int8 `QuantKV`
+cache, prefix-bounded attention reads (``attn_block``; the level is picked
+from a host position, never read back from the device) and deferred KV
+writes (one coalesced write of every layer's K/V per step, stacked cache).
+
+Not ported yet: MoE layers (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -33,7 +37,9 @@ from torch.utils.checkpoint import checkpoint
 from uniaudio2_tpu_torch.config import GPTConfig
 from uniaudio2_tpu_torch.ops import fused_mlp, qkv_step
 from uniaudio2_tpu_torch.ops.attention import causal_attention, decode_attention
-from uniaudio2_tpu_torch.ops.kv_cache import KVCache, update_layer
+from uniaudio2_tpu_torch.ops.kv_cache import (
+    KVCache, layer_entry, update_layer, update_stacked,
+)
 from uniaudio2_tpu_torch.ops.norms import rms_norm
 from uniaudio2_tpu_torch.ops.quant import matmul
 from uniaudio2_tpu_torch.ops.rope import apply_rope, rope_cache
@@ -254,7 +260,9 @@ def prefill(params: Params, cfg: GPTConfig, x: torch.Tensor, cache: KVCache,
         hn = rms_norm(x, layer["norm1_w"], cfg.norm_eps)
         q, k, v = _qkv(layer, cfg, hn, cos, sin)
         # a list item, or a view into the stacked buffer: written in place
-        update_layer(cache.k[i], cache.v[i], k, v, 0)
+        # (quantized at write for an int8 cache; attention reads the fresh K/V)
+        update_layer(layer_entry(cache.k, i), layer_entry(cache.v, i), k, v,
+                     0)
         attn = causal_attention(q, k, v, scale=scale, extra_mask=extra_mask,
                                 logit_softcap=cfg.attention_logit_softcapping,
                                 window=win)
@@ -264,41 +272,75 @@ def prefill(params: Params, cfg: GPTConfig, x: torch.Tensor, cache: KVCache,
     return rms_norm(x, params["ln_f_w"], cfg.norm_eps), cache
 
 
+def _prefix_levels(s_max: int, block: Optional[int]
+                   ) -> Optional[Tuple[int, ...]]:
+    """Static attention-read levels [block, 2*block, ..., s_max]; None when
+    bounding is off or cannot help (block >= s_max)."""
+    if not block or block >= s_max:
+        return None
+    return tuple(range(block, s_max, block)) + (s_max,)
+
+
 def decode_step(params: Params, cfg: GPTConfig, x: torch.Tensor,
                 cache: KVCache, pos: "torch.Tensor | int", *,
                 key_valid: Optional[torch.Tensor] = None,
                 attn_block: Optional[int] = None,
-                kv_write: str = "inline") -> Tuple[torch.Tensor, KVCache]:
-    """One incremental step of ``x`` (B, T, D) at positions [pos, pos+T):
-    writes K/V into the cache in place, then attends over the whole static
-    cache with a position mask. ``pos`` is an int or a one-element int64
-    device tensor (no host synchronisation either way)."""
+                kv_write: str = "inline",
+                host_pos: Optional[int] = None) -> Tuple[torch.Tensor, KVCache]:
+    """One incremental step of ``x`` (B, T, D) at positions [pos, pos+T),
+    updating the cache in place. ``pos`` is an int or a one-element int64
+    device tensor (no host synchronisation either way).
+
+    ``attn_block`` bounds attention reads to the smallest multiple of the
+    block covering the filled cache (`decode_attention(prefix_levels=)`);
+    the level is picked from ``host_pos``, the position as a host int (an
+    int ``pos`` is its own). ``kv_write="deferred"`` (T == 1, stacked cache
+    only) attends over the cache prefix [0, pos) plus the fresh K/V as one
+    extra softmax column and writes every layer's K/V at the end in one
+    `update_stacked`; "inline" writes each layer's slot before it
+    attends."""
     _no_moe(cfg)
-    if attn_block:
-        raise NotImplementedError(
-            "prefix-bounded attention (attn_block > 0) is not ported yet "
-            "(ROADMAP queue 1 item 3)")
-    if kv_write != "inline":
-        raise NotImplementedError(
-            f"kv_write={kv_write!r} is not ported yet (ROADMAP queue 1 item 3)")
     b, t, d = x.shape
-    cos_t, sin_t = _rope_tables(cfg, cache.max_seq, x.device)
+    deferred = kv_write == "deferred"
+    if kv_write not in ("inline", "deferred"):
+        raise ValueError(f"kv_write={kv_write!r}: expected inline or deferred")
+    if deferred:
+        if t != 1:
+            raise ValueError("deferred KV writes require T == 1 decode steps")
+        if isinstance(cache.k, list):
+            raise ValueError("deferred KV writes need the STACKED cache layout "
+                             "(init_caches(as_lists=False))")
     if isinstance(pos, int):
+        host_pos = pos
         positions = torch.arange(pos, pos + t, device=x.device)
     else:
         positions = pos.reshape(1) + torch.arange(t, device=x.device)
+    cos_t, sin_t = _rope_tables(cfg, cache.max_seq, x.device)
     cos, sin = cos_t[positions], sin_t[positions]
     scale = 1.0 / math.sqrt(cfg.attention_scores_scalar or cfg.head_size)
+    levels = _prefix_levels(cache.max_seq, attn_block)
+    filled = None if host_pos is None else host_pos + t - deferred
     layers = _layers(params)
+    fresh_k, fresh_v = [], []
     for i, (layer, win) in enumerate(
             zip(layers, _layer_windows(cfg, len(layers)))):
         q, k, v = _qkv(layer, cfg, x, cos, sin,
                        pre_norm=(layer["norm1_w"], cfg.norm_eps))
-        k_l, v_l = update_layer(cache.k[i], cache.v[i], k, v, pos)
+        k_l, v_l = layer_entry(cache.k, i), layer_entry(cache.v, i)
+        if deferred:
+            fresh_k.append(k)
+            fresh_v.append(v)
+        else:
+            update_layer(k_l, v_l, k, v, pos)
         attn = decode_attention(q, k_l, v_l, positions, scale=scale,
                                 key_valid=key_valid,
                                 logit_softcap=cfg.attention_logit_softcapping,
-                                window=win)
+                                window=win, prefix_levels=levels,
+                                fresh_kv=(k, v) if deferred else None,
+                                filled=filled)
         x = matmul(attn, layer["attn_proj_w"], residual=x)
         x = _mlp_block(layer, x, cfg)
+    if deferred:
+        update_stacked(cache.k, cache.v, torch.stack(fresh_k),
+                       torch.stack(fresh_v), pos)
     return rms_norm(x, params["ln_f_w"], cfg.norm_eps), cache

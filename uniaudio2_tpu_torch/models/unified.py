@@ -12,8 +12,8 @@ never synchronises with the host inside a frame.
 `Model_stage3.forward`), with the local decoder run densely at every step
 or at gathered audio steps (``decoder_positions``).
 
-Not ported yet: batched ``key_valid`` decoding and per-row keys (ROADMAP
-queue 1 item 7).
+Not ported yet: per-row keys and the per-pair ``forbid_prefix`` of batched
+decoding (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -221,37 +221,49 @@ def forward_text(params: Params, cfg: UnifiedModelConfig,
 
 
 def prefill(params: Params, cfg: UnifiedModelConfig, tokens: torch.Tensor,
-            tokens_mask: torch.Tensor, caches: UnifiedCaches) -> UnifiedCaches:
+            tokens_mask: torch.Tensor, caches: UnifiedCaches,
+            key_valid: Optional[torch.Tensor] = None) -> UnifiedCaches:
     """Run the prompt (B, S, 9) through experts and backbone at positions
-    [0, S), filling the three caches (the local decoder is skipped)."""
+    [0, S), filling the three caches (the local decoder is skipped).
+    ``key_valid`` (B, S) masks slots no query may attend (ragged rows of a
+    batch)."""
     audio_input, text_embeds, a_mask, t_mask = _fuse_input(
         params, cfg, tokens, tokens_mask)
+    extra = None if key_valid is None else key_valid[:, None, :]
     h_audio, _ = gpt.prefill(params["understanding_expert"],
                              cfg.understanding_expert, audio_input,
-                             caches.understanding)
+                             caches.understanding, extra_mask=extra)
     h, _ = gpt.prefill(params["backbone"], cfg.backbone,
-                       h_audio * a_mask + text_embeds * t_mask, caches.backbone)
+                       h_audio * a_mask + text_embeds * t_mask, caches.backbone,
+                       extra_mask=extra)
     gpt.prefill(params["generation_expert"], cfg.generation_expert,
-                h * a_mask, caches.generation)
+                h * a_mask, caches.generation, extra_mask=extra)
     return caches
 
 
 def decode_hidden(params: Params, cfg: UnifiedModelConfig,
                   tokens: torch.Tensor, tokens_mask: torch.Tensor,
-                  caches: UnifiedCaches, pos: "torch.Tensor | int"
+                  caches: UnifiedCaches, pos: "torch.Tensor | int",
+                  key_valid: Optional[torch.Tensor] = None,
+                  attn_block: Optional[int] = None, kv_write: str = "inline",
+                  host_pos: Optional[int] = None
                   ) -> Tuple[torch.Tensor, UnifiedCaches]:
-    """(B, 1, 9) tokens at ``pos`` -> (last hidden state (B, D), caches)."""
+    """(B, 1, 9) tokens at ``pos`` -> (last hidden state (B, D), caches).
+    ``key_valid`` (B, S_max), ``attn_block``, ``kv_write`` and ``host_pos``
+    as in `gpt.decode_step`."""
+    kw = dict(key_valid=key_valid, attn_block=attn_block, kv_write=kv_write,
+              host_pos=host_pos)
     audio_input, text_embeds, a_mask, t_mask = _fuse_input(
         params, cfg, tokens, tokens_mask)
     h_audio, _ = gpt.decode_step(params["understanding_expert"],
                                  cfg.understanding_expert, audio_input,
-                                 caches.understanding, pos)
+                                 caches.understanding, pos, **kw)
     h, _ = gpt.decode_step(params["backbone"], cfg.backbone,
                            h_audio * a_mask + text_embeds * t_mask,
-                           caches.backbone, pos)
+                           caches.backbone, pos, **kw)
     h_gen, _ = gpt.decode_step(params["generation_expert"],
                                cfg.generation_expert, h * a_mask,
-                               caches.generation, pos)
+                               caches.generation, pos, **kw)
     return (h_gen * a_mask + h * t_mask)[:, -1, :], caches
 
 
@@ -276,15 +288,21 @@ def decode_frame(params: Params, cfg: UnifiedModelConfig,
                  temperature: float, topk: int,
                  forbid_prefix: "torch.Tensor | int",
                  use_cfg: bool = False, cfg_scale: float = 1.0,
-                 sample_text: bool = True, sample_audio: bool = True
+                 sample_text: bool = True, sample_audio: bool = True,
+                 key_valid: Optional[torch.Tensor] = None,
+                 attn_block: Optional[int] = None, kv_write: str = "inline",
+                 host_pos: Optional[int] = None
                  ) -> Tuple[torch.Tensor, UnifiedCaches]:
     """One AR step: the previous frame's (B, 1, 9) tokens at ``pos`` -> the
     next frame's (B, 9) int64 tokens [text, cb0..cb7]. ``sample_text`` /
     ``sample_audio`` skip the unused head (its stream returns zeros); with
-    ``use_cfg`` rows are [cond, uncond] pairs."""
+    ``use_cfg`` rows are [cond, uncond] pairs. The cache policies as in
+    `decode_hidden`."""
     b = tokens.shape[0]
     last_h, caches = decode_hidden(params, cfg, tokens, tokens_mask, caches,
-                                   pos)
+                                   pos, key_valid=key_valid,
+                                   attn_block=attn_block, kv_write=kv_write,
+                                   host_pos=host_pos)
     if sample_text:
         text_logits = gpt.lm_head(params["backbone"], last_h, cfg.backbone)
         text_sample = _sample(generator, text_logits, topk, temperature, None,

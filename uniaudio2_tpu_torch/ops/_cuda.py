@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("gemv_int4i.cu", "gemv_int8.cu", "gemv_int4.cu", "gemv_int4g.cu",
            "gemv_int4c.cu", "gemv_int4cg.cu", "qkv_rope.cu", "fused_swiglu.cu",
-           "flash_attn.cu", "lean_update.cu")
+           "flash_attn.cu", "lean_update.cu", "gemv_int8_splitk.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -51,12 +51,14 @@ _SIGNATURES = {
     # ldw3, layout12, G12, layout3, G3, eps, stream
     "ua2_fused_swiglu": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # q, k, v, o, BH, T, hd, scale, stream
-    "ua2_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # q, k, v, o, B, H, G, T, hd, scale, causal, stream
+    "ua2_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     # g, m_q, m_scale, p, a, b, upd, new_m_q, new_m_scale, rows,
     # rows_per_lead, cols, is_bf16, b1, 1 - b1, wd, eps, inv_mc, -lr, stream
     "ua2_lean_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                         _F, _F, _F, _F, _F, _F, _P],
+    # x, w, scale, partial, out, K, N, ldw, splits, chunk, stream
+    "ua2_gemv_int8_splitk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,18 +1,27 @@
-"""Non-causal softmax attention for the codec DiT.
+"""Softmax attention: non-causal for the codec DiT, causal with grouped K/V
+heads for the backbone's prefill probe.
 
 CUDA kernel ``ua2_flash_attn`` (``csrc/flash_attn.cu``) replaces
 `_flash_attention` (uniaudio2_tpu/codec/dit.py:174-193), the JAX package's
-call of JAX's Pallas TPU ``flash_attention``. It computes the same function
-at every T: keys past T are masked inside the kernel, so nothing is padded
-(the JAX call pads T to 128 and masks with segment ids; its T >= 128 gate
-is a TPU tuning choice, and its try/except fallback is not copied).
+call of JAX's Pallas TPU ``flash_attention``, and `bb_flash`
+(scripts/profile_attention.py:102-108), the same bundled kernel with
+``causal=True`` over K/V repeated from G groups to H heads. It computes the
+same function at every T: keys past T are masked inside the kernel, so
+nothing is padded (the JAX call pads T to 128 and masks with segment ids;
+its T >= 128 gate is a TPU tuning choice, and its try/except fallback is
+not copied). Head h reads K/V group h / (H / G) in place, the function of
+JAX's ``jnp.repeat``.
 
 The plain twin `attention_plain` follows the JAX einsum path
-(`dit.py:218-223`): f32 scores x hd^-0.5, f32 softmax, probabilities cast
-to ``v.dtype``, then P.V. The kernel rounds the *unnormalised* P to bf16
-and divides by the row sum at the end (the flash convention); in bf16 the
-two agree to about 2^-8 of the output's range, so the card-side check is
-|kernel - twin| <= 2e-2 x max|twin|, as for the GEMV kernels.
+(`dit.py:218-223`): f32 scores x scale, masked past each row when causal,
+f32 softmax, probabilities cast to ``v.dtype``, then P.V. The kernel rounds
+the *unnormalised* P to bf16 and divides by the row sum at the end (the
+flash convention); in bf16 the two agree to about 2^-8 of the output's
+range, so the card-side check is |kernel - twin| <= 2e-2 x max|twin|, as
+for the GEMV kernels.
+
+The backbone's own prefill keeps `ops.attention.causal_attention`: the JAX
+engine's prefill runs that XLA einsum, not a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -26,35 +35,47 @@ HEAD_DIMS = (64, 128)   # the kernel's instantiations
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
+                    scale: float, causal: bool = False) -> torch.Tensor:
+    h, g = q.shape[1], k.shape[1]
+    if g != h:      # the JAX probe's jnp.repeat of each group to its heads
+        k, v = (x.repeat_interleave(h // g, dim=1) for x in (k, v))
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        t = q.shape[2]
+        keep = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~keep, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
-    """``q``, ``k``, ``v`` (B, H, T, hd) -> (B, H, T, hd) in ``q.dtype``:
-    softmax(q k^T * scale) v over all T keys, per (batch, head)."""
+                    scale: float, causal: bool = False) -> torch.Tensor:
+    """``q`` (B, H, T, hd), ``k``, ``v`` (B, G, T, hd) with H % G == 0 ->
+    (B, H, T, hd) in ``q.dtype``: softmax(q k^T * scale) v per (batch,
+    head) over all T keys, or keys up to each query's own position when
+    ``causal``."""
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, scale)
+        return attention_plain(q, k, v, scale, causal)
     b, h, t, hd = q.shape
+    g = k.shape[1]
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    if g <= 0 or h % g:
+        raise ValueError(f"flash_attention: {h} heads over {g} K/V groups")
     dev = q.device
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        check_operand(x, name, torch.bfloat16, (b, h, t, hd), dev)
+    for name, x, heads in (("q", q, h), ("k", k, g), ("v", v, g)):
+        check_operand(x, name, torch.bfloat16, (b, heads, t, hd), dev)
         if x.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
     o = torch.empty_like(q)
     if t == 0:
         return o
     err = _cuda.lib().ua2_flash_attn(
-        _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(o), b * h, t, hd,
-        float(scale), _cuda.stream_of(q))
+        _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(o), b, h, g, t, hd,
+        float(scale), int(causal), _cuda.stream_of(q))
     _cuda.check(err, "ua2_flash_attn")
-    flash_attention.launches += 1
+    _cuda.count(flash_attention, "causal" if causal else None)
     return o
 
 
-flash_attention.launches = 0
+_cuda.reset_count(flash_attention)
