@@ -68,6 +68,22 @@ caught):
    rows, on the trees of two seeds, and two planted faults (the per-slot
    scale written one slot late; the level one block short at the
    boundary) that the comparisons must reject;
+10. (run after phase 9) batched serving, beam search and n-gram blocking
+   on phase 4's tree with the engine's own policies: `generate_text_batch`
+   of 8 ragged ASR prompts in bucket 64 (bench's and cuts of it), greedy
+   and with per-row seeds at topk 5, `generate_audio_batch` of 8 TTS
+   prompts and of 4 CFG utterances (8 rows), 64 frames each (a 256-slot
+   cache, int8 KV under "auto" at 8 rows); `generate_text_beam` (beam 4,
+   32 steps) and `generate_text(no_repeat_ngram=3)` (64 tokens) on bench's
+   ASR prompt (host-driven steps, a 2048-slot cache: int8 KV, block 128);
+   beam 1 against greedy decoding (both int8 KV, block 128); frames/s,
+   row-frames/s, cache bytes, the policy "auto" chose, the levels read,
+   launches against the tree's count. Then (a) the batch in reverse order
+   must give every item the same greedy tokens, and (b) each row's first
+   frame (text and codebook-0 logits, backbone K rows) must match its item
+   run alone in the same bucket within bounds set from readings, on the
+   trees of two seeds, where two planted faults (a row's key_valid
+   dropped; a row's left pad one slot short) must fail;
 6. the codec at full `CodecConfig()` width (DiT 32 x 24 x 64, ScalarAE
    `default_24k`) with random bf16 weights from a seeded generator:
    (a) one DiT estimator evaluation at B = 2, T = 374 through the flash
@@ -99,10 +115,15 @@ caught):
 Phase 3 also holds the fused lean-update kernel to its twin at full-width
 leaf shapes (bit-identical, bf16 g and p).
 
-At the end the two probe scripts run (`uniaudio2_tpu_torch/probes/`: the
+At the end the four probe scripts run (`uniaudio2_tpu_torch/probes/`: the
 split-K int8 GEMV against the production int8 kernel, a bf16 product and
 ``torch._int_mm`` at six shapes; the causal GQA flash kernel and the DiT's
-against the einsum path and SDPA), their kernels' launches counted.
+against the einsum path and SDPA; the int4 GEMV with the conversion-free
+unpack against the production interleaved kernel, and the K-split int4
+GEMV's twelve tile forms against the production K-split kernel, at M = 1,
+8 and 16, beside ``torch._weight_int4pack_mm`` and the byte bound), their
+kernels' launches counted. Phase 3 also holds those two kernels to their
+twins (one bf16 ulp) and to the production kernels' bits.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -243,29 +264,6 @@ def phase_build():
             print(f"[2] {line.strip()}", flush=True)
 
 
-class Timer:
-    """Median CUDA-event time of single launches, L2 flushed before each."""
-
-    def __init__(self, torch, dev):
-        self.torch = torch
-        self.flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-
-    def __call__(self, fn, reps=15):
-        torch = self.torch
-        fn()
-        pairs = []
-        for _ in range(reps):
-            self.flush.zero_()
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            pairs.append((s, e))
-        torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in pairs)
-
-
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -275,23 +273,6 @@ def bound(n_bytes, flops, peak=PEAK_BF16):
     move at PEAK_BYTES or its operations at ``peak``, the larger."""
     by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-
-
-def int4_tinygemm(torch, w):
-    """Any int4 container repacked once for ``torch._weight_int4pack_mm``:
-    levels + 8 as uint4, zero points 0, bf16 scales per group of rows (the
-    container's own groups, or the per-channel scale repeated over groups
-    of 256 rows). Returns (packed weight, group size, scales and zeros)."""
-    from uniaudio2_tpu_torch.ops import quant
-
-    q = (quant.levels(w).T + 8).contiguous()                         # (N, K)
-    packed = ((q[:, ::2] << 4) | q[:, 1::2]).to(torch.uint8).contiguous()
-    n, k = q.shape
-    scale = w.scale if w.scale.ndim == 2 else w.scale.expand(k // 256, n)
-    sz = torch.stack([scale, torch.zeros_like(scale)], -1).to(
-        torch.bfloat16).contiguous()
-    return (torch._convert_weight_to_int4pack(packed, 8), k // scale.shape[0],
-            sz)
 
 
 # Rows of the kernels line: one per kernel and weight form. A name without
@@ -350,12 +331,16 @@ def phase_kernels(torch, dev):
     and, at the kernel's reference case, the kernel's and the twin's time,
     the bound on the card and the library call's time (or None)."""
     from uniaudio2_tpu_torch.ops import (
-        flash_attention, fused_mlp, qkv_step, quant, splitk_gemv,
+        flash_attention, fused_mlp, int4_native, int4_sweep, qkv_step, quant,
+        splitk_gemv,
     )
-    from uniaudio2_tpu_torch.probes import profile_gemv
+    from uniaudio2_tpu_torch.probes import (
+        FlushedTimer, int4_native_probe, int4_tinygemm, profile_gemv,
+        sweep_gemv_blocks,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(1234)
-    timer = Timer(torch, dev)
+    timer = FlushedTimer(dev)
 
     def bf16(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -455,7 +440,7 @@ def phase_kernels(torch, dev):
                 library = None
                 row = m == 1 and label == "projection"
                 if row:
-                    wp, group, sz = int4_tinygemm(torch, w)
+                    wp, group, sz = int4_tinygemm(w)
 
                     def library():
                         return torch._weight_int4pack_mm(x, wp, group, sz)
@@ -483,7 +468,7 @@ def phase_kernels(torch, dev):
                 library = None
                 row = m == 255 and label == "mlp_proj"
                 if row:
-                    wp, group, sz = int4_tinygemm(torch, w)
+                    wp, group, sz = int4_tinygemm(w)
 
                     def library():
                         return torch._weight_int4pack_mm(x, wp, group, sz)
@@ -572,6 +557,66 @@ def phase_kernels(torch, dev):
               lambda: torch._weight_int8pack_mm(x, w_lib, s_lib),
               row=(k, n) == (3072, 8192), rtol=RTOL_GROUPED)
         del w, w_lib
+    # row 11, the conversion-free unpack, at the int4 probe's shapes and the
+    # batched path's M; row: (3072, 8192) at M = 1, row-major. Twin: one
+    # bf16 ulp; the production interleaved kernel: the same bits.
+    for k, n in int4_native_probe.SHAPES:
+        w = quant.to_interleaved(quant.quantize4(
+            torch.randn((k, n), generator=gen, device=dev) * 0.02))
+        chunked = int4_native_probe.chunk_major(w.values, 512)
+        wp, group, sz = int4_tinygemm(w)
+        for m in int4_native_probe.ROWS:
+            x = bf16(m, k)
+            for label, vals in (("row-major", w.values),
+                                ("chunk-major", chunked)):
+                row = (k, n, m) == (3072, 8192, 1) and label == "row-major"
+                check("int4_native_gemv", f"(K, N) = ({k}, {n}) M={m} {label}",
+                      lambda: int4_native.int4_native_matmul(x, vals, w.scale),
+                      lambda: int4_native.int4_native_matmul_plain(
+                          x, w.values, w.scale),
+                      (nbytes(x, w.scale) + k * n // 2 + 2 * m * n,
+                       2 * m * k * n),
+                      (lambda: torch._weight_int4pack_mm(x, wp, group, sz))
+                      if row else None, row=row, rtol=RTOL_GROUPED)
+            same = torch.equal(int4_native.int4_native_matmul(
+                x, w.values, w.scale), quant.int4i_matmul(x, w.values, w.scale))
+            print(f"[3] int4_native_gemv (K, N) = ({k}, {n}) M={m}: the "
+                  f"production int4i_matmul's bits: {same}", flush=True)
+            if not same:
+                fail("int4_native_gemv does not sum in gemv_int4i.cu's order")
+    # row 13, the K-split GEMV's twelve tile forms at the backbone's qkv and
+    # the audio head (a partial last tile), M = 1 and 16; row: the fastest
+    # form at (3072, 5120), M = 1 (rechecked as the row).
+    int4_sweep.check_forms()
+    fastest = {}
+    for name, k, n in (sweep_gemv_blocks.SHAPES[0], sweep_gemv_blocks.SHAPES[3]):
+        w = quant.quantize4(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+        for m in (1, 16):
+            x = bf16(m, k)
+            for i, form in enumerate(int4_sweep.FORMS):
+                check("int4_sweep_gemv", f"{name} {k}->{n} M={m} {form.name}",
+                      lambda: int4_sweep.int4_sweep_matmul(x, w.values,
+                                                           w.scale, i),
+                      lambda: int4_sweep.int4_sweep_matmul_plain(
+                          x, w.values, w.scale),
+                      (nbytes(x, w.scale) + k * n // 2 + 2 * m * n,
+                       2 * m * k * n), rtol=RTOL_GROUPED)
+                if (name, m) == ("bb_qkv", 1):
+                    fastest[i] = timer(lambda: int4_sweep.int4_sweep_matmul(
+                        x, w.values, w.scale, i))
+            if name == "bb_qkv" and m == 1:
+                best = min(fastest, key=fastest.get)
+                wp, group, sz = int4_tinygemm(w)
+                check("int4_sweep_gemv",
+                      f"{name} {k}->{n} M=1 {int4_sweep.FORMS[best].name} (fastest)",
+                      lambda: int4_sweep.int4_sweep_matmul(x, w.values,
+                                                           w.scale, best),
+                      lambda: int4_sweep.int4_sweep_matmul_plain(
+                          x, w.values, w.scale),
+                      (nbytes(x, w.scale) + k * n // 2 + 2 * n, 2 * k * n),
+                      lambda: torch._weight_int4pack_mm(x, wp, group, sz),
+                      row=True, rtol=RTOL_GROUPED)
+                results["int4_sweep_gemv"]["form"] = int4_sweep.FORMS[best].name
     lean_cases(torch, dev, gen, timer, results)
     return results
 
@@ -1627,6 +1672,252 @@ def phase_defaults(torch, dev, cfg, params, params1):
     return total
 
 
+# Phase 10: batched serving, beam search and n-gram blocking on phase 4's
+# tree, the engine at its own policies. 8 rows of a bucket-64 batch decode
+# in a 256-slot cache (bucket + frames + 1, rounded up to 256), where
+# "auto" picks the int8 KV cache for any batch of 8 rows and no prefix
+# levels (below 512 slots); the host-driven paths (beam, n-gram) decode in
+# a cache of max_seq_len = 2048 slots: int8 KV, block-128 reads.
+BATCH_FRAMES = 64
+BEAM_STEPS = 32
+# Gate (b), on the card: (max|diff| / max|ref|, min cosine) of each row's
+# first-frame text and codebook-0 logits and backbone K rows (slot 63),
+# the 8-row batch against each item run alone, left-padded in the same
+# bucket, both with the int8 KV cache. They do not run the same kernels:
+# the batch's prefill has 504 rows, past the fused SwiGLU kernel's 128, so
+# its MLPs run the unfused GEMVs where an item alone (63 rows) runs the
+# fused kernel, and bf16 roundings that differ spread through 33 layers
+# (phase 8's byte orders read the same size). On the H100 the two seeds
+# read at worst text 0.100 / 0.99730, codebook 0 0.137 / 0.99422, K rows
+# 0.0504 / 0.99930; a row's key_valid dropped and a row's left pad off by
+# one slot at best 0.947 / 0.933, 0.938 / 0.930, 0.745 / 0.959. Each
+# bound sits at the geometric middle (in 1 - cosine for the cosines); both
+# faults must fail it. Readings in PERF.md.
+BATCH_BOUNDS = {"text": (0.3, 0.987), "codebook0": (0.35, 0.98),
+                "k_rows": (0.19, 0.9946)}
+
+
+def batch_prompts(cfg):
+    """8 ASR prompts (bench's, and cuts of its audio: 49 down to 35 steps),
+    8 TTS prompts (bench's, and cuts of its text: 37 down to 30 steps) and
+    the TTS prompts' CFG negatives; all in bucket 64."""
+    import numpy as np
+    from uniaudio2_tpu_torch.engine import tasks
+
+    asr, tts, neg = [], [], []
+    prompt = np.arange(1, 24, dtype=np.int64) % 100
+    for i in range(8):
+        rng = np.random.default_rng(0)
+        asr.append(tasks.prepare_asr(np.arange(1, 12, dtype=np.int64) % 100,
+                                     rng.integers(0, 100, (10, 8)),
+                                     rng.integers(0, 200, (24, 8))[:24 - 2 * i],
+                                     cfg.tokens))
+        text = np.arange(5, 17 - i, dtype=np.int64) % 100
+        tts.append(tasks.prepare_tts(prompt, text, cfg.tokens))
+        neg.append(tasks.prepare_tts_cfg_negative(prompt, text, cfg.tokens))
+    return asr, tts, neg
+
+
+def batch_first_frame(torch, cfg, params, eng, rows):
+    """Prefill + first frame of ``rows`` through the engine's batched
+    inputs (left padding, key_valid, its cache policy): per row the text
+    and codebook-0 logits and the K rows the frame wrote into the 28
+    backbone layers."""
+    from uniaudio2_tpu_torch.models import gpt, unified
+    from uniaudio2_tpu_torch.ops.kv_cache import QuantKV, init_cache, layer_entry
+    from uniaudio2_tpu_torch.ops.quant import matmul
+
+    g, m, key_valid, bucket, cache_len = eng._left_padded(rows)
+    caches = eng._caches(g.shape[0], cache_len)
+    last = bucket - 1
+    with torch.no_grad():
+        unified.prefill(params, cfg, g[:, :-1], m[:, :-1], caches,
+                        key_valid=key_valid[:, :last])
+        h, _ = unified.decode_hidden(
+            params, cfg, g[:, -1:], m[:, -1:], caches,
+            torch.full((1,), last, dtype=torch.int64, device=g.device),
+            key_valid=key_valid, attn_block=eng.last_policy["attn_block"],
+            kv_write=eng.kv_write, host_pos=last)
+        text = gpt.lm_head(params["backbone"], h, cfg.backbone)
+        h0 = matmul(h, params["projection_w"]).to(torch.bfloat16)
+        dcache = init_cache(cfg.decoder, g.shape[0], cfg.tokens.num_codebooks,
+                            dtype=torch.bfloat16, device=g.device)
+        dh, _ = gpt.decode_step(params["decoder"], cfg.decoder, h0[:, None],
+                                dcache, 0)
+        cb0 = matmul(dh[:, -1], params["audio_head"][0],
+                     out_dtype=torch.float32)
+        rows_k = []
+        for i in range(cfg.backbone.n_layer):
+            e = layer_entry(caches.backbone.k, i)
+            rows_k.append(e.q[:, :, last].float() * e.s[:, :, last, None]
+                          if isinstance(e, QuantKV) else e[:, :, last].float())
+    return {"text": text.float().cpu(), "codebook0": cb0.float().cpu(),
+            "k_rows": torch.stack(rows_k, dim=1).cpu()}
+
+
+def key_valid_dropped(row):
+    """Row ``row`` of the batch attends its left-pad slots: its key_valid
+    all true, as a mask built from the wrong length would be."""
+    from uniaudio2_tpu_torch.engine import decode
+
+    orig = decode.left_pad_valid
+
+    def dropped(lengths, bucket, cache_len, device):
+        valid = orig(lengths, bucket, cache_len, device)
+        valid[row] = True
+        return valid
+
+    return mock.patch.object(decode, "left_pad_valid", dropped)
+
+
+def left_pad_one_short(row):
+    """Row ``row``'s prompt placed one slot to the left (its last token at
+    bucket - 2, a pad slot last), as a packing off by one would."""
+    from uniaudio2_tpu_torch.engine.decode import DecodeEngine
+
+    orig = DecodeEngine._pack_left
+
+    def shifted(self, items):
+        g, m, lengths, bucket = orig(self, items)
+        g[row], m[row] = g[row].roll(-1, 0), m[row].roll(-1, 0)
+        return g, m, lengths, bucket
+
+    return mock.patch.object(DecodeEngine, "_pack_left", shifted)
+
+
+def batch_verdicts(torch, cfg, params, seed):
+    """Gate (b) and its two planted faults on one tree: returns {label:
+    outputs outside BATCH_BOUNDS}."""
+    import contextlib
+    from uniaudio2_tpu_torch.engine.decode import DecodeEngine
+
+    asr, tts, _ = batch_prompts(cfg)
+    rows = asr[:4] + tts[4:]
+    eng = DecodeEngine(params, cfg, max_frames=BATCH_FRAMES, buckets=(64,),
+                       kv_quant="on")
+    alone = [batch_first_frame(torch, cfg, params, eng, [r]) for r in rows]
+    alone = {k: torch.cat([a[k] for a in alone]) for k in alone[0]}
+    shortest = min(range(len(rows)), key=lambda i: rows[i][0].shape[0])
+    runs = (("sound", contextlib.nullcontext()),
+            (f"control: row {shortest}'s key_valid dropped",
+             key_valid_dropped(shortest)),
+            (f"control: row {shortest}'s left pad one slot short",
+             left_pad_one_short(shortest)))
+    verdicts = {}
+    for label, ctx in runs:
+        with ctx:
+            got = batch_first_frame(torch, cfg, params, eng, rows)
+        verdicts[f"seed {seed}: {label}"] = rejected(
+            torch, "[10]", f"seed {seed}: {label} (8 rows vs each alone)",
+            got, alone, BATCH_BOUNDS)
+    return verdicts
+
+
+def phase_batched(torch, dev, cfg, params, params1):
+    """Phase 10: `generate_text_batch` (8 ragged ASR prompts, greedy and
+    with per-row seeds at topk 5), `generate_audio_batch` (8 TTS prompts;
+    4 CFG utterances, 8 rows), `generate_text_beam` (beam 4, 32 steps),
+    `generate_text(no_repeat_ngram=3)` and beam 1 against greedy decoding;
+    frames/s, row-frames/s, cache bytes, the policy "auto" chose, the
+    levels read, launches against the tree's count. Then gate (a), the
+    batch in reverse order, and gate (b) with its planted faults on the
+    trees of two seeds. Returns the launches by row."""
+    import numpy as np
+    from uniaudio2_tpu_torch.engine.decode import DecodeEngine
+
+    ts = cfg.tokens
+    asr, tts, neg = batch_prompts(cfg)
+    (_, _, (ag, am)) = prompts(cfg)
+    eng = DecodeEngine(params, cfg, max_frames=BATCH_FRAMES, buckets=(64,))
+    pair = DecodeEngine(params, cfg, max_frames=BEAM_STEPS, buckets=(64,),
+                        kv_quant="on", attn_block=128)
+    greedy = dict(topk=1, temperature=1.0)
+    last = ag.shape[0] - 1          # the one-request paths' first position
+    runs = (  # name, engine, mode, rows, items, first position, call
+        ("asr x8, greedy", eng, "text", 8, 8, 63,
+         lambda: eng.generate_text_batch(asr, **greedy)),
+        ("asr x8, topk 5, per-row seeds", eng, "text", 8, 8, 63,
+         lambda: eng.generate_text_batch(asr, topk=5, temperature=0.9,
+                                         seeds=list(range(8)))),
+        ("tts x8, greedy", eng, "audio", 8, 8, 63,
+         lambda: eng.generate_audio_batch(tts, **greedy)),
+        ("tts cfg x4 (8 rows), greedy", eng, "audio", 8, 4, 63,
+         lambda: eng.generate_audio_batch(tts[:4], use_cfg=True, cfg_scale=1.5,
+                                          neg_items=neg[:4], **greedy)),
+        ("asr beam 4", eng, "text", 4, 1, last,
+         lambda: [eng.generate_text_beam(ag, am, beam_size=4,
+                                         max_steps=BEAM_STEPS)]),
+        ("asr no_repeat_ngram 3", eng, "text", 1, 1, last,
+         lambda: [eng.generate_text(ag, am, no_repeat_ngram=3)]),
+        ("asr beam 1 (int8 KV, block 128)", pair, "text", 1, 1, last,
+         lambda: [pair.generate_text_beam(ag, am, beam_size=1)]),
+        ("asr greedy (int8 KV, block 128)", pair, "text", 1, 1, last,
+         lambda: [pair.generate_text(ag, am, **greedy)]),
+    )
+    reset_counts()
+    want = dict.fromkeys(counters(), 0)
+    outs = {}
+    for name, engine, mode, rows, items, first, fn in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t0
+        n, policy = engine.last_steps, dict(engine.last_policy)
+        outs[name] = out
+        if len(out) != items or n < 1:
+            fail(f"[10] {name}: {len(out)} outputs after {n} frames")
+        for o in out:
+            toks = np.concatenate(o, axis=1) if mode == "audio" else o
+            top = ts.audio_vocab if mode == "audio" else \
+                cfg.backbone.padded_vocab_size
+            if toks.size and (toks.min() < 0 or toks.max() >= top):
+                fail(f"[10] {name}: tokens out of range")
+        for k, v in expected_launches(cfg, params, mode, n, rows * 63).items():
+            want[k] += v
+        audio = (f", {ts.num_codebooks * items * n / dt:.1f} audio tokens/s"
+                 if mode == "audio" else "")
+        print(f"[10] {name}: {n} frames in {dt:.3f} s = {n / dt:.2f} frames/s,"
+              f" {rows * n / dt:.1f} row-frames/s{audio}; cache "
+              f"{policy['cache_len']} slots x {rows} rows, "
+              f"{'int8' if policy['kv_dtype'] == torch.int8 else 'bf16'} KV, "
+              f"attn_block {policy['attn_block']}: "
+              f"{cache_bytes(cfg, rows, policy) / 2 ** 20:.1f} MiB; levels "
+              f"{levels_read(policy, first, n)}; lengths "
+              f"{[len(o) if mode == 'text' else o[0].shape[1] + o[1].shape[1] for o in out]}",
+              flush=True)
+        if rows == 8 and policy["kv_dtype"] != torch.int8:
+            fail(f"[10] {name}: auto picked {policy} for 8 rows")
+    got = read_counts()
+    print(f"[10] launches {json.dumps(nonzero(got))}", flush=True)
+    if got != want:
+        fail(f"[10] launch counts {nonzero(got)} != the tree's {nonzero(want)}")
+    beam1, greedy_out = (outs["asr beam 1 (int8 KV, block 128)"][0],
+                         outs["asr greedy (int8 KV, block 128)"][0])
+    print(f"[10] beam 1 {beam1.tolist()[:8]}... vs greedy "
+          f"{greedy_out.tolist()[:8]}...: equal {np.array_equal(beam1, greedy_out)}",
+          flush=True)
+    if not np.array_equal(beam1, greedy_out):
+        fail("[10] beam 1 is not greedy decoding")
+    # gate (a): the batch in reverse order, each item's greedy tokens
+    rev = eng.generate_text_batch(asr[::-1], **greedy)[::-1]
+    fwd = outs["asr x8, greedy"]
+    same = [bool(np.array_equal(a, b)) for a, b in zip(fwd, rev)]
+    print(f"[10] (a) reversed batch, greedy tokens per item equal: {same}",
+          flush=True)
+    if not all(same):
+        fail("[10] (a) an item's greedy tokens depend on its place in the batch")
+    verdicts = {}
+    for seed, tree in ((0, params), (SECOND_SEED, params1)):
+        verdicts.update(batch_verdicts(torch, cfg, tree, seed))
+    wrong = [k for k, v in verdicts.items() if "control" not in k and v]
+    if wrong:
+        fail(f"[10] (b) a batched row differs from its item alone: {wrong}")
+    missed = [k for k, v in verdicts.items() if "control" in k and not v]
+    if missed:
+        fail(f"[10] (b) passed planted faults: {missed}")
+    return got
+
+
 def build_codec(torch, dev):
     from uniaudio2_tpu_torch.codec.decoder import (
         CodecConfig, CodecDecoder, init_decode_params,
@@ -2170,24 +2461,37 @@ def profile_train(torch, dev):
 
 
 def phase_probes(torch):
-    """The two probe scripts, each launch of their kernels counted: the
-    split-K GEMV (every shape with UA2_GEMV_ALL=1) and the causal flash
-    kernel (the backbone prefill case; the DiT case runs row 10's form).
-    Returns the launches of both rows."""
+    """The four probe scripts, each launch of their kernels counted: the
+    split-K GEMV (every shape with UA2_GEMV_ALL=1), the causal flash kernel
+    (the backbone prefill case; the DiT case runs row 10's form), and the
+    two int4 probes (their timed launches: each resets its counter after
+    its checks). Returns the launches of the four rows."""
     import os
-    from uniaudio2_tpu_torch.ops import _cuda, flash_attention, splitk_gemv
-    from uniaudio2_tpu_torch.probes import profile_attention, profile_gemv
+    from uniaudio2_tpu_torch.ops import (
+        _cuda, flash_attention, int4_native, int4_sweep, splitk_gemv,
+    )
+    from uniaudio2_tpu_torch.probes import (
+        int4_native_probe, profile_attention, profile_gemv, sweep_gemv_blocks,
+    )
 
     _cuda.reset_count(splitk_gemv.int8_splitk_gemv)
     _cuda.reset_count(flash_attention.flash_attention)
     with mock.patch.dict(os.environ, {"UA2_GEMV_ALL": "1", "UA2_GEMV_ITERS": "200"}):
         gemv = profile_gemv.main()
     attn = profile_attention.main()
+    native = int4_native_probe.main()
+    sweep = sweep_gemv_blocks.main()
     launches = {"int8_splitk_gemv": splitk_gemv.int8_splitk_gemv.launches,
                 "flash_attention:causal":
-                    flash_attention.flash_attention.forms.get("causal", 0)}
-    print(f"[P] probes: {len(gemv)} GEMV shapes, {len(attn)} attention lines; "
+                    flash_attention.flash_attention.forms.get("causal", 0),
+                "int4_native_gemv": int4_native.int4_native_matmul.launches,
+                "int4_sweep_gemv": int4_sweep.int4_sweep_matmul.launches}
+    print(f"[P] probes: {len(gemv)} GEMV shapes, {len(attn)} attention lines, "
+          f"{len(native)} int4 native lines, {len(sweep)} sweep lines; "
           f"launches {json.dumps(launches)}", flush=True)
+    if not all(line["bit_identical_to_int4i"] for line in native) or not all(
+            line["form0_bit_identical_to_int4"] for line in sweep):
+        fail("an int4 probe kernel left the production kernel's order")
     if not all(launches.values()):
         fail(f"a probe kernel was never launched: {launches}")
     return launches
@@ -2215,10 +2519,11 @@ def main():
     del base
     torch.cuda.empty_cache()
     defaults = phase_defaults(torch, dev, cfg, params, params1)
+    batched = phase_batched(torch, dev, cfg, params, params1)
     del params1
     torch.cuda.empty_cache()
     for k in launches:
-        launches[k] += formats[k] + defaults[k]
+        launches[k] += formats[k] + defaults[k] + batched[k]
     ccfg, dec = build_codec(torch, dev)
     phase_estimator(torch, dev, ccfg, dec)
     launches["flash_attention"], codes, wav = phase_decode(torch, ccfg, dec)
@@ -2243,7 +2548,11 @@ def main():
             "lean_update": ("lean_update.cu", "uniaudio2_tpu/ops/lean_update.py:100"),
             "int8_splitk_gemv": ("gemv_int8_splitk.cu", "scripts/profile_gemv.py:82"),
             "flash_attention:causal": ("flash_attn.cu",
-                                       "scripts/profile_attention.py:102")}
+                                       "scripts/profile_attention.py:102"),
+            "int4_native_gemv": ("gemv_int4_native.cu",
+                                 "scripts/int4_native_probe.py:72"),
+            "int4_sweep_gemv": ("gemv_int4_sweep.cu",
+                                "scripts/sweep_gemv_blocks.py:60")}
     for name in counters():
         if name.startswith("qkv_rope_step"):
             meta[name] = qkv

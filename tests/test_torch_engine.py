@@ -140,18 +140,28 @@ def test_resolve_policies_equal():
 
 
 def test_unported_paths_raise(engines):
-    """Batched, beam and n-gram decoding still raise. The cache policies
-    (int8 KV, ``attn_block``, deferred writes) are ported and held to JAX
-    in `test_torch_kv_engine*.py`."""
-    _, teng, ((g, m), _, _) = engines
-    with pytest.raises(NotImplementedError):
-        teng.generate_text_batch([(g, m)])
-    with pytest.raises(NotImplementedError):
-        teng.generate_audio_batch([(g, m)])
-    with pytest.raises(NotImplementedError):
-        teng.generate_text_beam(g, m)
-    with pytest.raises(NotImplementedError):
-        teng.generate_text(g, m, no_repeat_ngram=3)
+    """Batched, beam and n-gram decoding, which raised NotImplementedError
+    until they were ported, return results of the right shapes (their
+    tokens are held to JAX in `test_torch_batch_decode.py` and
+    `test_torch_beam.py`); arguments they cannot serve raise."""
+    _, teng, ((g, m), (ng, nm), (ag, am)) = engines
+    ts = teng.cfg.tokens
+    texts = teng.generate_text_batch([(ag, am), (g, m)])
+    assert len(texts) == 2 and all(t.ndim == 1 and len(t) <= FRAMES
+                                   for t in texts)
+    audio = teng.generate_audio_batch([(g, m)], use_cfg=True, cfg_scale=1.5,
+                                      neg_items=[(ng, nm)], topk=1)
+    (reason, semantic), = audio
+    assert reason.shape[0] == semantic.shape[0] == ts.num_codebooks
+    assert reason.shape[1] + semantic.shape[1] <= FRAMES
+    beam = teng.generate_text_beam(ag, am, beam_size=2, max_steps=3)
+    assert beam.ndim == 1 and len(beam) <= 3
+    blocked = teng.generate_text(ag, am, no_repeat_ngram=3)
+    assert blocked.ndim == 1 and len(blocked) <= FRAMES
+    with pytest.raises(ValueError):
+        teng.generate_text_batch([(g, m)], seeds=[1, 2])
+    with pytest.raises(ValueError):
+        teng.generate_audio_batch([(g, m)], use_cfg=True)
 
 
 def test_port_imports_no_jax():
@@ -160,7 +170,9 @@ def test_port_imports_no_jax():
             "uniaudio2_tpu_torch.ops.fused_mlp, uniaudio2_tpu_torch.ops.qkv_step, "
             "uniaudio2_tpu_torch.ops.flash_attention, "
             "uniaudio2_tpu_torch.codec.decoder, "
-            "uniaudio2_tpu_torch.codec.streaming_decoder;"
+            "uniaudio2_tpu_torch.codec.streaming_decoder, "
+            "uniaudio2_tpu_torch.probes.int4_native_probe, "
+            "uniaudio2_tpu_torch.probes.sweep_gemv_blocks;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'uniaudio2_tpu')];"
             "assert not bad, bad")

@@ -24,6 +24,12 @@ order and round once, so they too agree within RTOL_GROUPED; the causal
 GQA flash form keeps the flash kernel's 2e-2. Both flash forms are held
 row by row (each query row to 2e-2 x its own max|twin|): a causal row i
 averages i + 1 values and is ~sqrt(1 / i) the size of row 0.
+The two int4 probe kernels (rows 11 and 13: the conversion-free unpack
+and the twelve tile forms of the K-split GEMV) add exact f32 products in
+another order than their twins and round once: one bf16 ulp
+(RTOL_GROUPED). With the production template's tiles they sum in its
+order, so the native kernel gives `gemv_int4i.cu`'s bits and sweep form 0
+`gemv_int4.cu`'s.
 The lean-update kernel rounds every operation as its twin does, so the two
 must agree to the bit. `quant.matmul`'s bf16 tensor-core product (the
 training forward's) is held to its float32 form: both sum in float32 in
@@ -36,8 +42,10 @@ import pytest
 import torch
 
 from uniaudio2_tpu_torch.ops import (
-    flash_attention, fused_mlp, lean_update, qkv_step, quant, splitk_gemv,
+    flash_attention, fused_mlp, int4_native, int4_sweep, lean_update, qkv_step,
+    quant, splitk_gemv,
 )
+from uniaudio2_tpu_torch.probes import int4_native_probe
 from uniaudio2_tpu_torch.train import lean_opt
 
 pytestmark = pytest.mark.cuda
@@ -326,6 +334,52 @@ def test_int8_splitk_gemv(dev, k, n):
     assert torch.equal(out, again)                  # fixed-order sums
 
 
+@pytest.mark.parametrize("m", [1, 8, 16, 21])
+@pytest.mark.parametrize("k,n", [(256, 512), (512, 1024), (3072, 8192),
+                                 (2048, 12300)])
+def test_int4_native_gemv(dev, k, n, m):
+    """Row 11's kernel: its twin within one bf16 ulp, the production
+    row-interleaved kernel to the bit, row-major and chunk-major alike."""
+    g = _gen(dev, k + m)
+    w = _i4(g, dev, k, n)
+    x = _bf16(g, dev, m, k)
+    before = int4_native.int4_native_matmul.launches
+    out = int4_native.int4_native_matmul(x, w.values, w.scale)
+    chunked = int4_native.int4_native_matmul(
+        x, int4_native_probe.chunk_major(w.values, 512), w.scale)
+    torch.cuda.synchronize()
+    assert int4_native.int4_native_matmul.launches == before + 2
+    _close(out, int4_native.int4_native_matmul_plain(x, w.values, w.scale),
+           rtol=RTOL_GROUPED)
+    assert torch.equal(out, chunked)
+    assert torch.equal(out, quant.int4i_matmul(x, w.values, w.scale))
+
+
+def test_int4_sweep_form_table(dev):
+    int4_sweep.check_forms()
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 21])
+@pytest.mark.parametrize("form", range(len(int4_sweep.FORMS)))
+def test_int4_sweep_gemv(dev, form, m):
+    """Row 13's kernel in every form at the backbone's qkv and the audio
+    head (N = 12300, a partial last tile): its twin within one bf16 ulp;
+    form 0 `gemv_int4.cu` to the bit."""
+    g = _gen(dev, form + m)
+    for k, n in ((3072, 5120), (2048, 12300)):
+        w = quant.quantize4(torch.randn((k, n), generator=g, device=dev) * 0.02)
+        x = _bf16(g, dev, m, k)
+        name = int4_sweep.FORMS[form].name
+        before = int4_sweep.int4_sweep_matmul.forms.get(name, 0)
+        out = int4_sweep.int4_sweep_matmul(x, w.values, w.scale, form)
+        torch.cuda.synchronize()
+        assert int4_sweep.int4_sweep_matmul.forms[name] == before + 1
+        _close(out, int4_sweep.int4_sweep_matmul_plain(x, w.values, w.scale),
+               rtol=RTOL_GROUPED)
+        if form == int4_sweep.PRODUCTION:
+            assert torch.equal(out, quant.int4_matmul(x, w.values, w.scale))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(48, 256), (2, 24, 512), (16, 1024),
                                    (28, 768), (300, 3072)])
@@ -419,6 +473,13 @@ def test_wrappers_raise_on_unsupported_input(dev):
     q, kv = _bf16(g, dev, 1, 6, 8, 64), _bf16(g, dev, 1, 4, 8, 64)
     with pytest.raises(ValueError):             # 6 heads over 4 groups
         flash_attention.flash_attention(q, kv, kv, 0.125, causal=True)
+    with pytest.raises(ValueError):             # a 100-wide chunk: no whole tiles
+        int4_native.int4_native_matmul(
+            x, w.values.reshape(128, 2, 128)[:, :, :100].permute(1, 0, 2)
+            .contiguous(), w.scale[:200])
+    with pytest.raises(ValueError):             # rows of 64 bytes, 128-wide tiles
+        int4_sweep.int4_sweep_matmul(x, w.values[:, :64].contiguous(),
+                                     w.scale[:64], form=2)
     w8 = quant.quantize(torch.randn((64, 40), generator=g, device=dev))
     with pytest.raises(ValueError):             # M = 2: a batch-1 kernel
         splitk_gemv.int8_splitk_gemv(_bf16(g, dev, 2, 64), w8.values, w8.scale)

@@ -5,15 +5,19 @@ A Llama-3.2-class backbone, a 3-layer understanding expert and a 2-layer
 generation expert (continuous in / continuous out), and a 4-layer local
 RQ-decoder that emits 8 audio codebooks per frame plus one text token.
 Parameters and KV caches are plain dicts / named tuples of tensors; caches
-are updated in place. Decoding takes explicit ``torch.Generator``s and
-never synchronises with the host inside a frame.
+are updated in place. Decoding takes an explicit random stream (one
+``torch.Generator`` for every row, or per-row `RowKeys`) and never
+synchronises with the host inside a frame.
 
 `forward` is the teacher-forced training forward (the reference's
 `Model_stage3.forward`), with the local decoder run densely at every step
 or at gathered audio steps (``decoder_positions``).
 
-Not ported yet: per-row keys and the per-pair ``forbid_prefix`` of batched
-decoding (ROADMAP queue 1 item 7).
+Batched decoding: with `RowKeys` each row's draws are a function of its own
+key, the frame, the stream (text 0, audio 1) and the codebook, as JAX's
+``fold_in`` tree (`uniaudio2_tpu/models/unified.py:582-586, 646-650`); under
+CFG a pair samples from its cond row's stream and its cond row's
+``forbid_prefix``.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from uniaudio2_tpu_torch.ops.kv_cache import KVCache, init_cache
 from uniaudio2_tpu_torch.ops.quant import (
     QUANTIZED, dequantize_any, matmul, to_interleaved,
 )
-from uniaudio2_tpu_torch.ops.sampling import cfg_mix, sample_topk
+from uniaudio2_tpu_torch.ops.sampling import RowKeys, cfg_mix, sample_topk
 
 Params = Dict[str, Any]
 
@@ -267,16 +271,22 @@ def decode_hidden(params: Params, cfg: UnifiedModelConfig,
     return (h_gen * a_mask + h * t_mask)[:, -1, :], caches
 
 
-def _sample(generator, logits, topk, temperature, forbid_prefix, use_cfg,
+def _sample(stream, logits, topk, temperature, forbid_prefix, use_cfg,
             cfg_scale):
     """Sample per row, or per [cond, uncond] pair with the CFG mix and the
-    pair's token given to both rows."""
+    pair's token given to both rows. A pair reads its cond row's keys and
+    its cond row's ``forbid_prefix`` (both rows carry the same phase)."""
     if not use_cfg:
-        return sample_topk(generator, logits, topk, temperature,
+        return sample_topk(stream, logits, topk, temperature,
                            forbid_prefix=forbid_prefix)
     lg = logits.reshape(logits.shape[0] // 2, 2, -1)
     mixed = cfg_mix(lg[:, 0], lg[:, 1], cfg_scale)
-    s = sample_topk(generator, mixed, topk, temperature,
+    if isinstance(stream, RowKeys):
+        stream = stream.rows(slice(0, None, 2))
+    if isinstance(forbid_prefix, torch.Tensor) and forbid_prefix.ndim \
+            and forbid_prefix.shape[0] == logits.shape[0]:
+        forbid_prefix = forbid_prefix[0::2]
+    s = sample_topk(stream, mixed, topk, temperature,
                     forbid_prefix=forbid_prefix)
     return s.repeat_interleave(2, dim=0)
 
@@ -284,7 +294,7 @@ def _sample(generator, logits, topk, temperature, forbid_prefix, use_cfg,
 def decode_frame(params: Params, cfg: UnifiedModelConfig,
                  tokens: torch.Tensor, tokens_mask: torch.Tensor,
                  caches: UnifiedCaches, pos: "torch.Tensor | int",
-                 generator: Optional[torch.Generator], *,
+                 stream: "torch.Generator | RowKeys | None", *,
                  temperature: float, topk: int,
                  forbid_prefix: "torch.Tensor | int",
                  use_cfg: bool = False, cfg_scale: float = 1.0,
@@ -296,22 +306,27 @@ def decode_frame(params: Params, cfg: UnifiedModelConfig,
     """One AR step: the previous frame's (B, 1, 9) tokens at ``pos`` -> the
     next frame's (B, 9) int64 tokens [text, cb0..cb7]. ``sample_text`` /
     ``sample_audio`` skip the unused head (its stream returns zeros); with
-    ``use_cfg`` rows are [cond, uncond] pairs. The cache policies as in
-    `decode_hidden`."""
+    ``use_cfg`` rows are [cond, uncond] pairs. ``stream`` is one generator
+    for every row, or this frame's `RowKeys` (text draws from its fold 0,
+    the audio codebooks from fold 1). ``forbid_prefix`` is an int, a 0-d
+    tensor or per-row (B, 1). The cache policies as in `decode_hidden`."""
     b = tokens.shape[0]
     last_h, caches = decode_hidden(params, cfg, tokens, tokens_mask, caches,
                                    pos, key_valid=key_valid,
                                    attn_block=attn_block, kv_write=kv_write,
                                    host_pos=host_pos)
+    key_text = key_audio = stream
+    if isinstance(stream, RowKeys):
+        key_text, key_audio = stream.fold(0), stream.fold(1)
     if sample_text:
         text_logits = gpt.lm_head(params["backbone"], last_h, cfg.backbone)
-        text_sample = _sample(generator, text_logits, topk, temperature, None,
+        text_sample = _sample(key_text, text_logits, topk, temperature, None,
                               use_cfg, cfg_scale)
     else:
         text_sample = torch.zeros((b,), dtype=torch.int64, device=last_h.device)
     if sample_audio:
         audio = _local_decoder_generate(
-            params, cfg, last_h, generator, temperature=temperature, topk=topk,
+            params, cfg, last_h, key_audio, temperature=temperature, topk=topk,
             forbid_prefix=forbid_prefix, use_cfg=use_cfg, cfg_scale=cfg_scale)
     else:
         audio = torch.zeros((b, cfg.tokens.num_codebooks), dtype=torch.int64,
@@ -321,13 +336,14 @@ def decode_frame(params: Params, cfg: UnifiedModelConfig,
 
 def _local_decoder_generate(params: Params, cfg: UnifiedModelConfig,
                             last_h: torch.Tensor,
-                            generator: Optional[torch.Generator], *,
+                            stream: "torch.Generator | RowKeys | None", *,
                             temperature: float, topk: int,
                             forbid_prefix: "torch.Tensor | int",
                             use_cfg: bool, cfg_scale: float) -> torch.Tensor:
     """8 sequential local-decoder steps over a fresh 8-slot cache -> (B, 8)
     codebook ids. With serving params the embedding projection is the
-    folded table; only step 0 multiplies by ``projection_w``."""
+    folded table; only step 0 multiplies by ``projection_w``. Per-row keys
+    draw codebook i from their fold i."""
     b = last_h.shape[0]
     dcfg = cfg.decoder
     ncb = cfg.tokens.num_codebooks
@@ -351,8 +367,9 @@ def _local_decoder_generate(params: Params, cfg: UnifiedModelConfig,
         head = heads[i] if isinstance(heads, list) \
             else gpt.index_leaf(heads, i)
         logits = matmul(dec_h[:, -1, :], head, out_dtype=torch.float32)
-        s = _sample(generator, logits, topk, temperature, forbid_prefix,
-                    use_cfg, cfg_scale)
+        key = stream.fold(i) if isinstance(stream, RowKeys) else stream
+        s = _sample(key, logits, topk, temperature, forbid_prefix, use_cfg,
+                    cfg_scale)
         samples.append(s)
         curr = table[s + i * audio_vocab][:, None, :]
     return torch.stack(samples, dim=1)

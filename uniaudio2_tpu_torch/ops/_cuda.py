@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("gemv_int4i.cu", "gemv_int8.cu", "gemv_int4.cu", "gemv_int4g.cu",
            "gemv_int4c.cu", "gemv_int4cg.cu", "qkv_rope.cu", "fused_swiglu.cu",
-           "flash_attn.cu", "lean_update.cu", "gemv_int8_splitk.cu")
+           "flash_attn.cu", "lean_update.cu", "gemv_int8_splitk.cu",
+           "gemv_int4_native.cu", "gemv_int4_sweep.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -59,6 +60,12 @@ _SIGNATURES = {
                         _F, _F, _F, _F, _F, _F, _P],
     # x, w, scale, partial, out, K, N, ldw, splits, chunk, stream
     "ua2_gemv_int8_splitk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, scale, out, M, K, N, ldw, bn (0 = row-major), stream
+    "ua2_gemv_int4_native": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # form, x, w, scale, out, M, K, N, ldw, stream
+    "ua2_gemv_int4_sweep": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # form, int[4] out: cols, unroll, mt, unpack
+    "ua2_gemv_int4_sweep_form": [_I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

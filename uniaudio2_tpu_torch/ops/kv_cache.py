@@ -167,3 +167,26 @@ def update_stacked(
     in place."""
     return (_update_entry(k_all, k_new, pos, 3),
             _update_entry(v_all, v_new, pos, 3))
+
+
+def reorder(caches, order: torch.Tensor):
+    """Gather the batch rows of every cache tensor in ``caches`` (a
+    `KVCache`, a tuple of them such as `UnifiedCaches`, a list or one
+    entry) by ``order`` (B,) int64: row b becomes old row ``order[b]``.
+    The counterpart of the JAX engine's ``reorder_fn``
+    (`uniaudio2_tpu/engine/decode.py:876-891`) for beam search. The batch
+    axis is ``ndim - 4`` of values (stacked (L, B, G, S, hd) or per-layer
+    (B, G, S, hd)) and ``ndim - 3`` of `QuantKV` scales. Unlike JAX, which
+    returns new arrays, the gathered rows are written back into the same
+    buffers (the caches stay where their views point); returns
+    ``caches``."""
+    if isinstance(caches, QuantKV):
+        for t, dim in ((caches.q, caches.q.ndim - 4),
+                       (caches.s, caches.s.ndim - 3)):
+            t.copy_(t.index_select(dim, order))
+    elif isinstance(caches, torch.Tensor):
+        caches.copy_(caches.index_select(caches.ndim - 4, order))
+    else:                          # KVCache, UnifiedCaches, list of entries
+        for c in caches:
+            reorder(c, order)
+    return caches

@@ -33,9 +33,8 @@ import torch
 
 from uniaudio2_tpu_torch.ops import flash_attention as fa
 from uniaudio2_tpu_torch.ops.attention import causal_attention
+from uniaudio2_tpu_torch.probes import PEAK_BF16, PEAK_BYTES
 
-PEAK_BF16 = 989e12
-PEAK_BYTES = 3.35e12
 RTOL = 2e-2
 # (name, B, H, G, hd, T, causal, layers of the TPU probe's loop)
 CASES = (("backbone_prefill_T2048", 1, 24, 8, 128, 2048, True, 28 * 8),

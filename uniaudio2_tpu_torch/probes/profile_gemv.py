@@ -33,8 +33,8 @@ import os
 import torch
 
 from uniaudio2_tpu_torch.ops import quant, splitk_gemv
+from uniaudio2_tpu_torch.probes import PEAK_BYTES
 
-PEAK_BYTES = 3.35e12
 SHAPES = ((3072, 8192), (8192, 3072), (2048, 8192))
 MORE_SHAPES = ((3072, 5120), (3072, 3072), (2048, 4096))
 
