@@ -24,9 +24,10 @@ caught):
    4x2048 local decoder) with random bf16 weights from a seeded generator,
    int4 everywhere (int8 lm_head), as `bench.py` serves it:
    `generate_audio` on bench.py's TTS prompt (128 frames), one CFG-pair
-   `generate_audio`, and `generate_text` on bench.py's ASR prompt; frames/s
+   `generate_audio`, and `generate_text` on bench.py's ASR prompt, through
+   the frame graphs (the engine's default; so in phases 8-10); frames/s
    and the launch count of every kernel, checked against the count the
-   path implies;
+   path implies over the frames the card ran (warm-up frames and replays);
 5. the prefill and first frame once through the kernels (on the card) and
    once through the twins (on the CPU): text and codebook-0 logits and the
    frame's backbone K rows compared; then three planted faults (nibble
@@ -84,6 +85,21 @@ caught):
    run alone in the same bucket within bounds set from readings, on the
    trees of two seeds, where two planted faults (a row's key_valid
    dropped; a row's left pad one slot short) must fail;
+11. (run after phase 10) the frame loop through captured CUDA graphs,
+   the engine's default on the card, against the eager loop
+   (``graph=False``) on phase 4's tree: TTS (128 frames, bucket 64,
+   256 slots), the CFG pair and ASR; TTS and ASR at the engine's defaults
+   (500 frames, 768 slots, int8 KV, block-128 levels: five of the six
+   levels read, so five graphs a program), inline and deferred; 8 ASR
+   rows (greedy and with per-row seeds at topk 5) and 8 TTS rows (64
+   frames); each request once each way: the same tokens,
+   and every kernel form's launches equal to the tree's count over the
+   frames run (warm-up frames and replays included); frames/s and
+   row-frames/s both ways, capture seconds, the graph pool's bytes, and
+   one profiled window of 16 TTS frames each way with its device busy
+   share. Two planted faults (the feedback copy into the static input
+   left out; the frame counter not advanced, so every frame writes slot
+   0) must change the tokens;
 6. the codec at full `CodecConfig()` width (DiT 32 x 24 x 64, ScalarAE
    `default_24k`) with random bf16 weights from a seeded generator:
    (a) one DiT estimator evaluation at B = 2, T = 374 through the flash
@@ -113,17 +129,22 @@ caught):
    through `maybe_resume` into a fresh state and compared, then deleted.
 
 Phase 3 also holds the fused lean-update kernel to its twin at full-width
-leaf shapes (bit-identical, bf16 g and p).
+leaf shapes (bit-identical, bf16 g and p), and the stacked-layer int4
+GEMV (the layer index read on the card) to its twin and to the production
+K-split kernel's bits on every layer of a (28, 3072, 8192) stack.
 
-At the end the four probe scripts run (`uniaudio2_tpu_torch/probes/`: the
+At the end the five probe scripts run (`uniaudio2_tpu_torch/probes/`: the
 split-K int8 GEMV against the production int8 kernel, a bf16 product and
 ``torch._int_mm`` at six shapes; the causal GQA flash kernel and the DiT's
 against the einsum path and SDPA; the int4 GEMV with the conversion-free
 unpack against the production interleaved kernel, and the K-split int4
 GEMV's twelve tile forms against the production K-split kernel, at M = 1,
-8 and 16, beside ``torch._weight_int4pack_mm`` and the byte bound), their
-kernels' launches counted. Phase 3 also holds those two kernels to their
-twins (one bf16 ulp) and to the production kernels' bits.
+8 and 16, beside ``torch._weight_int4pack_mm`` and the byte bound; a
+28-layer chain over a stacked int4 container as views, as separate
+arrays, through the stacked-layer kernel and as one replayed one-layer
+graph), their kernels' launches counted. Phase 3 also holds the int4
+probes' kernels to their twins (one bf16 ulp) and to the production
+kernels' bits.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -259,9 +280,12 @@ def phase_build():
            else "already built from these sources")
     print(f"[2] {Path(lib).name} ready in {time.perf_counter() - t0:.2f} s "
           f"({how})", flush=True)
+    kernel = ""
     for line in _cuda.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line and " 0 bytes spill" not in line:
-            print(f"[2] {line.strip()}", flush=True)
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1][:72]
+        elif "registers" in line or "spill" in line and " 0 bytes spill" not in line:
+            print(f"[2] {kernel}: {line.strip()}", flush=True)
 
 
 def nbytes(*tensors) -> int:
@@ -331,12 +355,12 @@ def phase_kernels(torch, dev):
     and, at the kernel's reference case, the kernel's and the twin's time,
     the bound on the card and the library call's time (or None)."""
     from uniaudio2_tpu_torch.ops import (
-        flash_attention, fused_mlp, int4_native, int4_sweep, qkv_step, quant,
-        splitk_gemv,
+        flash_attention, fused_mlp, int4_native, int4_stacked, int4_sweep,
+        qkv_step, quant, splitk_gemv,
     )
     from uniaudio2_tpu_torch.probes import (
         FlushedTimer, int4_native_probe, int4_tinygemm, profile_gemv,
-        sweep_gemv_blocks,
+        profile_scan_slice, sweep_gemv_blocks,
     )
 
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -617,6 +641,37 @@ def phase_kernels(torch, dev):
                       lambda: torch._weight_int4pack_mm(x, wp, group, sz),
                       row=True, rtol=RTOL_GROUPED)
                 results["int4_sweep_gemv"]["form"] = int4_sweep.FORMS[best].name
+    # row 14, the stacked-layer GEMV with the layer index read on the card,
+    # on the scan-slice probe's (28, 3072, 8192) stack: every layer the bits
+    # of the production K-split kernel on its slice; row: layer 27, against
+    # the twin (one bf16 ulp) and the library on the layer's slice.
+    stacked, layers = profile_scan_slice.weights(dev)
+    n_layers, k = stacked.values.shape[0], 2 * stacked.values.shape[1]
+    n = stacked.scale.shape[1]
+    index = torch.arange(n_layers, dtype=torch.int32, device=dev)
+    x = bf16(1, k)
+    same = [torch.equal(int4_stacked.int4_stacked_matmul(x, stacked,
+                                                         index[l:l + 1]),
+                        quant.int4_matmul(x, w.values, w.scale))
+            for l, w in enumerate(layers)]
+    print(f"[3] int4_stacked_gemv (L, K, N) = ({n_layers}, {k}, {n}) M=1: "
+          f"the production int4_matmul's bits on every layer's slice: "
+          f"{all(same)} ({sum(same)} of {n_layers})", flush=True)
+    if not all(same):
+        fail("int4_stacked_gemv does not give gemv_int4.cu's bits")
+    last = n_layers - 1
+    wp, group, sz = int4_tinygemm(layers[last])
+    check("int4_stacked_gemv",
+          f"(L, K, N) = ({n_layers}, {k}, {n}) M=1 layer {last}",
+          lambda: int4_stacked.int4_stacked_matmul(x, stacked,
+                                                   index[last:last + 1]),
+          lambda: int4_stacked.int4_stacked_matmul_plain(x, stacked,
+                                                         index[last:last + 1]),
+          (nbytes(x, layers[last].scale, index[:1]) + k * n // 2 + 2 * n,
+           2 * k * n),
+          lambda: torch._weight_int4pack_mm(x, wp, group, sz),
+          row=True, rtol=RTOL_GROUPED)
+    del stacked, layers, wp
     lean_cases(torch, dev, gen, timer, results)
     return results
 
@@ -767,7 +822,10 @@ def read_counts():
 
 def expected_launches(cfg, params, mode: str, frames: int, prefill_rows: int):
     """Kernel launches of one request over the serving tree ``params``, by
-    row: each launch goes to the kernel and form of its weight's container.
+    row, for ``frames`` frames run on the device (the engine's
+    ``last_frames_run``: the eager loop's frames, or the graph path's
+    warm-up frames and replays): each launch goes to the kernel and form
+    of its weight's container.
     Prefill of the 3 + 28 + 2 expert and backbone layers: QKV and attn_proj
     GEMVs and, up to 128 rows, the fused MLP, else gate, up and down GEMVs.
     Then per frame every layer's QKV step, attn_proj (+residual) and fused
@@ -849,7 +907,8 @@ def phase_model(torch, dev, cfg, params):
         if n < 1:
             fail(f"{label}: no frame decoded")
         rows = 63 * (2 if kw.get("use_cfg") else 1)
-        for k, v in expected_launches(cfg, params, mode, n, rows).items():
+        for k, v in expected_launches(cfg, params, mode, eng.last_frames_run,
+                                      rows).items():
             want[k] += v
         rate = n / dt
         extra = (f", {rate * ts.num_codebooks:.1f} audio tokens/s"
@@ -1073,7 +1132,8 @@ def serve(torch, cfg, params, tag, runs):
         n = engine.last_steps
         if bad or n < 1:
             fail(f"{tag} {name}: bad tokens {out.shape} after {n} frames")
-        for k, v in expected_launches(cfg, params, mode, n, rows).items():
+        for k, v in expected_launches(cfg, params, mode,
+                                      engine.last_frames_run, rows).items():
             want[k] += v
         print(f"{tag} {name}: {n} frames in {dt:.3f} s = {n / dt:.2f} "
               f"frames/s (prefill of {rows} rows included); output {out.shape}",
@@ -1872,7 +1932,9 @@ def phase_batched(torch, dev, cfg, params, params1):
                 cfg.backbone.padded_vocab_size
             if toks.size and (toks.min() < 0 or toks.max() >= top):
                 fail(f"[10] {name}: tokens out of range")
-        for k, v in expected_launches(cfg, params, mode, n, rows * 63).items():
+        for k, v in expected_launches(cfg, params, mode,
+                                      engine.last_frames_run,
+                                      rows * 63).items():
             want[k] += v
         audio = (f", {ts.num_codebooks * items * n / dt:.1f} audio tokens/s"
                  if mode == "audio" else "")
@@ -1915,6 +1977,317 @@ def phase_batched(torch, dev, cfg, params, params1):
     missed = [k for k, v in verdicts.items() if "control" in k and not v]
     if missed:
         fail(f"[10] (b) passed planted faults: {missed}")
+    return got
+
+
+# Phase 11: the frame loop through captured CUDA graphs (the engine's
+# default on the card) against the eager loop (`DecodeEngine(graph=False)`)
+# on phase 4's tree: each request once through each, greedy and with
+# per-row seeds, tokens identical; the launch counters hold the replays.
+GRAPH_PROFILE_FRAMES = 16
+GRAPH_FAULT_FRAMES = 16
+# Sampled requests at the engine's policies: 200 frames take a 512-slot
+# cache (int8 KV, block-128 levels) for a bucket-64 and a bucket-256
+# prompt, so one program serves both and the second needs new levels.
+SAMPLED_FRAMES = 200
+# The kernels a counted wrapper launches, by the traced name's base: a
+# GEMV wrapper one `gemv_kernel`, `qkv_rope_step` one `qkv_rope_kernel`,
+# `fused_swiglu` one `swiglu_up_kernel` and the down projection's
+# `gemv_kernel`.
+TRACED_FAMILIES = ("gemv_kernel", "qkv_rope_kernel", "swiglu_up_kernel")
+# The counts a replay adds are held to the kernel nodes of the captured
+# graph itself (`CUDAGraph.debug_dump`), not to a profiled trace: in this
+# script's process the trace of a 16-frame window loses some kernel
+# records (1 to 3 of ~4,300 hand-written kernels, on an H100), eager or
+# replayed; the windows print both counts.
+
+
+def feedback_left_out():
+    """The frame graph's step never copies a frame's tokens into its static
+    input, so every frame is fed the first one's, as a step that rebinds a
+    fresh tensor instead of copying into the captured buffer would."""
+    from uniaudio2_tpu_torch.engine.frame_graph import FrameGraph
+
+    return mock.patch.object(FrameGraph, "_feedback",
+                             lambda self, frame: None)
+
+
+def counter_not_advanced():
+    """The position advances but the frame counter does not, so every frame
+    writes output slot 0."""
+    from uniaudio2_tpu_torch.engine.frame_graph import FrameGraph
+
+    def advance(self, live):
+        self.pos.add_(live)
+
+    return mock.patch.object(FrameGraph, "_advance", advance)
+
+
+def same_tokens(a, b) -> bool:
+    import numpy as np
+
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_tokens(x, y) for x, y in zip(a, b))
+    return bool(np.array_equal(a, b))
+
+
+def families(names):
+    """How many of ``names`` (kernel names, demangled or mangled, or lines
+    naming at most one kernel) belong to each of `TRACED_FAMILIES`."""
+    out = dict.fromkeys(TRACED_FAMILIES, 0)
+    for name in names:
+        for fam in TRACED_FAMILIES:
+            if f"{fam}<" in name or f"{len(fam)}{fam}I" in name:
+                out[fam] += 1
+    return out
+
+
+def busy_window(torch, fn):
+    """``fn()`` under torch.profiler (the second of two profiled runs):
+    (wall ms, device kernels traced, their device ms, the counters'
+    families over that run, the traced families)."""
+    from uniaudio2_tpu_torch.ops import _cuda
+
+    prof = torch.profiler
+    for _ in range(2):
+        with prof.profile(activities=[prof.ProfilerActivity.CPU,
+                                      prof.ProfilerActivity.CUDA]) as p:
+            torch.cuda.synchronize()
+            before = _cuda.counts()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counted = counted_families(_cuda.counts_since(before))
+    kernels = [e for e in p.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (wall, len(kernels), sum(e.device_time for e in kernels) / 1e3,
+            counted, families(e.name for e in kernels))
+
+
+def debug_graphs(torch):
+    """While active, every `torch.cuda.CUDAGraph()` keeps its template
+    (``keep_graph``: instantiated at its first replay) for `debug_dump`."""
+    make = torch.cuda.CUDAGraph
+
+    def kept():
+        graph = make(keep_graph=True)
+        graph.enable_debug_mode()
+        return graph
+
+    return mock.patch.object(torch.cuda, "CUDAGraph", kept)
+
+
+def graph_nodes(graph):
+    """The kernel nodes of a captured graph (made under `debug_graphs`) in
+    each of `TRACED_FAMILIES`, read from its DOT dump."""
+    path = ROOT / "build" / "frame_graph_debug.dot"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    graph.debug_dump(str(path))
+    try:
+        return families(path.read_text().splitlines())  # a node a line
+    finally:
+        path.unlink()
+
+
+def counted_families(counted):
+    """The kernels of `TRACED_FAMILIES` that the counters' increments
+    ``counted`` say were launched."""
+    from uniaudio2_tpu_torch.ops import fused_mlp, qkv_step
+
+    want = dict.fromkeys(TRACED_FAMILIES, 0)
+    gemvs = {fn for fn, _ in counters().values()} - {
+        fused_mlp.fused_swiglu, qkv_step.qkv_rope_step}
+    for fn, (launches, _) in counted.items():
+        if fn is qkv_step.qkv_rope_step:
+            want["qkv_rope_kernel"] += launches
+        elif fn is fused_mlp.fused_swiglu:
+            want["swiglu_up_kernel"] += launches
+            want["gemv_kernel"] += launches
+        elif fn in gemvs:
+            want["gemv_kernel"] += launches
+    return want
+
+
+def phase_graphs(torch, dev, cfg, params):
+    """Phase 11: TTS (128 frames, bucket 64, 256 slots, bf16 cache), the CFG
+    pair and ASR at batch 1; TTS and ASR at the engine's defaults (500
+    frames, 768 slots, int8 KV, block-128 levels: five graphs a program),
+    inline and deferred; sampled TTS (the default topk 200 from the shared
+    generator, 200 frames, 512 slots, int8 KV, block-128 levels): a
+    bucket-64 prompt that runs to max_frames, then a bucket-256 prompt
+    through the same program, which captures two new levels, and a CFG
+    pair; 8 ASR rows greedy and with per-row seeds and 8 TTS rows (64
+    frames): each once with ``graph=False`` and once through the graphs.
+    Gates: the same tokens, and every kernel form's launches equal to the
+    tree's count over the frames run (replays included); two planted
+    faults must break the first. Prints frames/s and row-frames/s of both
+    in the same run, capture seconds, the graph pool's bytes, and one
+    profiled window of 16 frames each way with the device busy share and
+    its traced and counted hand-written kernels. A replay's counts must
+    equal, family by family, the kernel nodes of its graph. Returns the
+    launches by row."""
+    from uniaudio2_tpu_torch.engine import frame_graph
+    from uniaudio2_tpu_torch.engine.decode import DecodeEngine
+    from uniaudio2_tpu_torch.ops import _cuda
+
+    (g, m), (ng, nm), (ag, am) = prompts(cfg)
+    (lg, lm), _, _ = bucket_prompts(cfg, 256)
+    asr8, tts8, _ = batch_prompts(cfg)
+    greedy = dict(topk=1, temperature=1.0)
+    pair = dict(use_cfg=True, cfg_scale=1.5, neg_grid=ng, neg_mask=nm)
+    bench = dict(max_frames=FRAMES, buckets=(64,))
+    batch = dict(max_frames=BATCH_FRAMES, buckets=(64,))
+    groups = (  # engine kwargs, [(name, mode, rows, prefill rows, call)]
+        (bench, [
+            ("tts", "audio", 1, 63, lambda e: e.generate_audio(g, m, **greedy)),
+            ("tts_cfg", "audio", 2, 126,
+             lambda e: e.generate_audio(g, m, **greedy, **pair)),
+            ("asr", "text", 1, 63,
+             lambda e: [e.generate_text(ag, am, **greedy)])]),
+        ({}, [
+            ("tts defaults inline", "audio", 1, 63,
+             lambda e: e.generate_audio(g, m, **greedy)),
+            ("asr defaults inline", "text", 1, 63,
+             lambda e: [e.generate_text(ag, am, **greedy)])]),
+        ({"kv_write": "deferred"}, [
+            ("tts defaults deferred", "audio", 1, 63,
+             lambda e: e.generate_audio(g, m, **greedy)),
+            ("asr defaults deferred", "text", 1, 63,
+             lambda e: [e.generate_text(ag, am, **greedy)])]),
+        ({"max_frames": SAMPLED_FRAMES}, [
+            ("tts, topk 200, seed 5", "audio", 1, 63,
+             lambda e: e.generate_audio(g, m, seed=5)),
+            ("tts, topk 200, seed 5, bucket-256 prompt", "audio", 1, 255,
+             lambda e: e.generate_audio(lg, lm, seed=5)),
+            ("tts_cfg, topk 200, seed 6", "audio", 2, 126,
+             lambda e: e.generate_audio(g, m, seed=6, **pair))]),
+        (batch, [
+            ("asr x8", "text", 8, 8 * 63,
+             lambda e: e.generate_text_batch(asr8, **greedy)),
+            ("asr x8, topk 5, per-row seeds", "text", 8, 8 * 63,
+             lambda e: e.generate_text_batch(asr8, topk=5, temperature=0.9,
+                                             seeds=list(range(8)))),
+            ("tts x8", "audio", 8, 8 * 63,
+             lambda e: e.generate_audio_batch(tts8, **greedy))]),
+    )
+    reset_counts()
+    want = dict.fromkeys(counters(), 0)
+    different = []
+    engines = {}
+    for kw, runs in groups:
+        eager = DecodeEngine(params, cfg, graph=False, **kw)
+        graph = DecodeEngine(params, cfg, **kw)
+        engines[tuple(sorted(kw.items()))] = (eager, graph)
+        for name, mode, rows, prefill, call in runs:
+            outs, rates = [], []
+            for eng in (eager, graph):
+                cap0 = eng.capture_seconds
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(call(eng))
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                cap = eng.capture_seconds - cap0
+                n = eng.last_steps
+                for k, v in expected_launches(cfg, params, mode,
+                                              eng.last_frames_run,
+                                              prefill).items():
+                    want[k] += v
+                rates.append((n, dt, cap, eng.last_frames_run))
+            (n_e, dt_e, _, _), (n_g, dt_g, cap, run_g) = rates
+            same = same_tokens(*outs) and n_e == n_g
+            if not same:
+                different.append(name)
+            p = graph.last_policy
+            if name.startswith("tts, topk 200") and (
+                    n_g != SAMPLED_FRAMES or p["attn_block"] != 128
+                    or p["cache_len"] != 512):
+                fail(f"[11] {name}: {n_g} frames under {p}: not a run to "
+                     f"max_frames through block-128 levels of 512 slots")
+            print(f"[11] {name}: eager {n_e} frames in {dt_e:.3f} s = "
+                  f"{n_e / dt_e:.2f} frames/s ({rows * n_e / dt_e:.1f} "
+                  f"row-frames/s); graph {n_g} frames ({run_g} run on the "
+                  f"device) in {dt_g:.3f} s of which {cap:.3f} s warm-up and "
+                  f"capture = {n_g / (dt_g - cap):.2f} frames/s "
+                  f"({rows * n_g / (dt_g - cap):.1f} row-frames/s) without "
+                  f"capture, {n_g / dt_g:.2f} with; x"
+                  f"{dt_e / (dt_g - cap):.2f}; cache {p['cache_len']} slots, "
+                  f"{'int8' if p['kv_dtype'] == torch.int8 else 'bf16'} KV, "
+                  f"attn_block {p['attn_block']}, {p['kv_write']}; tokens "
+                  f"identical: {same}", flush=True)
+    got = read_counts()
+    print(f"[11] launches {json.dumps(nonzero(got))}", flush=True)
+    if got != want:
+        fail(f"[11] launch counts {nonzero(got)} != the tree's {nonzero(want)}")
+    if different:
+        fail(f"[11] the graph path's tokens differ from the eager loop's: "
+             f"{different}")
+    for key, (_, graph) in engines.items():
+        n_graphs = sum(len(f.graphs) for f in graph.frame_graphs.values())
+        pool = frame_graph.pool_bytes(graph.graph_pool)
+        print(f"[11] engine {dict(key) or 'defaults'}: {n_graphs} graphs "
+              f"over {len(graph.frame_graphs)} programs, captured in "
+              f"{graph.capture_seconds:.3f} s (warm-up included); graph pool "
+              f"{'not measured' if pool is None else f'{pool / 2 ** 20:.1f} MiB'}",
+              flush=True)
+    # one window of 16 TTS frames each way, the prefill outside it
+    eager, graph = engines[tuple(sorted(bench.items()))]
+    (fg,) = [f for k, f in graph.frame_graphs.items()
+             if k[0] == "audio" and k[1] == 1 and not k[8]]
+    first = g.shape[0] - 1
+    tok, tmask = fg.tokens.clone(), fg.tmask.clone()
+    stream = torch.Generator(device=dev)
+    windows = {
+        "eager": lambda: eager._frames(
+            "audio", fg.caches, tok, tmask, first,
+            first + GRAPH_PROFILE_FRAMES, stream, temperature=1.0, topk=1,
+            use_cfg=False, cfg_scale=1.0),
+        "graph": lambda: fg.run(tok, tmask, first, GRAPH_PROFILE_FRAMES,
+                                seed=0)}
+    for label, fn in windows.items():
+        wall, n_kernels, busy, counted, traced = busy_window(torch, fn)
+        share = (f"busy share {busy / wall:.3f}" if n_kernels
+                 else "busy share not measured (no kernel traced)")
+        print(f"[11] profiled window, {GRAPH_PROFILE_FRAMES} TTS frames "
+              f"{label}: wall {wall:.1f} ms ({wall / GRAPH_PROFILE_FRAMES:.2f} "
+              f"ms a frame), {n_kernels} device kernels traced, {busy:.1f} ms "
+              f"of device time, {share}; hand-written kernels traced "
+              f"{traced}, counted {counted}", flush=True)
+    # what a replay counts against the kernel nodes of its graph: TTS and
+    # ASR at 512 slots (int8 KV, block-128 levels), two graphs each
+    snapshot = _cuda.counts()
+    with debug_graphs(torch):
+        eng = DecodeEngine(params, cfg, max_frames=SAMPLED_FRAMES)
+        eng.generate_audio(g, m, **greedy)
+        eng.generate_text(ag, am, **greedy)
+    _cuda.set_counts(snapshot)
+    for key, f in eng.frame_graphs.items():
+        for lvl, (cuda_graph, per_replay) in f.graphs.items():
+            nodes, want = graph_nodes(cuda_graph), counted_families(per_replay)
+            print(f"[11] {key[0]} graph, level {lvl}: kernel nodes {nodes}, "
+                  f"a replay counts {want}", flush=True)
+            if nodes != want or not all(nodes.values()):
+                fail(f"[11] a replay of the {key[0]} graph of level {lvl} "
+                     f"counts {want}, its graph holds {nodes}")
+    del eng
+    # the planted faults, each captured into fresh graphs
+    fault_kw = dict(max_frames=GRAPH_FAULT_FRAMES, buckets=(64,))
+    ref = DecodeEngine(params, cfg, graph=False, **fault_kw).generate_audio(
+        g, m, **greedy)
+    caught = {}
+    for label, ctx in (("feedback copy left out", feedback_left_out()),
+                       ("frame counter not advanced", counter_not_advanced())):
+        with ctx:
+            out = DecodeEngine(params, cfg, **fault_kw).generate_audio(
+                g, m, **greedy)
+        caught[label] = not same_tokens(out, ref)
+        print(f"[11] control: {label}: tokens identical to the eager loop: "
+              f"{not caught[label]}{'' if not caught[label] else '  REJECTED'}",
+              flush=True)
+    if not all(caught.values()):
+        fail(f"[11] the token gate passed a planted fault: {caught}")
+    reset_counts()
     return got
 
 
@@ -2096,6 +2469,7 @@ def phase_tts(torch, cfg, params, ccfg, dec):
                                                          * ccfg.sample_rate):
         fail(f"TTS stage 2: bad waveform {wav.shape}")
     print(f"[6d] TTS end to end: stage1_s {t1:.3f} ({eng.last_steps} frames, "
+          f"{eng.capture_seconds:.3f} s of it the graphs' warm-up and capture, "
           f"reason {reason.shape} semantic {semantic.shape}), stage2_s "
           f"{t2:.3f} (codec decode of {sem} random semantic frames), RTF "
           f"{(t1 + t2) / audio_s:.4f}", flush=True)
@@ -2461,17 +2835,20 @@ def profile_train(torch, dev):
 
 
 def phase_probes(torch):
-    """The four probe scripts, each launch of their kernels counted: the
+    """The five probe scripts, each launch of their kernels counted: the
     split-K GEMV (every shape with UA2_GEMV_ALL=1), the causal flash kernel
-    (the backbone prefill case; the DiT case runs row 10's form), and the
-    two int4 probes (their timed launches: each resets its counter after
-    its checks). Returns the launches of the four rows."""
+    (the backbone prefill case; the DiT case runs row 10's form), the two
+    int4 probes (their timed launches: each resets its counter after its
+    checks) and the scan-slice probe (row 14's launches after its checks,
+    graph replays included). Returns the launches of the five rows."""
     import os
     from uniaudio2_tpu_torch.ops import (
-        _cuda, flash_attention, int4_native, int4_sweep, splitk_gemv,
+        _cuda, flash_attention, int4_native, int4_stacked, int4_sweep,
+        splitk_gemv,
     )
     from uniaudio2_tpu_torch.probes import (
-        int4_native_probe, profile_attention, profile_gemv, sweep_gemv_blocks,
+        int4_native_probe, profile_attention, profile_gemv, profile_scan_slice,
+        sweep_gemv_blocks,
     )
 
     _cuda.reset_count(splitk_gemv.int8_splitk_gemv)
@@ -2481,14 +2858,17 @@ def phase_probes(torch):
     attn = profile_attention.main()
     native = int4_native_probe.main()
     sweep = sweep_gemv_blocks.main()
+    scan = profile_scan_slice.main()
     launches = {"int8_splitk_gemv": splitk_gemv.int8_splitk_gemv.launches,
                 "flash_attention:causal":
                     flash_attention.flash_attention.forms.get("causal", 0),
                 "int4_native_gemv": int4_native.int4_native_matmul.launches,
-                "int4_sweep_gemv": int4_sweep.int4_sweep_matmul.launches}
+                "int4_sweep_gemv": int4_sweep.int4_sweep_matmul.launches,
+                "int4_stacked_gemv": int4_stacked.int4_stacked_matmul.launches}
     print(f"[P] probes: {len(gemv)} GEMV shapes, {len(attn)} attention lines, "
-          f"{len(native)} int4 native lines, {len(sweep)} sweep lines; "
-          f"launches {json.dumps(launches)}", flush=True)
+          f"{len(native)} int4 native lines, {len(sweep)} sweep lines, "
+          f"{len(scan)} scan-slice forms; launches {json.dumps(launches)}",
+          flush=True)
     if not all(line["bit_identical_to_int4i"] for line in native) or not all(
             line["form0_bit_identical_to_int4"] for line in sweep):
         fail("an int4 probe kernel left the production kernel's order")
@@ -2498,6 +2878,11 @@ def phase_probes(torch):
 
 
 def main():
+    t0 = time.perf_counter()
+
+    def stamp(done):
+        print(f"[t] {done} done at {time.perf_counter() - t0:.1f} s", flush=True)
+
     dev, card = phase_device()
     import torch
 
@@ -2511,30 +2896,41 @@ def main():
     if "--profile-train" in sys.argv[1:]:
         profile_train(torch, dev)
         return
+    stamp("build")
     kernels = phase_kernels(torch, dev)
+    stamp("phase 3")
     cfg, base, params = build_model(torch, dev)
     launches = phase_model(torch, dev, cfg, params)
     sound = phase_logits(torch, dev, cfg, params)
+    stamp("phases 4-5")
     formats, params1 = phase_formats(torch, dev, cfg, base, params, sound)
+    stamp("phase 8")
     del base
     torch.cuda.empty_cache()
     defaults = phase_defaults(torch, dev, cfg, params, params1)
+    stamp("phase 9")
     batched = phase_batched(torch, dev, cfg, params, params1)
+    stamp("phase 10")
     del params1
     torch.cuda.empty_cache()
+    graphs = phase_graphs(torch, dev, cfg, params)
+    stamp("phase 11")
     for k in launches:
-        launches[k] += formats[k] + defaults[k] + batched[k]
+        launches[k] += formats[k] + defaults[k] + batched[k] + graphs[k]
     ccfg, dec = build_codec(torch, dev)
     phase_estimator(torch, dev, ccfg, dec)
     launches["flash_attention"], codes, wav = phase_decode(torch, ccfg, dec)
     phase_stream(ccfg, dec, codes, wav)
     phase_tts(torch, cfg, params, ccfg, dec)
+    stamp("phase 6")
     del params, dec, codes, wav
     torch.cuda.empty_cache()
     launches["lean_update"] = phase_train(torch, dev)
     torch.cuda.empty_cache()
     phase_train_cli(torch, dev)
+    stamp("phase 7")
     launches.update(phase_probes(torch))
+    stamp("the probes")
     qkv = ("qkv_rope.cu", "uniaudio2_tpu/ops/qkv_step.py:172")
     mlp = ("fused_swiglu.cu", "uniaudio2_tpu/ops/fused_mlp.py:225")
     i4 = ("gemv_int4i.cu", "uniaudio2_tpu/ops/quant.py:948")
@@ -2552,7 +2948,9 @@ def main():
             "int4_native_gemv": ("gemv_int4_native.cu",
                                  "scripts/int4_native_probe.py:72"),
             "int4_sweep_gemv": ("gemv_int4_sweep.cu",
-                                "scripts/sweep_gemv_blocks.py:60")}
+                                "scripts/sweep_gemv_blocks.py:60"),
+            "int4_stacked_gemv": ("gemv_int4_stacked.cu",
+                                  "scripts/profile_scan_slice.py:114")}
     for name in counters():
         if name.startswith("qkv_rope_step"):
             meta[name] = qkv

@@ -172,7 +172,9 @@ def test_port_imports_no_jax():
             "uniaudio2_tpu_torch.codec.decoder, "
             "uniaudio2_tpu_torch.codec.streaming_decoder, "
             "uniaudio2_tpu_torch.probes.int4_native_probe, "
-            "uniaudio2_tpu_torch.probes.sweep_gemv_blocks;"
+            "uniaudio2_tpu_torch.probes.sweep_gemv_blocks, "
+            "uniaudio2_tpu_torch.probes.profile_scan_slice, "
+            "uniaudio2_tpu_torch.ops.int4_stacked;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'uniaudio2_tpu')];"
             "assert not bad, bad")

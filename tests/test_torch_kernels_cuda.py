@@ -29,7 +29,9 @@ and the twelve tile forms of the K-split GEMV) add exact f32 products in
 another order than their twins and round once: one bf16 ulp
 (RTOL_GROUPED). With the production template's tiles they sum in its
 order, so the native kernel gives `gemv_int4i.cu`'s bits and sweep form 0
-`gemv_int4.cu`'s.
+`gemv_int4.cu`'s. Row 14's stacked-layer kernel, with the layer index read
+on the device, is held to its twin within one bf16 ulp and to
+`gemv_int4.cu`'s bits on every layer's slice.
 The lean-update kernel rounds every operation as its twin does, so the two
 must agree to the bit. `quant.matmul`'s bf16 tensor-core product (the
 training forward's) is held to its float32 form: both sum in float32 in
@@ -42,8 +44,8 @@ import pytest
 import torch
 
 from uniaudio2_tpu_torch.ops import (
-    flash_attention, fused_mlp, int4_native, int4_sweep, lean_update, qkv_step,
-    quant, splitk_gemv,
+    flash_attention, fused_mlp, int4_native, int4_stacked, int4_sweep,
+    lean_update, qkv_step, quant, splitk_gemv,
 )
 from uniaudio2_tpu_torch.probes import int4_native_probe
 from uniaudio2_tpu_torch.train import lean_opt
@@ -489,3 +491,140 @@ def test_wrappers_raise_on_unsupported_input(dev):
             p.float(), torch.zeros(4, 256, dtype=torch.int8, device=dev),
             torch.zeros(4, 1, device=dev), p, torch.ones(4, device=dev),
             torch.ones(256, device=dev), 1.0, 1e-3, b1=0.9, wd=0.0, eps=1e-8)
+
+
+@pytest.mark.parametrize("m", [1, 2, 8])
+@pytest.mark.parametrize("layers,k,n", [(4, 3072, 8192), (3, 256, 512),
+                                        (2, 2048, 12300)])
+def test_int4_stacked_gemv(dev, layers, k, n, m):
+    """Row 14 on every layer of a stack: within one bf16 ulp of its twin and
+    the bits of `gemv_int4.cu` on the layer's slice; an index past the
+    stack gives NaN, not another layer."""
+    gen = _gen(dev, layers + k + m)
+    ws = [quant.quantize4(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+          for _ in range(layers)]
+    st = quant.QuantizedLinear4(torch.stack([w.values for w in ws]),
+                                torch.stack([w.scale for w in ws]))
+    x = _bf16(gen, dev, m, k)
+    index = torch.arange(layers + 1, dtype=torch.int32, device=dev)
+    for l in range(layers):
+        out = int4_stacked.int4_stacked_matmul(x, st, index[l:l + 1])
+        ref = int4_stacked.int4_stacked_matmul_plain(x, st, l)
+        prod = quant.int4_matmul(x, ws[l].values, ws[l].scale)
+        torch.cuda.synchronize()
+        _close(out, ref, RTOL_GROUPED)
+        assert torch.equal(out, prod)
+    past = int4_stacked.int4_stacked_matmul(x, st, index[layers:])
+    assert bool(torch.isnan(past.float()).all())
+
+
+def _same_tokens(a, b):
+    import numpy as np
+
+    if isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _same_tokens(x, y)
+    else:
+        np.testing.assert_array_equal(a, b)
+
+
+def _tiny_serving(dev):
+    """An int4 serving tree of `tiny(max_seq_len=1024)` on the card, a TTS
+    prompt and its CFG negative."""
+    import numpy as np
+
+    from uniaudio2_tpu_torch.config import UnifiedModelConfig
+    from uniaudio2_tpu_torch.engine import tasks
+    from uniaudio2_tpu_torch.models import unified
+
+    cfg = UnifiedModelConfig.tiny(max_seq_len=1024)
+    p = unified.init_params(cfg, _gen(dev, 5), dtype=torch.bfloat16, device=dev)
+    p = unified.prepare_serving_params(quant.quantize_unified_params(
+        p, int4_modules=("backbone", "decoder", "understanding_expert",
+                         "generation_expert", "audio_head", "projection_w")))
+    ts = cfg.tokens
+    return (cfg, p,
+            tasks.prepare_tts(np.array([1, 5, 6, 7]), np.array([3, 10, 2]), ts),
+            tasks.prepare_tts_cfg_negative(np.array([1, 5, 6, 7]),
+                                           np.array([3, 10, 2]), ts))
+
+
+def test_frame_graph_tokens_equal_eager_on_tiny(dev):
+    """`tiny()` on the card: the captured frame graphs give the eager
+    loop's greedy tokens (TTS, ASR, a CFG pair, 4 ragged rows, the int8 KV
+    cache with block-128 levels, inline and deferred) and the eager loop's
+    per-row sampled tokens; a replayed request counts the eager loop's
+    launches."""
+    import numpy as np
+
+    from uniaudio2_tpu_torch.engine import decode, tasks
+    from uniaudio2_tpu_torch.ops import _cuda
+
+    cfg, p, (g, m), (ng, nm) = _tiny_serving(dev)
+    ts = cfg.tokens
+    rng = np.random.default_rng(0)
+    items = [tasks.prepare_asr(np.array([4, 8, 9]),
+                               rng.integers(0, 30, (3 + i, 8)),
+                               rng.integers(0, 60, (5 + i, 8)), ts)
+             for i in range(4)]
+
+    def launches(eng):
+        before = _cuda.counts()
+        eng.generate_audio(g, m, topk=1)
+        return eng.last_steps, eng.last_frames_run, _cuda.counts_since(before)
+
+    for kw, frames in (({}, 24), ({"kv_write": "deferred"}, 300)):
+        outs, counted = [], []
+        for graph in (False, True):
+            eng = decode.DecodeEngine(p, cfg, max_frames=frames, buckets=(64,),
+                                      graph=graph, **kw)
+            outs.append([
+                eng.generate_audio(g, m, topk=1),
+                eng.generate_text(*items[0], topk=1),
+                eng.generate_audio(g, m, topk=1, use_cfg=True, cfg_scale=1.5,
+                                   neg_grid=ng, neg_mask=nm),
+                eng.generate_text_batch(items, topk=1),
+                eng.generate_text_batch(items, topk=5, seeds=[1, 2, 3, 4]),
+            ])
+            counted.append(launches(eng))
+            if graph:
+                assert eng.frame_graphs and eng.capture_seconds > 0
+        _same_tokens(*outs)
+        (n_e, run_e, eager), (n_g, run_g, replayed) = counted
+        assert n_e == n_g and run_e == n_e
+        if run_g == n_g:            # no replay past the last EOS
+            assert replayed == eager
+
+
+def test_frame_graph_shared_stream_and_new_levels_on_tiny(dev):
+    """`tiny()` on the card at the engine's policies with 200 frames (512
+    slots: int8 KV, block-128 levels): TTS sampled from the shared
+    generator (the default topk 200, seeded) on a bucket-64 prompt that
+    runs to max_frames, then a bucket-256 prompt through the same program,
+    which captures two new levels, then the CFG pair sampled, and the same
+    greedily: the tokens of a fresh eager engine each."""
+    import numpy as np
+
+    from uniaudio2_tpu_torch.engine import decode, tasks
+
+    cfg, p, (g, m), (ng, nm) = _tiny_serving(dev)
+    lg, lm = tasks.prepare_tts(np.array([1, 5, 6, 7]),
+                               np.arange(200) % 50 + 3, cfg.tokens)
+    assert decode.pick_bucket(lg.shape[0]) == 256
+    for sampling in (dict(seed=5), dict(topk=1)):
+        eng = decode.DecodeEngine(p, cfg, max_frames=200)
+        requests = [(g, m, {}), (lg, lm, {}),
+                    (g, m, dict(use_cfg=True, cfg_scale=1.5, neg_grid=ng,
+                                neg_mask=nm))]
+        for i, (grid, mask, kw) in enumerate(requests):
+            got = eng.generate_audio(grid, mask, **sampling, **kw)
+            if i == 0:
+                assert eng.last_steps == 200
+            assert eng.last_policy["attn_block"] == 128
+            assert eng.last_policy["cache_len"] == 512
+            fresh = decode.DecodeEngine(p, cfg, max_frames=200, graph=False)
+            _same_tokens(got, fresh.generate_audio(grid, mask, **sampling,
+                                                   **kw))
+        (fg, _) = eng.frame_graphs.values()
+        assert sorted(fg.graphs) == [128, 256, 384, 512]

@@ -1,13 +1,17 @@
 """Autoregressive decode engine (port of `uniaudio2_tpu/engine/decode.py`).
 
 The JAX package compiles the whole generation into one ``lax.while_loop``.
-Here it is a Python frame loop around a static-shape frame step: prompts
-are padded to bucket lengths, KV caches are sized to the program's budget
-and updated in place, and the per-frame state (feedback tokens, two-phase
-flags, output buffers, the position) lives in device tensors that the step
-updates without reading them back. The loop reads one flag per frame, the
-stop condition, after the step; the step itself never synchronises with
-the host, so a later change can capture it in a CUDA graph.
+Here prompts are padded to bucket lengths, KV caches are sized to the
+program's budget and updated in place (on the graph path kept across
+requests, for at most ``KEEP_PROGRAMS`` programs), and the
+per-frame state (feedback tokens, two-phase flags, output buffers, the
+position) lives in device tensors that the frame step updates without
+reading them back. On a card the frame step is a captured CUDA graph per
+prefix level (`frame_graph.FrameGraph`), replayed frame by frame, with the
+stop flag read once every ``frame_graph.STOP_EVERY`` frames; on the CPU the
+same step runs eagerly. ``DecodeEngine(graph=False)`` keeps the eager
+frame loop (`_frames`, one read of the stop flag per frame), the yardstick
+the graph path is held to.
 
 Output protocol (two-phase audio): as in the JAX package, every frame goes
 into a (max_frames, 8) buffer with a phase tag, and `split_two_phase`
@@ -32,12 +36,16 @@ shardings of a multi-card mesh (``_shard_caches``, ROADMAP queue 1 item
 from __future__ import annotations
 
 import os
+from collections import OrderedDict
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from uniaudio2_tpu_torch.config import UnifiedModelConfig
+from uniaudio2_tpu_torch.engine.frame_graph import (
+    PHASE_DROPPED, PHASE_REASON, PHASE_SEMANTIC, FrameGraph,
+)
 from uniaudio2_tpu_torch.models import gpt, unified
 from uniaudio2_tpu_torch.ops.kv_cache import reorder
 from uniaudio2_tpu_torch.ops.sampling import RowKeys
@@ -45,10 +53,7 @@ from uniaudio2_tpu_torch.ops.sampling import RowKeys
 Params = Dict[str, Any]
 
 DEFAULT_BUCKETS = (64, 128, 256, 512, 1024, 2048)
-
-PHASE_DROPPED = 0
-PHASE_REASON = 1
-PHASE_SEMANTIC = 2
+KEEP_PROGRAMS = 4   # frame graphs an engine keeps (least recently used go)
 
 
 def resolve_kv_quant(mode: Optional[str], cache_len: int, cache_dtype,
@@ -106,14 +111,19 @@ def pick_bucket(length: int, buckets=DEFAULT_BUCKETS) -> int:
 class DecodeEngine:
     """Host entry points for one model: `generate_audio` (two-phase TTS and
     the CFG pair) and `generate_text` (ASR, n-gram blocking) for one
-    request, `generate_*_batch` for many, `generate_text_beam`."""
+    request, `generate_*_batch` for many, `generate_text_beam`. With
+    ``graph`` (the default) the frame loop of `generate_text`,
+    `generate_audio` and `generate_*_batch` runs through `FrameGraph`
+    (captured CUDA graphs on a card); ``graph=False`` runs the eager
+    loop."""
 
     def __init__(self, params: Params, cfg: UnifiedModelConfig, *,
                  max_frames: int = 500, cache_dtype=torch.bfloat16,
                  buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
                  attn_block: Optional[int] = None,
                  kv_quant: Optional[str] = None,
-                 kv_write: Optional[str] = None):
+                 kv_write: Optional[str] = None,
+                 graph: bool = True):
         self.cfg = cfg
         self.params = params
         self.max_frames = max_frames
@@ -130,8 +140,19 @@ class DecodeEngine:
         self._cache_lists = isinstance(
             params.get("backbone", {}).get("layers"), list
         ) and self.kv_write != "deferred"
+        self.graph = graph
         self.last_steps = 0     # frames (host-driven: steps) of the last call
+        self.last_frames_run = 0    # frames the device ran in it (graph
+        # path: replays, including those after the last row's EOS, and
+        # warm-up frames)
         self.last_policy = {}   # cache length and policies of that call
+        # the graph path's programs, least recently used first, and the
+        # caches they hold: (rows, cache_len, dtype) -> caches
+        self.frame_graphs: "OrderedDict[tuple, FrameGraph]" = OrderedDict()
+        self._kept = {}
+        self.capture_seconds = 0.0  # warming up and capturing, all calls
+        self._generator = None  # the shared stream the graphs sample from
+        self.graph_pool = None  # one memory pool for all the graphs
 
     def _pad_grid(self, grid, mask, use_cfg, neg_grid, neg_mask):
         length = grid.shape[0]
@@ -179,18 +200,93 @@ class DecodeEngine:
         return (g, m, left_pad_valid(lengths, bucket, cache_len, self.device),
                 bucket, cache_len)
 
-    def _caches(self, batch: int, cache_len: int):
-        """Fresh caches of ``cache_len`` slots under the engine's policies;
-        records them in ``last_policy``."""
+    def _caches(self, batch: int, cache_len: int, keep: bool = False):
+        """Caches of ``batch`` rows and ``cache_len`` slots under the
+        engine's policies, fresh, or with ``keep`` the kept ones of that
+        shape (a captured graph holds their addresses; a prefill overwrites
+        what a request reads); records the policies in ``last_policy``."""
         attn_block = resolve_attn_block(self.attn_block, cache_len)
         kv_dtype = resolve_kv_quant(self.kv_quant, cache_len, self.cache_dtype,
                                     batch=batch)
         self.last_policy = dict(cache_len=cache_len, kv_dtype=kv_dtype,
                                 attn_block=attn_block, kv_write=self.kv_write)
-        return unified.init_caches(self.cfg, batch, dtype=kv_dtype,
-                                   seq_len=cache_len,
-                                   as_lists=self._cache_lists,
-                                   device=self.device)
+        key = (batch, cache_len, kv_dtype)
+        if keep and key in self._kept:
+            return self._kept[key]
+        caches = unified.init_caches(
+            self.cfg, batch, dtype=kv_dtype, seq_len=cache_len,
+            as_lists=self._cache_lists, device=self.device)
+        if keep:
+            self._kept[key] = caches
+        return caches
+
+    def _frame_graph(self, mode: str, caches, rows: int, *, per_row: bool,
+                     batched: bool, temperature: float, topk: int,
+                     use_cfg: bool, cfg_scale: float) -> FrameGraph:
+        """The `FrameGraph` of one program (mode, rows, cache, policies,
+        sampling arguments, stream kind), made on first use and kept; past
+        ``KEEP_PROGRAMS`` the least recently used goes, with the caches no
+        kept program holds."""
+        p = self.last_policy
+        key = (mode, rows, p["cache_len"], p["kv_dtype"], p["attn_block"],
+               p["kv_write"], float(temperature), int(topk), bool(use_cfg),
+               float(cfg_scale), per_row, batched)
+        if key in self.frame_graphs:
+            self.frame_graphs.move_to_end(key)
+        else:
+            if self.device.type == "cuda" and self.graph_pool is None:
+                self.graph_pool = torch.cuda.graph_pool_handle()
+            if not per_row and self._generator is None:
+                self._generator = torch.Generator(device=self.device)
+            self.frame_graphs[key] = FrameGraph(
+                self.params, self.cfg, caches, mode=mode, rows=rows,
+                max_frames=self.max_frames, attn_block=p["attn_block"],
+                kv_write=self.kv_write, temperature=temperature, topk=topk,
+                use_cfg=use_cfg, cfg_scale=cfg_scale,
+                generator=None if per_row else self._generator,
+                batched=batched, pool=self.graph_pool)
+            while len(self.frame_graphs) > KEEP_PROGRAMS:
+                self.frame_graphs.popitem(last=False)
+            held = {id(f.caches) for f in self.frame_graphs.values()}
+            self._kept = {k: c for k, c in self._kept.items()
+                          if id(c) in held}
+        return self.frame_graphs[key]
+
+    def _decode(self, mode: str, caches, prefill, tokens, tmask,
+                first_pos: int, limit: int, *, seed: int, seeds,
+                key_valid=None, **sampling):
+        """``prefill()`` then the frame loop (`FrameGraph`, or `_frames`
+        with ``graph=False``) from ``tokens`` / ``tmask`` (B, 1, 9) at
+        ``first_pos``; the rows share one stream seeded with ``seed``, or
+        each samples from its own of ``seeds``. Returns text_out,
+        audio_out, phase_out (host arrays) and the frames run."""
+        rows = tokens.shape[0]
+        if seeds is not None and len(seeds) != rows:
+            raise ValueError(f"{len(seeds)} seeds for {rows} rows")
+        if not self.graph:
+            prefill()
+            if seeds is not None:
+                stream = RowKeys.from_seeds(seeds, self.device)
+            else:
+                stream = torch.Generator(device=self.device)
+                stream.manual_seed(seed)
+            out = self._frames(mode, caches, tokens, tmask, first_pos, limit,
+                               stream, key_valid=key_valid, **sampling)
+            self.last_frames_run = self.last_steps
+            return out
+        fg = self._frame_graph(mode, caches, rows, per_row=seeds is not None,
+                               batched=key_valid is not None, **sampling)
+        frames = min(self.max_frames, limit - first_pos)
+        before = fg.capture_seconds
+        fg.prepare(first_pos, frames)
+        self.capture_seconds += fg.capture_seconds - before
+        prefill()
+        text, audio, phases, n, run = fg.run(
+            tokens, tmask, first_pos, frames, seed=seed, key_valid=key_valid,
+            keys=None if seeds is None
+            else RowKeys.from_seeds(seeds, self.device).keys)
+        self.last_steps, self.last_frames_run = n, run
+        return text, audio, phases, n
 
     def _frames(self, mode: str, caches, tokens, tmask, first_pos: int,
                 limit: int, stream, *, temperature: float, topk: int,
@@ -277,16 +373,19 @@ class DecodeEngine:
                                               neg_mask)
         cache_len = min(self.cfg.max_seq_len,
                         -(-(bucket + self.max_frames) // 256) * 256)
-        caches = self._caches(g.shape[0], cache_len)
-        with torch.no_grad():
-            unified.prefill(self.params, self.cfg, g[:, :-1], m[:, :-1], caches)
+        caches = self._caches(g.shape[0], cache_len, keep=self.graph)
+
+        def prefill():
+            with torch.no_grad():
+                unified.prefill(self.params, self.cfg, g[:, :-1], m[:, :-1],
+                                caches)
+
         last = length - 1
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(seed)
-        text, audio, phases, n = self._frames(
-            mode, caches, g[:, last:last + 1], m[:, last:last + 1], last,
-            cache_len - 1, generator, temperature=temperature, topk=topk,
-            use_cfg=use_cfg, cfg_scale=cfg_scale)
+        text, audio, phases, n = self._decode(
+            mode, caches, prefill, g[:, last:last + 1], m[:, last:last + 1],
+            last, cache_len - 1, seed=seed, seeds=None,
+            temperature=temperature, topk=topk, use_cfg=use_cfg,
+            cfg_scale=cfg_scale)
         return text[0], audio[0], phases[0], n
 
     def _run_batched(self, mode: str, rows, *, temperature: float, topk: int,
@@ -301,22 +400,17 @@ class DecodeEngine:
         from its own `RowKeys` stream, else all rows share one generator
         seeded with ``seed``."""
         g, m, key_valid, bucket, cache_len = self._left_padded(rows)
-        n_rows = g.shape[0]
-        caches = self._caches(n_rows, cache_len)
-        with torch.no_grad():
-            unified.prefill(self.params, self.cfg, g[:, :-1], m[:, :-1],
-                            caches, key_valid=key_valid[:, :bucket - 1])
-        if seeds is not None:
-            if len(seeds) != n_rows:
-                raise ValueError(f"{len(seeds)} seeds for {n_rows} rows")
-            stream = RowKeys.from_seeds(seeds, self.device)
-        else:
-            stream = torch.Generator(device=self.device)
-            stream.manual_seed(seed)
-        return self._frames(mode, caches, g[:, -1:], m[:, -1:], bucket - 1,
-                            cache_len - 2, stream, temperature=temperature,
-                            topk=topk, use_cfg=use_cfg, cfg_scale=cfg_scale,
-                            key_valid=key_valid)
+        caches = self._caches(g.shape[0], cache_len, keep=self.graph)
+
+        def prefill():
+            with torch.no_grad():
+                unified.prefill(self.params, self.cfg, g[:, :-1], m[:, :-1],
+                                caches, key_valid=key_valid[:, :bucket - 1])
+
+        return self._decode(mode, caches, prefill, g[:, -1:], m[:, -1:],
+                            bucket - 1, cache_len - 2, seed=seed, seeds=seeds,
+                            key_valid=key_valid, temperature=temperature,
+                            topk=topk, use_cfg=use_cfg, cfg_scale=cfg_scale)
 
     def generate_text(self, grid: np.ndarray, mask: np.ndarray, *,
                       temperature: float = 0.9, topk: int = 1,
@@ -412,7 +506,7 @@ class DecodeEngine:
         g = torch.from_numpy(g).to(self.device)
         m = torch.from_numpy(m).to(self.device)
         caches = self._caches(batch, self.cfg.max_seq_len)
-        self.last_steps = 0
+        self.last_steps = self.last_frames_run = 0
         with torch.no_grad():
             unified.prefill(self.params, self.cfg, g[:, :-1], m[:, :-1], caches)
         return caches, g, m, length
@@ -421,6 +515,7 @@ class DecodeEngine:
         """One decode step of (B, 1, 9) tokens at ``pos``: the (B, V) f32
         text logits. Counted in ``last_steps``."""
         self.last_steps += 1
+        self.last_frames_run += 1
         with torch.no_grad():
             h, _ = unified.decode_hidden(
                 self.params, self.cfg, tokens, tmask, caches, pos,

@@ -43,6 +43,25 @@ class UnifiedCaches(NamedTuple):
     generation: KVCache
 
 
+class LocalCache(NamedTuple):
+    """The local decoder's 8-slot cache and its slot indices (0..7): made
+    per frame by default, or kept across frames by a caller that needs
+    fixed buffers (a captured frame graph). Every frame writes slots 0..7
+    in order before it reads them, so a kept cache gives the tokens of a
+    fresh one."""
+
+    cache: KVCache
+    steps: torch.Tensor
+
+
+def init_local_cache(cfg: UnifiedModelConfig, batch: int, dtype,
+                     device="cuda") -> LocalCache:
+    ncb = cfg.tokens.num_codebooks
+    return LocalCache(init_cache(cfg.decoder, batch, ncb, dtype=dtype,
+                                 device=device),
+                      torch.arange(ncb, device=device))
+
+
 def init_params(cfg: UnifiedModelConfig, generator: torch.Generator,
                 dtype=torch.float32, device="cuda") -> Params:
     bcfg, dcfg = cfg.backbone, cfg.decoder
@@ -288,7 +307,7 @@ def _sample(stream, logits, topk, temperature, forbid_prefix, use_cfg,
         forbid_prefix = forbid_prefix[0::2]
     s = sample_topk(stream, mixed, topk, temperature,
                     forbid_prefix=forbid_prefix)
-    return s.repeat_interleave(2, dim=0)
+    return s[:, None].expand(-1, 2).reshape(-1)     # each pair's token twice
 
 
 def decode_frame(params: Params, cfg: UnifiedModelConfig,
@@ -301,7 +320,8 @@ def decode_frame(params: Params, cfg: UnifiedModelConfig,
                  sample_text: bool = True, sample_audio: bool = True,
                  key_valid: Optional[torch.Tensor] = None,
                  attn_block: Optional[int] = None, kv_write: str = "inline",
-                 host_pos: Optional[int] = None
+                 host_pos: Optional[int] = None,
+                 local: Optional[LocalCache] = None
                  ) -> Tuple[torch.Tensor, UnifiedCaches]:
     """One AR step: the previous frame's (B, 1, 9) tokens at ``pos`` -> the
     next frame's (B, 9) int64 tokens [text, cb0..cb7]. ``sample_text`` /
@@ -309,7 +329,8 @@ def decode_frame(params: Params, cfg: UnifiedModelConfig,
     ``use_cfg`` rows are [cond, uncond] pairs. ``stream`` is one generator
     for every row, or this frame's `RowKeys` (text draws from its fold 0,
     the audio codebooks from fold 1). ``forbid_prefix`` is an int, a 0-d
-    tensor or per-row (B, 1). The cache policies as in `decode_hidden`."""
+    tensor or per-row (B, 1). The cache policies as in `decode_hidden`;
+    ``local`` is a kept local-decoder cache (else one is made)."""
     b = tokens.shape[0]
     last_h, caches = decode_hidden(params, cfg, tokens, tokens_mask, caches,
                                    pos, key_valid=key_valid,
@@ -327,7 +348,8 @@ def decode_frame(params: Params, cfg: UnifiedModelConfig,
     if sample_audio:
         audio = _local_decoder_generate(
             params, cfg, last_h, key_audio, temperature=temperature, topk=topk,
-            forbid_prefix=forbid_prefix, use_cfg=use_cfg, cfg_scale=cfg_scale)
+            forbid_prefix=forbid_prefix, use_cfg=use_cfg, cfg_scale=cfg_scale,
+            local=local)
     else:
         audio = torch.zeros((b, cfg.tokens.num_codebooks), dtype=torch.int64,
                             device=last_h.device)
@@ -339,17 +361,19 @@ def _local_decoder_generate(params: Params, cfg: UnifiedModelConfig,
                             stream: "torch.Generator | RowKeys | None", *,
                             temperature: float, topk: int,
                             forbid_prefix: "torch.Tensor | int",
-                            use_cfg: bool, cfg_scale: float) -> torch.Tensor:
-    """8 sequential local-decoder steps over a fresh 8-slot cache -> (B, 8)
-    codebook ids. With serving params the embedding projection is the
-    folded table; only step 0 multiplies by ``projection_w``. Per-row keys
-    draw codebook i from their fold i."""
-    b = last_h.shape[0]
+                            use_cfg: bool, cfg_scale: float,
+                            local: Optional[LocalCache] = None) -> torch.Tensor:
+    """8 sequential local-decoder steps over an 8-slot cache (``local``, or
+    a fresh one) -> (B, 8) codebook ids. With serving params the embedding
+    projection is the folded table; only step 0 multiplies by
+    ``projection_w``. Per-row keys draw codebook i from their fold i."""
     dcfg = cfg.decoder
     ncb = cfg.tokens.num_codebooks
     audio_vocab = cfg.tokens.audio_vocab
-    cache = init_cache(dcfg, b, ncb, dtype=last_h.dtype, device=last_h.device)
-    steps = torch.arange(ncb, device=last_h.device)
+    if local is None:
+        local = init_local_cache(cfg, last_h.shape[0], last_h.dtype,
+                                 last_h.device)
+    cache, steps = local
     proj_table = params.get("audio_embeddings_proj")
     heads = params["audio_head"]
     if proj_table is None:

@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("gemv_int4i.cu", "gemv_int8.cu", "gemv_int4.cu", "gemv_int4g.cu",
            "gemv_int4c.cu", "gemv_int4cg.cu", "qkv_rope.cu", "fused_swiglu.cu",
            "flash_attn.cu", "lean_update.cu", "gemv_int8_splitk.cu",
-           "gemv_int4_native.cu", "gemv_int4_sweep.cu")
+           "gemv_int4_native.cu", "gemv_int4_sweep.cu", "gemv_int4_stacked.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -66,6 +66,9 @@ _SIGNATURES = {
     "ua2_gemv_int4_sweep": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # form, int[4] out: cols, unroll, mt, unpack
     "ua2_gemv_int4_sweep_form": [_I, _P],
+    # x, w, scale, layer, out, M, K, N, ldw, w_stride, s_stride, L, stream
+    "ua2_gemv_int4_stacked": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I,
+                              _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -161,9 +164,73 @@ def count(fn, form: Optional[str] = None) -> None:
         fn.forms[form] = fn.forms.get(form, 0) + 1
 
 
+_COUNTED: list = []     # every wrapper whose count was ever reset
+
+
 def reset_count(fn) -> None:
+    """Zero ``fn``'s counts (and register it: a wrapper's module resets its
+    count once at import)."""
     fn.launches = 0
     fn.forms = {}
+    if fn not in _COUNTED:
+        _COUNTED.append(fn)
+
+
+def counts() -> dict:
+    """Every registered wrapper's counts: {fn: (launches, forms)}."""
+    return {fn: (fn.launches, dict(fn.forms)) for fn in _COUNTED}
+
+
+def counts_since(before: dict) -> dict:
+    """The launches counted after the snapshot ``before`` (of `counts`)."""
+    delta = {}
+    for fn, (launches, forms) in counts().items():
+        n0, f0 = before.get(fn, (0, {}))
+        df = {k: v - f0.get(k, 0) for k, v in forms.items() if v != f0.get(k, 0)}
+        if launches != n0 or df:
+            delta[fn] = (launches - n0, df)
+    return delta
+
+
+def set_counts(snapshot: dict) -> None:
+    """Put every wrapper's counts back to ``snapshot``."""
+    for fn, (launches, forms) in snapshot.items():
+        fn.launches, fn.forms = launches, dict(forms)
+
+
+def capture_graph(fn, pool=None, generator=None):
+    """Capture ``fn()`` into a CUDA graph (on the current device, in the
+    memory pool ``pool``, with ``generator``'s state registered when one is
+    given). The wrappers ``fn`` runs count nothing: returns the graph and
+    the counts one replay launches, for `add_counts`."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        if not hasattr(graph, "register_generator_state"):
+            raise RuntimeError(
+                "this torch cannot register a torch.Generator with a CUDA "
+                "graph (CUDAGraph.register_generator_state is missing), so "
+                "a step that samples from it cannot be captured: sample "
+                "with per-row seeds (RowKeys, no generator) or decode with "
+                "DecodeEngine(graph=False)")
+        graph.register_generator_state(generator)
+    before = counts()
+    with torch.cuda.graph(graph, pool=pool):
+        fn()
+    per_replay = counts_since(before)
+    set_counts(before)
+    return graph, per_replay
+
+
+def add_counts(delta: dict, times: int) -> None:
+    """Count ``times`` launches of each kernel in ``delta`` (of
+    `counts_since`): what ``times`` replays of a captured CUDA graph launch,
+    since a replay runs no Python wrapper."""
+    for fn, (launches, forms) in delta.items():
+        fn.launches += launches * times
+        for k, v in forms.items():
+            fn.forms[k] = fn.forms.get(k, 0) + v * times
 
 
 def ptr(t) -> Optional[int]:

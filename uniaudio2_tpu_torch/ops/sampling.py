@@ -61,9 +61,15 @@ class RowKeys(NamedTuple):
                             device=device)
         return RowKeys(_mix(s * _GOLDEN + _GOLDEN))
 
-    def fold(self, data: int) -> "RowKeys":
-        return RowKeys(_mix(self.keys ^ _mix(torch.full_like(
-            self.keys, int(data) + 1) * _GOLDEN)))
+    def fold(self, data: "int | torch.Tensor") -> "RowKeys":
+        """The keys of sub-stream ``data``: a host int, or a one-element
+        int64 tensor on the rows' device (a frame counter that a captured
+        graph advances), which gives the same bits as its value would."""
+        if isinstance(data, torch.Tensor):
+            salt = (data.reshape(1) + 1) * _GOLDEN
+        else:
+            salt = torch.full_like(self.keys, int(data) + 1) * _GOLDEN
+        return RowKeys(_mix(self.keys ^ _mix(salt)))
 
     def rows(self, index) -> "RowKeys":
         """The keys of some rows (``index`` a slice or index tensor)."""
