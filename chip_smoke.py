@@ -13,7 +13,12 @@ caught):
 3. each kernel, in every weight form it has, against its plain PyTorch
    twin at the serving path's shapes (bf16 activations, M = 1, 2 — the CFG
    pair —, 63 — the prefill bucket 64 — and, for the GEMVs, 255 — bucket
-   256; the flash attention kernel at (B, H, hd) = (2, 24, 64) and the
+   256; rows 1 and 6 also at M = 8 and 16, the batched rows, where they run
+   the split-K kernel of the host's plan: at each of their decode shapes
+   the plan, the time of the tiled instance and of
+   ``torch._weight_int4pack_mm`` in the same run and the share of the byte
+   bound are printed; the flash attention kernel at (B, H, hd) =
+   (2, 24, 64) and the
    codec windows' T = 186, 374 and 750, plus T = 130 and B = 1 for the
    tails; its causal GQA form at the backbone prefill's (1, 24, 8, T, 128)
    with T = 2048 and 1000; the split-K int8 GEMV at the GEMV probe's six
@@ -437,14 +442,54 @@ def phase_kernels(torch, dev):
                       lambda: qkv_step.qkv_rope_step(*args),
                       lambda: qkv_step.qkv_rope_step_plain(*args), case,
                       row=m == 1 and name == "backbone")
+
+    def splitk_case(form, label, k, n, m, w, x, kw, case, fn, fn_tiled,
+                    lib_ms, rtol):
+        """Rows 1 / 6 at a decode M: the tiled instance held to the twin
+        and timed beside the split-K kernel and the library's GEMV (split-K,
+        tiled, tiled, split-K: the lesser median of each pair, against a
+        moment of noise in one), the plan and the share of the byte
+        bound."""
+        out, ref = fn_tiled(x, w.values, w.scale, **kw), quant.matmul_plain(x, w, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if err > rtol * ref.float().abs().max().item():
+            fail(f"{form} tiled {label} M={m}: max_abs_err {err:.4g}")
+        g = w.scale.shape[0] if w.scale.ndim == 2 else 0
+        plan = quant.gemv_plan(m, k, n, g, quant.LAYOUTS[type(w)], sms)
+        if lib_ms is None:
+            wp, group, sz = int4_tinygemm(w)
+            lib_ms = timer(lambda: torch._weight_int4pack_mm(x, wp, group, sz))
+        run = lambda: fn(x, w.values, w.scale, **kw)
+        run_tiled = lambda: fn_tiled(x, w.values, w.scale, **kw)
+        ms, tiled_ms = timer(run), timer(run_tiled)
+        tiled_ms, ms = min(tiled_ms, timer(run_tiled)), min(ms, timer(run))
+        bound_ms = bound(*case)[0]
+        splitk_times[(form, label, m)] = (ms, tiled_ms, lib_ms)
+        print(f"[3] {form} split-K {label} {k}->{n} M={m}: plan S={plan.splits} "
+              f"MT={plan.mt} tile={plan.tile} span={plan.span} "
+              f"({plan.blocks(m, n)} blocks, {sms} SMs): split-K {ms:.4f} ms, "
+              f"tiled {tiled_ms:.4f} ms (x{tiled_ms / ms:.2f}), library GEMV "
+              f"{lib_ms:.4f} ms (x{lib_ms / ms:.2f}); bound {bound_ms:.4f} ms, "
+              f"{bound_ms / ms:.1%} of it; tiled vs twin {err:.3e}", flush=True)
+
+    splitk_times = {}
     # the GEMVs over K-axis-packed weights; row: the projection at M = 1,
     # a plain product, which the library computes too. M = 255 is the
-    # prefill of a bucket-256 prompt, bound by operations.
+    # prefill of a bucket-256 prompt, bound by operations. Rows 1 and 6
+    # (int4i, int4ig, int4g) run the split-K kernel up to
+    # quant.SPLITK_MAX_M rows: at those M each shape is also timed through
+    # the tiled instance and the library call (the GEMV alone: no norm,
+    # residual or f32 cast), and the plan printed.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiled = {"int4i": quant.int4i_matmul_tiled,
+             "int4ig": quant.int4i_matmul_tiled,
+             "int4g": quant.int4g_matmul_tiled}
     for form in ("int4i", "int4ig", "int4", "int4g", "int8"):
         fn = {"int4i": quant.int4i_matmul, "int4ig": quant.int4i_matmul,
               "int4": quant.int4_matmul, "int4g": quant.int4g_matmul,
               "int8": quant.int8_matmul}[form]
-        for m in (1, 2, 63, 255):
+        for m in (1, 2, 8, 16, 63, 255) if form in tiled else (1, 2, 63, 255):
             for label, k, n, res, out_dtype in (
                     ("attn_proj +res", 3072, 3072, True, None),
                     ("decoder attn_proj +res", 2048, 2048, True, None),
@@ -469,16 +514,26 @@ def phase_kernels(torch, dev):
                     def library():
                         return torch._weight_int4pack_mm(x, wp, group, sz)
                 grouped = form.endswith("g") and not res
-                check(GEMV_ROWS[form], f"{label} {k}->{n} M={m}",
-                      lambda: fn(x, w.values, w.scale, **kw),
-                      lambda: quant.matmul_plain(x, w, **kw), case, library,
-                      row=row, rtol=RTOL_GROUPED if grouped else RTOL)
+                lib_ms = check(GEMV_ROWS[form], f"{label} {k}->{n} M={m}",
+                               lambda: fn(x, w.values, w.scale, **kw),
+                               lambda: quant.matmul_plain(x, w, **kw), case,
+                               library, row=row,
+                               rtol=RTOL_GROUPED if grouped else RTOL)
+                if form in tiled and m <= quant.SPLITK_MAX_M:
+                    splitk_case(form, label, k, n, m, w, x, kw, case, fn,
+                                tiled[form], lib_ms,
+                                RTOL_GROUPED if grouped else RTOL)
                 if library is not None:
                     lib_err = (library().float() - quant.matmul_plain(
                         x, w).float()).abs().max().item()
                     print(f"[3] {GEMV_ROWS[form]} library _weight_int4pack_mm "
                           f"(groups of {group}) vs twin: max_abs_err "
                           f"{lib_err:.3e}", flush=True)
+    slower = [key for key, (ms, tiled_ms, _) in splitk_times.items()
+              if ms >= tiled_ms]
+    print(f"[3] split-K faster than the tiled instance at "
+          f"{len(splitk_times) - len(slower)} of {len(splitk_times)} decode "
+          f"cases; not at {slower}", flush=True)
     # the column-packed GEMVs (the MLP down-projection): alone they run at a
     # prefill of more than 128 rows; row: the backbone's at M = 255
     for form in ("int4c", "int4cg"):
@@ -583,7 +638,8 @@ def phase_kernels(torch, dev):
         del w, w_lib
     # row 11, the conversion-free unpack, at the int4 probe's shapes and the
     # batched path's M; row: (3072, 8192) at M = 1, row-major. Twin: one
-    # bf16 ulp; the production interleaved kernel: the same bits.
+    # bf16 ulp; the tiled instance of the production interleaved kernel,
+    # which it was written against: the same bits.
     for k, n in int4_native_probe.SHAPES:
         w = quant.to_interleaved(quant.quantize4(
             torch.randn((k, n), generator=gen, device=dev) * 0.02))
@@ -603,11 +659,13 @@ def phase_kernels(torch, dev):
                       (lambda: torch._weight_int4pack_mm(x, wp, group, sz))
                       if row else None, row=row, rtol=RTOL_GROUPED)
             same = torch.equal(int4_native.int4_native_matmul(
-                x, w.values, w.scale), quant.int4i_matmul(x, w.values, w.scale))
+                x, w.values, w.scale),
+                quant.int4i_matmul_tiled(x, w.values, w.scale))
             print(f"[3] int4_native_gemv (K, N) = ({k}, {n}) M={m}: the "
-                  f"production int4i_matmul's bits: {same}", flush=True)
+                  f"bits of gemv_int4i.cu's tiled instance: {same}", flush=True)
             if not same:
-                fail("int4_native_gemv does not sum in gemv_int4i.cu's order")
+                fail("int4_native_gemv does not sum in the order of "
+                     "gemv_int4i.cu's tiled instance")
     # row 13, the K-split GEMV's twelve tile forms at the backbone's qkv and
     # the audio head (a partial last tile), M = 1 and 16; row: the fastest
     # form at (3072, 5120), M = 1 (rechecked as the row).
@@ -1991,10 +2049,12 @@ GRAPH_FAULT_FRAMES = 16
 # prompt, so one program serves both and the second needs new levels.
 SAMPLED_FRAMES = 200
 # The kernels a counted wrapper launches, by the traced name's base: a
-# GEMV wrapper one `gemv_kernel`, `qkv_rope_step` one `qkv_rope_kernel`,
-# `fused_swiglu` one `swiglu_up_kernel` and the down projection's
-# `gemv_kernel`.
-TRACED_FAMILIES = ("gemv_kernel", "qkv_rope_kernel", "swiglu_up_kernel")
+# GEMV wrapper one `gemv_kernel` (rows 1 and 6 up to quant.SPLITK_MAX_M
+# rows one `gemv_splitk_kernel` instead), `qkv_rope_step` one
+# `qkv_rope_kernel`, `fused_swiglu` one `swiglu_up_kernel` and the down
+# projection's `gemv_kernel`.
+TRACED_FAMILIES = ("gemv_kernel", "gemv_splitk_kernel", "qkv_rope_kernel",
+                   "swiglu_up_kernel")
 # The counts a replay adds are held to the kernel nodes of the captured
 # graph itself (`CUDAGraph.debug_dump`), not to a profiled trace: in this
 # script's process the trace of a 16-frame window loses some kernel
@@ -2042,10 +2102,11 @@ def families(names):
     return out
 
 
-def busy_window(torch, fn):
-    """``fn()`` under torch.profiler (the second of two profiled runs):
-    (wall ms, device kernels traced, their device ms, the counters'
-    families over that run, the traced families)."""
+def busy_window(torch, fn, rows):
+    """``fn()`` (frames of ``rows`` activation rows) under torch.profiler
+    (the second of two profiled runs): (wall ms, device kernels traced,
+    their device ms, the counters' families over that run, the traced
+    families)."""
     from uniaudio2_tpu_torch.ops import _cuda
 
     prof = torch.profiler
@@ -2058,7 +2119,7 @@ def busy_window(torch, fn):
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-            counted = counted_families(_cuda.counts_since(before))
+            counted = counted_families(_cuda.counts_since(before), rows)
     kernels = [e for e in p.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     return (wall, len(kernels), sum(e.device_time for e in kernels) / 1e3,
@@ -2090,20 +2151,23 @@ def graph_nodes(graph):
         path.unlink()
 
 
-def counted_families(counted):
+def counted_families(counted, rows):
     """The kernels of `TRACED_FAMILIES` that the counters' increments
-    ``counted`` say were launched."""
-    from uniaudio2_tpu_torch.ops import fused_mlp, qkv_step
+    ``counted`` say were launched by frames of ``rows`` activation rows."""
+    from uniaudio2_tpu_torch.ops import fused_mlp, qkv_step, quant
 
     want = dict.fromkeys(TRACED_FAMILIES, 0)
     gemvs = {fn for fn, _ in counters().values()} - {
         fused_mlp.fused_swiglu, qkv_step.qkv_rope_step}
+    splitk = {quant.int4i_matmul, quant.int4g_matmul}
     for fn, (launches, _) in counted.items():
         if fn is qkv_step.qkv_rope_step:
             want["qkv_rope_kernel"] += launches
         elif fn is fused_mlp.fused_swiglu:
             want["swiglu_up_kernel"] += launches
             want["gemv_kernel"] += launches
+        elif fn in splitk and rows <= quant.SPLITK_MAX_M:
+            want["gemv_splitk_kernel"] += launches
         elif fn in gemvs:
             want["gemv_kernel"] += launches
     return want
@@ -2246,7 +2310,7 @@ def phase_graphs(torch, dev, cfg, params):
         "graph": lambda: fg.run(tok, tmask, first, GRAPH_PROFILE_FRAMES,
                                 seed=0)}
     for label, fn in windows.items():
-        wall, n_kernels, busy, counted, traced = busy_window(torch, fn)
+        wall, n_kernels, busy, counted, traced = busy_window(torch, fn, 1)
         share = (f"busy share {busy / wall:.3f}" if n_kernels
                  else "busy share not measured (no kernel traced)")
         print(f"[11] profiled window, {GRAPH_PROFILE_FRAMES} TTS frames "
@@ -2264,7 +2328,8 @@ def phase_graphs(torch, dev, cfg, params):
     _cuda.set_counts(snapshot)
     for key, f in eng.frame_graphs.items():
         for lvl, (cuda_graph, per_replay) in f.graphs.items():
-            nodes, want = graph_nodes(cuda_graph), counted_families(per_replay)
+            nodes = graph_nodes(cuda_graph)
+            want = counted_families(per_replay, key[1])
             print(f"[11] {key[0]} graph, level {lvl}: kernel nodes {nodes}, "
                   f"a replay counts {want}", flush=True)
             if nodes != want or not all(nodes.values()):
@@ -2869,7 +2934,7 @@ def phase_probes(torch):
           f"{len(native)} int4 native lines, {len(sweep)} sweep lines, "
           f"{len(scan)} scan-slice forms; launches {json.dumps(launches)}",
           flush=True)
-    if not all(line["bit_identical_to_int4i"] for line in native) or not all(
+    if not all(line["bit_identical_to_int4i_tiled"] for line in native) or not all(
             line["form0_bit_identical_to_int4"] for line in sweep):
         fail("an int4 probe kernel left the production kernel's order")
     if not all(launches.values()):

@@ -28,8 +28,14 @@ The two int4 probe kernels (rows 11 and 13: the conversion-free unpack
 and the twelve tile forms of the K-split GEMV) add exact f32 products in
 another order than their twins and round once: one bf16 ulp
 (RTOL_GROUPED). With the production template's tiles they sum in its
-order, so the native kernel gives `gemv_int4i.cu`'s bits and sweep form 0
-`gemv_int4.cu`'s. Row 14's stacked-layer kernel, with the layer index read
+order, so the native kernel gives the tiled instance of `gemv_int4i.cu`
+its bits (`int4i_matmul_tiled`; at decode `int4i_matmul` launches the
+split-K kernel, which sums in another order) and sweep form 0
+`gemv_int4.cu`'s.
+Rows 1 and 6 at decode (M <= 16) run the split-K cluster kernel with the
+host's plan (`quant.gemv_plan`): held to their twins with the bounds
+above at the decode shapes and at the prefill's M (the tiled kernel),
+bit-identical from launch to launch, one kernel node in a captured graph. Row 14's stacked-layer kernel, with the layer index read
 on the device, is held to its twin within one bf16 ulp and to
 `gemv_int4.cu`'s bits on every layer's slice.
 The lean-update kernel rounds every operation as its twin does, so the two
@@ -340,8 +346,9 @@ def test_int8_splitk_gemv(dev, k, n):
 @pytest.mark.parametrize("k,n", [(256, 512), (512, 1024), (3072, 8192),
                                  (2048, 12300)])
 def test_int4_native_gemv(dev, k, n, m):
-    """Row 11's kernel: its twin within one bf16 ulp, the production
-    row-interleaved kernel to the bit, row-major and chunk-major alike."""
+    """Row 11's kernel: its twin within one bf16 ulp, the tiled instance
+    of the production row-interleaved kernel to the bit, row-major and
+    chunk-major alike."""
     g = _gen(dev, k + m)
     w = _i4(g, dev, k, n)
     x = _bf16(g, dev, m, k)
@@ -354,7 +361,73 @@ def test_int4_native_gemv(dev, k, n, m):
     _close(out, int4_native.int4_native_matmul_plain(x, w.values, w.scale),
            rtol=RTOL_GROUPED)
     assert torch.equal(out, chunked)
-    assert torch.equal(out, quant.int4i_matmul(x, w.values, w.scale))
+    assert torch.equal(out, quant.int4i_matmul_tiled(x, w.values, w.scale))
+
+
+SPLITK_FORMS = {"int4i": quant.int4i_matmul, "int4ig": quant.int4i_matmul,
+                "int4g": quant.int4g_matmul}
+# the decode shapes of rows 1 and 6: (K, N, residual, f32 out)
+SPLITK_SHAPES = {"attn_proj": (3072, 3072, True, False),
+                 "decoder attn_proj": (2048, 2048, True, False),
+                 "audio_head": (2048, 12300, False, True),
+                 "projection": (3072, 2048, False, False)}
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 16, 63, 255])
+@pytest.mark.parametrize("shape", list(SPLITK_SHAPES))
+@pytest.mark.parametrize("form", list(SPLITK_FORMS))
+def test_int4_decode_gemv(dev, form, shape, m):
+    """Rows 1 (per-channel and grouped) and 6 at their decode shapes (the
+    split-K kernel, M <= 16) and the prefill's M (the tiled kernel), as the
+    path calls them and with the other folds (norm, residual, f32 out):
+    within the twin's bound, one counted launch a call, the same bits from
+    launch to launch."""
+    g = _gen(dev, 21)
+    k, n, res, f32 = SPLITK_SHAPES[shape]
+    w = _make(g, dev, form, k, n)
+    x = _bf16(g, dev, m, k)
+    fn = SPLITK_FORMS[form]
+    for norm, with_res, out_dtype in ((False, res, torch.float32 if f32 else None),
+                                      (True, not res, None if f32 else torch.float32)):
+        kw = dict(out_dtype=out_dtype,
+                  pre_norm=(_bf16(g, dev, k), 1e-5) if norm else None,
+                  residual=_bf16(g, dev, m, n, std=0.1) if with_res else None)
+        before = fn.launches
+        out = fn(x, w.values, w.scale, **kw)
+        again = fn(x, w.values, w.scale, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        assert torch.equal(out, again)
+        grouped_plain = form.endswith("g") and not with_res
+        _close(out, quant.matmul_plain(x, w, **kw),
+               RTOL_GROUPED if grouped_plain else RTOL)
+
+
+@pytest.mark.parametrize("form", list(SPLITK_FORMS))
+def test_int4_decode_gemv_is_one_graph_node(dev, form, tmp_path):
+    """One call captured in a CUDA graph is one kernel node, the split-K
+    kernel's, and its replay gives the eager call's bits."""
+    g = _gen(dev, 22)
+    w = _make(g, dev, form, 3072, 2048)
+    x = _bf16(g, dev, 1, 3072)
+    ref = SPLITK_FORMS[form](x, w.values, w.scale)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        SPLITK_FORMS[form](x, w.values, w.scale)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        out = SPLITK_FORMS[form](x, w.values, w.scale)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    dot = tmp_path / "graph.dot"
+    graph.debug_dump(str(dot))
+    lines = dot.read_text().splitlines()
+    kernels = [line for line in lines if "gemv_" in line and "kernel" in line]
+    assert len(kernels) == 1 and "gemv_splitk_kernel" in kernels[0], kernels
 
 
 def test_int4_sweep_form_table(dev):

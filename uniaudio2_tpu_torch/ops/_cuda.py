@@ -37,11 +37,16 @@ _L = ctypes.c_longlong
 # x, w, scale, norm_w, residual, out, M, K, N, ldw, G, eps, out_f32, stream
 # (G scale groups, 0 = per-channel)
 _GEMV = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]
+# the same with the host's plan before the stream: splits (0 = the tiled
+# instance), mt, span (`quant.gemv_plan`)
+_GEMV_PLAN = _GEMV[:-1] + [_I, _I, _I, _P]
 _SIGNATURES = {
-    "ua2_gemv_int4i": _GEMV,
+    "ua2_gemv_int4i": _GEMV_PLAN,
+    "ua2_gemv_int4i_tiled": _GEMV,
     "ua2_gemv_int8": _GEMV,
     "ua2_gemv_int4": _GEMV,
-    "ua2_gemv_int4g": _GEMV,
+    "ua2_gemv_int4g": _GEMV_PLAN,
+    "ua2_gemv_int4g_tiled": _GEMV,
     "ua2_gemv_int4c": _GEMV,
     "ua2_gemv_int4cg": _GEMV,
     # x, w, scale, norm_w, cos, sin, q, k, v, B, K, n_head, n_groups,

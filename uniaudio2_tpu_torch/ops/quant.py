@@ -15,10 +15,12 @@ Six kernels of the JAX package live here, as CUDA C++ for ``sm_90a``
 (``csrc/gemv_*.cu`` over the shared ``csrc/gemv_common.cuh``):
 
 * `int4i_matmul` replaces `_pallas_int4i_matmul` (row-interleaved int4,
-  per-channel or grouped scales);
+  per-channel or grouped scales; at decode the split-K cluster kernel of
+  ``csrc/gemv_int4_splitk.cuh``, planned by `gemv_plan`);
 * `int8_matmul` replaces `_pallas_int8_matmul` (per-channel int8);
 * `int4_matmul` replaces `_pallas_int4_matmul` (K-split int4);
-* `int4g_matmul` replaces `_pallas_int4g_matmul` (K-split, grouped);
+* `int4g_matmul` replaces `_pallas_int4g_matmul` (K-split, grouped; at
+  decode the split-K cluster kernel too);
 * `int4c_matmul` replaces `_pallas_int4c_matmul` (column-packed int4);
 * `int4cg_matmul` replaces `_pallas_int4cg_matmul` (column-packed,
   grouped).
@@ -39,6 +41,8 @@ them, as the JAX package does).
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -471,8 +475,79 @@ def check_weight(name, layout, values, scale, k, device) -> Tuple[int, int]:
     return n, g
 
 
+# The split-K int4 GEMV (csrc/gemv_int4_splitk.cuh) of rows 1 and 6 at
+# decode: up to SPLITK_MAX_M activation rows (one tile of the tensor cores'
+# 16 rows), at most SPLITK_MAX_SPLITS K-slices a cluster, GEMV_TILE_N
+# columns a block; SPLITK_BLOCKS_PER_SM blocks an SM is the grid it aims
+# at (`gemv_plan`).
+SPLITK_MAX_M = 16
+SPLITK_MAX_SPLITS = 8
+SPLITK_BLOCKS_PER_SM = 2.25
+
+
+class GemvPlan(NamedTuple):
+    """How one int4 GEMV call is launched. ``splits`` K-slices (0: the tiled
+    kernel of every row tile over all of K), ``mt`` activation rows a block,
+    ``tile`` output columns a block and ``span`` byte rows a slice."""
+
+    splits: int
+    mt: int
+    tile: int
+    span: int
+
+    def blocks(self, m: int, n: int) -> int:
+        """The grid's blocks for an (m, n) output."""
+        return (-(-n // self.tile) * -(-m // self.mt)
+                * max(self.splits, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_plan(m: int, k: int, n: int, g: int, layout: int,
+              sms: int) -> GemvPlan:
+    """The launch of an int4 GEMV of row-packed layout ``layout``
+    (`LAYOUT_I4` or `LAYOUT_K4`) with ``g`` scale groups (0: per channel)
+    on a card of ``sms`` SMs: a function of the shape and the SM count
+    only. Up to `SPLITK_MAX_M` rows: the split-K kernel, all rows in one
+    block (the MMA's 16), and the number of K-slices, up to
+    `SPLITK_MAX_SPLITS`, whose grid comes nearest (in ratio)
+    `SPLITK_BLOCKS_PER_SM` blocks an SM, the fewer slices on a tie. Every
+    slice but the last holds the same whole number of units and none is
+    empty; a unit is a byte row, or a scale group when grouped: K/G / 2
+    byte rows in the interleaved layout (both nibbles of a byte share a
+    group), K/G in the K-split one (the low and high halves each hold G/2
+    groups). Above `SPLITK_MAX_M` rows: the tiled kernel."""
+    if m > SPLITK_MAX_M:
+        return GemvPlan(0, 4, GEMV_TILE_N, k // 2)
+    mt = SPLITK_MAX_M
+    tiles = -(-n // GEMV_TILE_N) * -(-m // mt)
+    want = SPLITK_BLOCKS_PER_SM * sms
+    s, span = min(splitk_slices(k, g, layout),
+                  key=lambda c: (abs(math.log(tiles * c[0] / want)), c[0]))
+    return GemvPlan(s, mt, GEMV_TILE_N, span)
+
+
+def splitk_slices(k: int, g: int, layout: int):
+    """Every legal (K-slices, byte rows a slice) of the split-K kernel for
+    contraction width ``k`` with ``g`` scale groups (`gemv_plan`'s units):
+    up to `SPLITK_MAX_SPLITS` slices, none empty."""
+    rows = k // 2
+    unit = 1 if not g else (k // g) // 2 if layout == LAYOUT_I4 else k // g
+    units = rows // unit
+    out = []
+    for s in range(1, min(SPLITK_MAX_SPLITS, units) + 1):
+        per = -(-units // s)                      # units a slice
+        if (s - 1) * per < units:                 # no slice empty
+            out.append((s, per * unit))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch_gemv(fn_name, layout, x, values, scale, out_dtype, pre_norm,
-                 residual):
+                 residual, planned=False):
     dev = x.device
     if x.ndim != 2 or x.dtype != torch.bfloat16:
         raise ValueError(f"{fn_name}: x must be 2-D bf16, got "
@@ -490,20 +565,28 @@ def _launch_gemv(fn_name, layout, x, values, scale, out_dtype, pre_norm,
     out = torch.empty((m, n), dtype=out_dtype or torch.bfloat16, device=dev)
     if m == 0 or n == 0:
         return out
+    plan = ()
+    if planned:
+        if values.data_ptr() % 16:
+            raise ValueError(f"{fn_name}: values must be 16-byte aligned")
+        p = gemv_plan(m, k, n, g, layout, _sm_count(dev))
+        plan = (p.splits, p.mt, p.span)
     lib = _cuda.lib()
     err = getattr(lib, fn_name)(
         _cuda.ptr(x), _cuda.ptr(values), _cuda.ptr(scale), _cuda.ptr(norm_w),
         _cuda.ptr(residual), _cuda.ptr(out), m, k, n, values.shape[1], g,
-        float(eps), int(out.dtype == torch.float32), _cuda.stream_of(x))
+        float(eps), int(out.dtype == torch.float32), *plan,
+        _cuda.stream_of(x))
     _cuda.check(err, fn_name)
     return out
 
 
 def _gemv(wrapper, c_name, cls, x, values, scale, out_dtype, pre_norm=None,
-          residual=None, form=None):
+          residual=None, form=None, planned=False):
     """The body of every GEMV wrapper: validate ``values`` / ``scale`` as a
     container of type ``cls``, then the plain twin for a CPU tensor, else
-    one launch of the C entry point ``c_name``, counted on ``wrapper``."""
+    one launch of the C entry point ``c_name`` (given `gemv_plan`'s plan
+    when ``planned``), counted on ``wrapper``."""
     name = wrapper.__name__
     if (scale.ndim == 2) != (cls in GROUPED):
         raise ValueError(
@@ -515,7 +598,7 @@ def _gemv(wrapper, c_name, cls, x, values, scale, out_dtype, pre_norm=None,
         return matmul_plain(x, cls(values, scale), out_dtype=out_dtype,
                             pre_norm=pre_norm, residual=residual)
     out = _launch_gemv(c_name, LAYOUTS[cls], x, values, scale, out_dtype,
-                       pre_norm, residual)
+                       pre_norm, residual, planned)
     _cuda.count(wrapper, form)
     return out
 
@@ -525,14 +608,28 @@ def int4i_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
     """x (M, K) bf16 @ row-interleaved int4 (K/2, N_pad) * scale ((N,), or
     grouped (G, N)) [+ residual (M, N)] -> (M, N), with an optional RMSNorm
     prologue ``pre_norm=(weight, eps)``. CUDA kernel ``ua2_gemv_int4i``
-    (replaces `_pallas_int4i_matmul`, uniaudio2_tpu/ops/quant.py:948); the
-    plain twin for CPU tensors. ``.forms`` counts the launches of the
-    "int4i" (per-channel) and "int4ig" (grouped) forms."""
+    (replaces `_pallas_int4i_matmul`, uniaudio2_tpu/ops/quant.py:948): the
+    split-K or the tiled kernel as `gemv_plan` says, one launch; the plain
+    twin for CPU tensors. ``.forms`` counts the launches of the "int4i"
+    (per-channel) and "int4ig" (grouped) forms."""
     grouped = scale.ndim == 2
     return _gemv(int4i_matmul, "ua2_gemv_int4i",
                  QuantizedLinearI4G if grouped else QuantizedLinearI4, x,
                  values, scale, out_dtype, pre_norm, residual,
-                 form="int4ig" if grouped else "int4i")
+                 form="int4ig" if grouped else "int4i", planned=True)
+
+
+def int4i_matmul_tiled(x, values, scale, *, out_dtype=None, pre_norm=None,
+                       residual=None):
+    """`int4i_matmul` through the tiled kernel at any M
+    (``ua2_gemv_int4i_tiled``: the prefill's kernel, which `int4i_matmul`
+    launches above `SPLITK_MAX_M` rows), counted on its own. No serving
+    path calls it: it is the yardstick the split-K kernel is timed against
+    and the kernel row 11 is bit-checked against."""
+    grouped = scale.ndim == 2
+    return _gemv(int4i_matmul_tiled, "ua2_gemv_int4i_tiled",
+                 QuantizedLinearI4G if grouped else QuantizedLinearI4, x,
+                 values, scale, out_dtype, pre_norm, residual)
 
 
 def int8_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
@@ -561,9 +658,20 @@ def int4g_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
     """`int4_matmul` with a grouped scale (G, N): rows of the low nibbles
     take groups [0, G/2), rows of the high nibbles [G/2, G). CUDA kernel
     ``ua2_gemv_int4g`` (replaces `_pallas_int4g_matmul`,
-    uniaudio2_tpu/ops/quant.py:712); the plain twin for CPU tensors."""
+    uniaudio2_tpu/ops/quant.py:712): the split-K or the tiled kernel as
+    `gemv_plan` says, one launch; the plain twin for CPU tensors."""
     return _gemv(int4g_matmul, "ua2_gemv_int4g", QuantizedLinear4G, x, values,
-                 scale, out_dtype, pre_norm, residual)
+                 scale, out_dtype, pre_norm, residual, planned=True)
+
+
+def int4g_matmul_tiled(x, values, scale, *, out_dtype=None, pre_norm=None,
+                       residual=None):
+    """`int4g_matmul` through the tiled kernel at any M
+    (``ua2_gemv_int4g_tiled``), counted on its own; the yardstick, as
+    `int4i_matmul_tiled`."""
+    return _gemv(int4g_matmul_tiled, "ua2_gemv_int4g_tiled",
+                 QuantizedLinear4G, x, values, scale, out_dtype, pre_norm,
+                 residual)
 
 
 def int4c_matmul(x, values, scale, *, out_dtype=None):
@@ -585,7 +693,8 @@ def int4cg_matmul(x, values, scale, *, out_dtype=None):
 
 
 for _fn in (int4i_matmul, int8_matmul, int4_matmul, int4g_matmul,
-            int4c_matmul, int4cg_matmul):
+            int4c_matmul, int4cg_matmul, int4i_matmul_tiled,
+            int4g_matmul_tiled):
     _cuda.reset_count(_fn)
 
 _GEMV = {QuantizedLinear: int8_matmul, QuantizedLinearI4: int4i_matmul,

@@ -5,8 +5,9 @@ the production int8 kernel, a bf16 product and an int8 x int8 product),
 shape and the DiT's kernel, against the production einsum path and SDPA),
 `int4_native_probe` (row 1's GEMV with a conversion-free unpack) and
 `sweep_gemv_blocks` (row 5's K-split GEMV in twelve tile forms, at M = 1,
-8 and 16). Each prints the card's name and power limit beside its
-numbers."""
+8 and 16); and, with no TPU counterpart, `gemv_splitk_sweep` (rows 1 and
+6's split-K GEMV at every legal number of K-slices, against the host's
+plan). Each prints the card's name and power limit beside its numbers."""
 
 import statistics
 import subprocess
