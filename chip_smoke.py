@@ -9,11 +9,12 @@ caught):
 1. the card: CUDA with capability >= (9, 0); its name and power limit
    from ``nvidia-smi``;
 2. build every CUDA kernel from ``uniaudio2_tpu_torch/csrc`` with nvcc
-   (sm_90a) and print the build seconds;
+   (sm_90a) and print the build seconds, each kernel's registers and
+   spills, and a line for each of the four flash kernels;
 3. each kernel, in every weight form it has, against its plain PyTorch
    twin at the serving path's shapes (bf16 activations, M = 1, 2 — the CFG
    pair —, 63 — the prefill bucket 64 — and, for the GEMVs, 255 — bucket
-   256; rows 1 and 6 also at M = 8 and 16, the batched rows, where they run
+   256; rows 1, 5 and 6 also at M = 8 and 16, the batched rows, where they run
    the split-K kernel of the host's plan: at each of their decode shapes
    the plan, the time of the tiled instance and of
    ``torch._weight_int4pack_mm`` in the same run and the share of the byte
@@ -21,7 +22,9 @@ caught):
    (2, 24, 64) and the
    codec windows' T = 186, 374 and 750, plus T = 130 and B = 1 for the
    tails; its causal GQA form at the backbone prefill's (1, 24, 8, T, 128)
-   with T = 2048 and 1000; the split-K int8 GEMV at the GEMV probe's six
+   with T = 2048 and 1000, each with the host's plan (tile, stages,
+   blocks) and the shares of the operations bound that the kernel and
+   SDPA reach; the split-K int8 GEMV at the GEMV probe's six
    shapes), with the median CUDA-event time of each (L2 flushed before
    every launch, as the decode loop finds it), the bound on the card and,
    where one PyTorch call computes the same function, that call's time;
@@ -135,8 +138,9 @@ caught):
 
 Phase 3 also holds the fused lean-update kernel to its twin at full-width
 leaf shapes (bit-identical, bf16 g and p), and the stacked-layer int4
-GEMV (the layer index read on the card) to its twin and to the production
-K-split kernel's bits on every layer of a (28, 3072, 8192) stack.
+GEMV (the layer index read on the card) to its twin and to the bits of
+the production K-split kernel's tiled instance on every layer of a
+(28, 3072, 8192) stack.
 
 At the end the five probe scripts run (`uniaudio2_tpu_torch/probes/`: the
 split-K int8 GEMV against the production int8 kernel, a bf16 product and
@@ -171,6 +175,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -285,12 +290,24 @@ def phase_build():
            else "already built from these sources")
     print(f"[2] {Path(lib).name} ready in {time.perf_counter() - t0:.2f} s "
           f"({how})", flush=True)
-    kernel = ""
+    kernel, flash = "", {}
     for line in _cuda.build_info["log"].splitlines():
         if "Compiling entry function" in line:
-            kernel = line.split("'")[1][:72]
+            kernel = line.split("'")[1]
         elif "registers" in line or "spill" in line and " 0 bytes spill" not in line:
-            print(f"[2] {kernel}: {line.strip()}", flush=True)
+            print(f"[2] {kernel[:72]}: {line.strip()}", flush=True)
+        form = re.search(r"flash_attn_kernelILi(\d+)ELb(\d)ELi(\d)E", kernel)
+        if form:     # hd, causal, consumer warpgroups
+            got = re.search(r"Used (\d+) registers|(\d+) bytes spill stores", line)
+            if got:
+                key = "registers" if got.group(1) else "spill stores"
+                flash.setdefault(form.groups(), {})[key] = int(got.group(1) or got.group(2))
+    for (hd, causal, nc), got in sorted(flash.items()):
+        print(f"[2] flash_attn_kernel<HD {hd}, causal {causal}, {nc} consumer "
+              f"warpgroups>: {got.get('registers')} registers, "
+              f"{got.get('spill stores')} bytes of spill stores", flush=True)
+    if _cuda.build_info["log"] and len(flash) != 4:
+        fail(f"ptxas reported {len(flash)} of the 4 flash kernels")
 
 
 def nbytes(*tensors) -> int:
@@ -422,7 +439,7 @@ def phase_kernels(torch, dev):
               f"(tol {rtol:.3g} x max|twin{' row' if per_row else ''}|) "
               f"kernel {ms:.4f} ms twin "
               f"{plain_ms:.4f} ms{extra}", flush=True)
-        return lib_ms
+        return ms, lib_ms
 
     # the fused QKV step, every mode; row: the backbone's at M = 1
     for form in ("int4i", "int8", "int4", "int4g", "int4ig"):
@@ -445,7 +462,7 @@ def phase_kernels(torch, dev):
 
     def splitk_case(form, label, k, n, m, w, x, kw, case, fn, fn_tiled,
                     lib_ms, rtol):
-        """Rows 1 / 6 at a decode M: the tiled instance held to the twin
+        """Rows 1, 5 and 6 at a decode M: the tiled instance held to the twin
         and timed beside the split-K kernel and the library's GEMV (split-K,
         tiled, tiled, split-K: the lesser median of each pair, against a
         moment of noise in one), the plan and the share of the byte
@@ -476,14 +493,15 @@ def phase_kernels(torch, dev):
     splitk_times = {}
     # the GEMVs over K-axis-packed weights; row: the projection at M = 1,
     # a plain product, which the library computes too. M = 255 is the
-    # prefill of a bucket-256 prompt, bound by operations. Rows 1 and 6
-    # (int4i, int4ig, int4g) run the split-K kernel up to
+    # prefill of a bucket-256 prompt, bound by operations. Rows 1, 5 and 6
+    # (int4i, int4ig, int4, int4g) run the split-K kernel up to
     # quant.SPLITK_MAX_M rows: at those M each shape is also timed through
     # the tiled instance and the library call (the GEMV alone: no norm,
     # residual or f32 cast), and the plan printed.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tiled = {"int4i": quant.int4i_matmul_tiled,
              "int4ig": quant.int4i_matmul_tiled,
+             "int4": quant.int4_matmul_tiled,
              "int4g": quant.int4g_matmul_tiled}
     for form in ("int4i", "int4ig", "int4", "int4g", "int8"):
         fn = {"int4i": quant.int4i_matmul, "int4ig": quant.int4i_matmul,
@@ -514,7 +532,7 @@ def phase_kernels(torch, dev):
                     def library():
                         return torch._weight_int4pack_mm(x, wp, group, sz)
                 grouped = form.endswith("g") and not res
-                lib_ms = check(GEMV_ROWS[form], f"{label} {k}->{n} M={m}",
+                _, lib_ms = check(GEMV_ROWS[form], f"{label} {k}->{n} M={m}",
                                lambda: fn(x, w.values, w.scale, **kw),
                                lambda: quant.matmul_plain(x, w, **kw), case,
                                library, row=row,
@@ -594,16 +612,33 @@ def phase_kernels(torch, dev):
                                               out_dtype=torch.float32),
               ref_case, library, row=ref_case is not None)
     del w, w_lib
+
+    def flash_plan_line(shape, case, ms, lib_ms):
+        """The host's plan of a flash call and the shares of its bound that
+        the kernel and SDPA reach."""
+        plan = flash_attention.flash_plan(*shape)
+        bk, stages, smem = flash_attention.flash_layout(shape[-1], plan.bq)
+        bound_ms, by = bound(*case)
+        print(f"[3] flash plan (B, H, G, T, hd) = {shape}: tile {plan.bq} rows "
+              f"({plan.bq // 64} consumer warpgroups + a producer warp), "
+              f"{bk}-key stages x {stages}, {plan.blocks} blocks on "
+              f"{sms} SMs, {smem} B shared; kernel {ms:.4f} ms = "
+              f"{bound_ms / ms:.1%} of the {by} bound, SDPA {lib_ms:.4f} ms = "
+              f"{bound_ms / lib_ms:.1%} (kernel / SDPA x{ms / lib_ms:.2f})",
+              flush=True)
+
     for b, t in ((2, 186), (2, 374), (2, 750), (2, 130), (1, 130)):
         h, hd = 24, 64
         q, k, v = (bf16(b, h, t, hd) for _ in range(3))
         scale = hd ** -0.5
-        check("flash_attention", f"(B, H, T, hd) = ({b}, {h}, {t}, {hd})",
-              lambda: flash_attention.flash_attention(q, k, v, scale),
-              lambda: flash_attention.attention_plain(q, k, v, scale),
-              (nbytes(q, k, v) * 4 // 3, 4 * b * h * t * t * hd),   # + o
-              lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
-              row=(b, t) == (2, 750), per_row=True)  # the 30 s window
+        case = (nbytes(q, k, v) * 4 // 3, 4 * b * h * t * t * hd)   # + o
+        ms, lib_ms = check(
+            "flash_attention", f"(B, H, T, hd) = ({b}, {h}, {t}, {hd})",
+            lambda: flash_attention.flash_attention(q, k, v, scale),
+            lambda: flash_attention.attention_plain(q, k, v, scale), case,
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+            row=(b, t) == (2, 750), per_row=True)  # the 30 s window
+        flash_plan_line((b, h, h, t, hd), case, ms, lib_ms)
         print(f"[3] flash_attention T={t}: SDPA ran {sdpa_backend(torch, q, k, v)}",
               flush=True)
     # the causal GQA form: the backbone's prefill probe at T = 2048 (the row)
@@ -615,13 +650,15 @@ def phase_kernels(torch, dev):
         b, h, g, hd = 1, 24, 8, 128
         q, k, v = bf16(b, h, t, hd), bf16(b, g, t, hd), bf16(b, g, t, hd)
         scale = hd ** -0.5
-        check("flash_attention:causal", f"(B, H, G, T, hd) = ({b}, {h}, {g}, {t}, {hd})",
-              lambda: flash_attention.flash_attention(q, k, v, scale, causal=True),
-              lambda: flash_attention.attention_plain(q, k, v, scale, causal=True),
-              (nbytes(q, k, v) + nbytes(q), 2 * b * h * t * t * hd),
-              lambda: torch.nn.functional.scaled_dot_product_attention(
-                  q, k, v, is_causal=True, enable_gqa=True),
-              row=t == 2048, per_row=True)
+        case = (nbytes(q, k, v) + nbytes(q), 2 * b * h * t * t * hd)
+        ms, lib_ms = check(
+            "flash_attention:causal", f"(B, H, G, T, hd) = ({b}, {h}, {g}, {t}, {hd})",
+            lambda: flash_attention.flash_attention(q, k, v, scale, causal=True),
+            lambda: flash_attention.attention_plain(q, k, v, scale, causal=True),
+            case, lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True),
+            row=t == 2048, per_row=True)
+        flash_plan_line((b, h, g, t, hd), case, ms, lib_ms)
     # the split-K int8 GEMV at the GEMV probe's six shapes; row: (3072, 8192).
     # Kernel and twin add exact products in f32 in another order: one bf16
     # ulp. The library call takes bf16 scales.
@@ -710,13 +747,14 @@ def phase_kernels(torch, dev):
     x = bf16(1, k)
     same = [torch.equal(int4_stacked.int4_stacked_matmul(x, stacked,
                                                          index[l:l + 1]),
-                        quant.int4_matmul(x, w.values, w.scale))
+                        quant.int4_matmul_tiled(x, w.values, w.scale))
             for l, w in enumerate(layers)]
     print(f"[3] int4_stacked_gemv (L, K, N) = ({n_layers}, {k}, {n}) M=1: "
-          f"the production int4_matmul's bits on every layer's slice: "
+          f"the bits of gemv_int4.cu's tiled instance on every layer's slice: "
           f"{all(same)} ({sum(same)} of {n_layers})", flush=True)
     if not all(same):
-        fail("int4_stacked_gemv does not give gemv_int4.cu's bits")
+        fail("int4_stacked_gemv does not give the bits of gemv_int4.cu's "
+             "tiled instance")
     last = n_layers - 1
     wp, group, sz = int4_tinygemm(layers[last])
     check("int4_stacked_gemv",
@@ -2049,7 +2087,7 @@ GRAPH_FAULT_FRAMES = 16
 # prompt, so one program serves both and the second needs new levels.
 SAMPLED_FRAMES = 200
 # The kernels a counted wrapper launches, by the traced name's base: a
-# GEMV wrapper one `gemv_kernel` (rows 1 and 6 up to quant.SPLITK_MAX_M
+# GEMV wrapper one `gemv_kernel` (rows 1, 5 and 6 up to quant.SPLITK_MAX_M
 # rows one `gemv_splitk_kernel` instead), `qkv_rope_step` one
 # `qkv_rope_kernel`, `fused_swiglu` one `swiglu_up_kernel` and the down
 # projection's `gemv_kernel`.
@@ -2159,7 +2197,7 @@ def counted_families(counted, rows):
     want = dict.fromkeys(TRACED_FAMILIES, 0)
     gemvs = {fn for fn, _ in counters().values()} - {
         fused_mlp.fused_swiglu, qkv_step.qkv_rope_step}
-    splitk = {quant.int4i_matmul, quant.int4g_matmul}
+    splitk = {quant.int4i_matmul, quant.int4_matmul, quant.int4g_matmul}
     for fn, (launches, _) in counted.items():
         if fn is qkv_step.qkv_rope_step:
             want["qkv_rope_kernel"] += launches
@@ -2393,7 +2431,8 @@ def phase_estimator(torch, dev, cfg, dec):
         return kernel(q, k, v, scale * scale)
 
     def mask_dropped(q, k, v, scale):
-        pad = -q.shape[2] % 64            # the last tile's zero keys join in
+        hd = q.shape[3]                   # the last stage's zero keys join in
+        pad = -q.shape[2] % fa.flash_layout(hd, fa.flash_plan(1, 1, 1, 1, hd).bq)[0]
         padded = [torch.nn.functional.pad(z, (0, 0, 0, pad)) for z in (q, k, v)]
         return kernel(*padded, scale)[:, :, :q.shape[2]]
 
@@ -2935,7 +2974,7 @@ def phase_probes(torch):
           f"{len(scan)} scan-slice forms; launches {json.dumps(launches)}",
           flush=True)
     if not all(line["bit_identical_to_int4i_tiled"] for line in native) or not all(
-            line["form0_bit_identical_to_int4"] for line in sweep):
+            line["form0_bit_identical_to_int4_tiled"] for line in sweep):
         fail("an int4 probe kernel left the production kernel's order")
     if not all(launches.values()):
         fail(f"a probe kernel was never launched: {launches}")

@@ -1,6 +1,7 @@
-"""The split-K int4 GEMV of rows 1 and 6 (`csrc/gemv_int4_splitk.cuh`): its
+"""The split-K int4 GEMV of rows 1, 5 and 6 (`csrc/gemv_int4_splitk.cuh`): its
 host plan (`quant.gemv_plan`) and, on the CPU, a plain emulation of the
-plan's fixed-order split sum.
+plan's fixed-order split sum, in the four row-packed forms (interleaved
+per channel and grouped, K-split per channel and grouped).
 
 The plan is a function of the shape and the SM count only. It must be
 legal for every weight `check_weight` admits: 1-8 K-slices that cover the
@@ -13,10 +14,12 @@ The emulation adds, slice by slice in rank order, the f32 products of the
 slice's activations (RMS-normalised and rounded to bf16) with the levels
 (per channel: unscaled, the scale on the f32 sum; grouped: level x scale
 rounded to bf16) and then the residual. It is held
- * to JAX's `_pallas_int4i_matmul` / `_pallas_int4g_matmul` in interpret
+ * to JAX's `_pallas_int4i_matmul` / `_pallas_int4_matmul` /
+   `_pallas_int4g_matmul` in interpret
    mode with f32 output: the same arithmetic in another order of f32 sums,
    within 1e-5 x max|ref|;
- * to the port's plain twins (`int4i_matmul_plain` / `int4g_matmul_plain`,
+ * to the port's plain twins (`int4i_matmul_plain` / `int4_matmul_plain` /
+   `int4g_matmul_plain`,
    the XLA fallback's rounding, bf16 output): within 2e-2 x max|twin| per
    channel (the twin rounds scale x level to bf16 and the product before
    the residual), one bf16 ulp, 2^-7 x max|twin|, grouped without a
@@ -38,9 +41,14 @@ from uniaudio2_tpu_torch.probes import gemv_splitk_sweep
 
 SMS = 132                                  # an H100 SXM
 I4, K4 = quant.LAYOUT_I4, quant.LAYOUT_K4
-# (K, N) of the model's decode GEMVs of rows 1 and 6
+# (K, N) of the model's decode GEMVs of rows 1, 5 and 6
 DECODE = ((3072, 3072), (2048, 2048), (2048, 12300), (3072, 2048))
-FORMS = {"int4i": (I4, False), "int4ig": (I4, True), "int4g": (K4, True)}
+FORMS = {"int4i": (I4, False), "int4ig": (I4, True), "int4": (K4, False),
+         "int4g": (K4, True)}
+JAX_FNS = {"int4i": jq._pallas_int4i_matmul, "int4ig": jq._pallas_int4i_matmul,
+           "int4": jq._pallas_int4_matmul, "int4g": jq._pallas_int4g_matmul}
+TWINS = {"int4i": quant.int4i_matmul_plain, "int4ig": quant.int4i_matmul_plain,
+         "int4": quant.int4_matmul_plain, "int4g": quant.int4g_matmul_plain}
 
 
 def _legal(plan, m, k, n, g, layout):
@@ -157,6 +165,8 @@ def _inputs(form, k, n, m, group, seed):
     layout, grouped = FORMS[form]
     if form == "int4g":
         c = quant.quantize4_grouped(w, group)
+    elif form == "int4":
+        c = quant.quantize4(w)
     else:
         c = quant.to_interleaved(quant.quantize4_grouped(w, group) if grouped
                                  else quant.quantize4(w))
@@ -188,7 +198,7 @@ def test_split_sum_matches_jax_and_the_twin(form, k, n, m, group, folds):
     residual = res if folds == "norm+res" else None
     emu = _emulate(x, c, plan, pre_norm, residual)
 
-    jfn = jq._pallas_int4g_matmul if form == "int4g" else jq._pallas_int4i_matmul
+    jfn = JAX_FNS[form]
     kw = dict(out_dtype=jnp.float32)
     if pre_norm is not None:
         kw["pre_norm"] = (_jax(nw), 1e-5)
@@ -199,9 +209,8 @@ def test_split_sum_matches_jax_and_the_twin(form, k, n, m, group, folds):
     np.testing.assert_allclose(emu.numpy(), ref, rtol=0,
                                atol=1e-5 * np.abs(ref).max())
 
-    twin = (quant.int4g_matmul_plain if form == "int4g"
-            else quant.int4i_matmul_plain)(x, c.values, c.scale,
-                                           pre_norm=pre_norm, residual=residual)
+    twin = TWINS[form](x, c.values, c.scale, pre_norm=pre_norm,
+                       residual=residual)
     tol = (2.0 ** -7 if grouped and residual is None else 2e-2) * \
         twin.float().abs().max().item()
     assert (emu.to(torch.bfloat16).float() - twin.float()).abs().max().item() <= tol

@@ -30,14 +30,14 @@ another order than their twins and round once: one bf16 ulp
 (RTOL_GROUPED). With the production template's tiles they sum in its
 order, so the native kernel gives the tiled instance of `gemv_int4i.cu`
 its bits (`int4i_matmul_tiled`; at decode `int4i_matmul` launches the
-split-K kernel, which sums in another order) and sweep form 0
-`gemv_int4.cu`'s.
-Rows 1 and 6 at decode (M <= 16) run the split-K cluster kernel with the
+split-K kernel, which sums in another order) and sweep form 0 the tiled
+instance of `gemv_int4.cu` (`int4_matmul_tiled`) its bits.
+Rows 1, 5 and 6 at decode (M <= 16) run the split-K cluster kernel with the
 host's plan (`quant.gemv_plan`): held to their twins with the bounds
 above at the decode shapes and at the prefill's M (the tiled kernel),
 bit-identical from launch to launch, one kernel node in a captured graph. Row 14's stacked-layer kernel, with the layer index read
-on the device, is held to its twin within one bf16 ulp and to
-`gemv_int4.cu`'s bits on every layer's slice.
+on the device, is held to its twin within one bf16 ulp and to the bits
+of `gemv_int4.cu`'s tiled instance on every layer's slice.
 The lean-update kernel rounds every operation as its twin does, so the two
 must agree to the bit. `quant.matmul`'s bf16 tensor-core product (the
 training forward's) is held to its float32 form: both sum in float32 in
@@ -297,9 +297,36 @@ def test_flash_attention(dev, b, h, t, hd):
     q, k, v = (_bf16(g, dev, b, h, t, hd) for _ in range(3))
     before = flash_attention.flash_attention.launches
     out = flash_attention.flash_attention(q, k, v, hd ** -0.5)
+    again = flash_attention.flash_attention(q, k, v, hd ** -0.5)
     torch.cuda.synchronize()
-    assert flash_attention.flash_attention.launches == before + 1
+    assert flash_attention.flash_attention.launches == before + 2
+    assert torch.equal(out, again)                  # no atomics: the same bits
     _close_rows(out, flash_attention.attention_plain(q, k, v, hd ** -0.5))
+
+
+@pytest.mark.parametrize("t", [1, 63, 127, 128, 129, 255, 257])
+@pytest.mark.parametrize("b,h,g_", [(2, 3, 3), (1, 4, 2)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_every_instantiation(dev, hd, causal, b, h, g_, t):
+    """Each of the four kernels (hd 64 with 64-row query tiles, hd 128 with
+    128-row tiles; causal or not), with K/V groups equal to the heads and
+    fewer, at T = 1, around the 128-key stage (BK +- 1) and around two
+    query tiles (2 BQ +- 1): rows within 2e-2 x their max|twin|, two
+    launches the same bits; the layout the kernel reports fits the 227 KB
+    a block may take."""
+    bq = flash_attention.flash_plan(b, h, g_, t, hd).bq
+    bk, stages, smem = flash_attention.flash_layout(hd, bq)
+    assert (bq, bk) == (hd, 128) and stages >= 2 and smem <= 232_448
+    g = _gen(dev, 8)
+    q = _bf16(g, dev, b, h, t, hd)
+    k, v = (_bf16(g, dev, b, g_, t, hd) for _ in range(2))
+    out = flash_attention.flash_attention(q, k, v, hd ** -0.5, causal=causal)
+    again = flash_attention.flash_attention(q, k, v, hd ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    _close_rows(out, flash_attention.attention_plain(q, k, v, hd ** -0.5,
+                                                     causal=causal))
 
 
 @pytest.mark.parametrize("b,h,g_,t,hd", [(1, 24, 8, 2048, 128), (1, 24, 8, 1000, 128),
@@ -307,15 +334,18 @@ def test_flash_attention(dev, b, h, t, hd):
                                           (1, 8, 8, 64, 64), (1, 2, 1, 1, 128)])
 def test_flash_attention_causal_gqa(dev, b, h, g_, t, hd):
     """The causal form with K/V heads mapped in place (h -> h / (H / G)),
-    T not a multiple of the 64-key tile included."""
+    T not a multiple of the 128-key stage included; two launches the same
+    bits."""
     g = _gen(dev, 6)
     q = _bf16(g, dev, b, h, t, hd)
     k, v = (_bf16(g, dev, b, g_, t, hd) for _ in range(2))
     before = dict(flash_attention.flash_attention.forms)
     out = flash_attention.flash_attention(q, k, v, hd ** -0.5, causal=True)
+    again = flash_attention.flash_attention(q, k, v, hd ** -0.5, causal=True)
     torch.cuda.synchronize()
     assert flash_attention.flash_attention.forms["causal"] == \
-        before.get("causal", 0) + 1
+        before.get("causal", 0) + 2
+    assert torch.equal(out, again)
     _close_rows(out, flash_attention.attention_plain(q, k, v, hd ** -0.5,
                                                      causal=True))
 
@@ -365,8 +395,8 @@ def test_int4_native_gemv(dev, k, n, m):
 
 
 SPLITK_FORMS = {"int4i": quant.int4i_matmul, "int4ig": quant.int4i_matmul,
-                "int4g": quant.int4g_matmul}
-# the decode shapes of rows 1 and 6: (K, N, residual, f32 out)
+                "int4": quant.int4_matmul, "int4g": quant.int4g_matmul}
+# the decode shapes of rows 1, 5 and 6: (K, N, residual, f32 out)
 SPLITK_SHAPES = {"attn_proj": (3072, 3072, True, False),
                  "decoder attn_proj": (2048, 2048, True, False),
                  "audio_head": (2048, 12300, False, True),
@@ -377,7 +407,7 @@ SPLITK_SHAPES = {"attn_proj": (3072, 3072, True, False),
 @pytest.mark.parametrize("shape", list(SPLITK_SHAPES))
 @pytest.mark.parametrize("form", list(SPLITK_FORMS))
 def test_int4_decode_gemv(dev, form, shape, m):
-    """Rows 1 (per-channel and grouped) and 6 at their decode shapes (the
+    """Rows 1 (per-channel and grouped), 5 and 6 at their decode shapes (the
     split-K kernel, M <= 16) and the prefill's M (the tiled kernel), as the
     path calls them and with the other folds (norm, residual, f32 out):
     within the twin's bound, one counted launch a call, the same bits from
@@ -439,7 +469,9 @@ def test_int4_sweep_form_table(dev):
 def test_int4_sweep_gemv(dev, form, m):
     """Row 13's kernel in every form at the backbone's qkv and the audio
     head (N = 12300, a partial last tile): its twin within one bf16 ulp;
-    form 0 `gemv_int4.cu` to the bit."""
+    form 0 the tiled instance of `gemv_int4.cu` to the bit (at M <= 16
+    `int4_matmul` launches the split-K kernel, which sums in another
+    order)."""
     g = _gen(dev, form + m)
     for k, n in ((3072, 5120), (2048, 12300)):
         w = quant.quantize4(torch.randn((k, n), generator=g, device=dev) * 0.02)
@@ -452,7 +484,8 @@ def test_int4_sweep_gemv(dev, form, m):
         _close(out, int4_sweep.int4_sweep_matmul_plain(x, w.values, w.scale),
                rtol=RTOL_GROUPED)
         if form == int4_sweep.PRODUCTION:
-            assert torch.equal(out, quant.int4_matmul(x, w.values, w.scale))
+            assert torch.equal(out, quant.int4_matmul_tiled(x, w.values,
+                                                            w.scale))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -571,8 +604,8 @@ def test_wrappers_raise_on_unsupported_input(dev):
                                         (2, 2048, 12300)])
 def test_int4_stacked_gemv(dev, layers, k, n, m):
     """Row 14 on every layer of a stack: within one bf16 ulp of its twin and
-    the bits of `gemv_int4.cu` on the layer's slice; an index past the
-    stack gives NaN, not another layer."""
+    the bits of `gemv_int4.cu`'s tiled instance on the layer's slice; an
+    index past the stack gives NaN, not another layer."""
     gen = _gen(dev, layers + k + m)
     ws = [quant.quantize4(torch.randn((k, n), generator=gen, device=dev) * 0.02)
           for _ in range(layers)]
@@ -583,7 +616,7 @@ def test_int4_stacked_gemv(dev, layers, k, n, m):
     for l in range(layers):
         out = int4_stacked.int4_stacked_matmul(x, st, index[l:l + 1])
         ref = int4_stacked.int4_stacked_matmul_plain(x, st, l)
-        prod = quant.int4_matmul(x, ws[l].values, ws[l].scale)
+        prod = quant.int4_matmul_tiled(x, ws[l].values, ws[l].scale)
         torch.cuda.synchronize()
         _close(out, ref, RTOL_GROUPED)
         assert torch.equal(out, prod)

@@ -1,6 +1,6 @@
 // Split-K int4 GEMV for the decode rows of the row-interleaved (I4) and
 // K-split (K4) layouts, for sm_90a, on the tensor cores. Included by
-// gemv_int4i.cu and gemv_int4g.cu only.
+// gemv_int4i.cu, gemv_int4g.cu and gemv_int4.cu only.
 //
 //   out (M, N) = [rmsnorm(x)] (M, K) @ unpack(W) (K, N) * scale [+ res]
 //

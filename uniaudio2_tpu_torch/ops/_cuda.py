@@ -44,7 +44,8 @@ _SIGNATURES = {
     "ua2_gemv_int4i": _GEMV_PLAN,
     "ua2_gemv_int4i_tiled": _GEMV,
     "ua2_gemv_int8": _GEMV,
-    "ua2_gemv_int4": _GEMV,
+    "ua2_gemv_int4": _GEMV_PLAN,
+    "ua2_gemv_int4_tiled": _GEMV,
     "ua2_gemv_int4g": _GEMV_PLAN,
     "ua2_gemv_int4g_tiled": _GEMV,
     "ua2_gemv_int4c": _GEMV,
@@ -57,8 +58,11 @@ _SIGNATURES = {
     # ldw3, layout12, G12, layout3, G3, eps, stream
     "ua2_fused_swiglu": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # q, k, v, o, B, H, G, T, hd, scale, causal, stream
-    "ua2_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, o, B, H, G, T, hd, scale, causal, bq (query rows a block,
+    # `flash_attention.flash_plan`), stream
+    "ua2_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # hd, bq, int[3] out: keys a stage, stages, dynamic shared bytes
+    "ua2_flash_layout": [_I, _I, _P],
     # g, m_q, m_scale, p, a, b, upd, new_m_q, new_m_scale, rows,
     # rows_per_lead, cols, is_bf16, b1, 1 - b1, wd, eps, inv_mc, -lr, stream
     "ua2_lean_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,

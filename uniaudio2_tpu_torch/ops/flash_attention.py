@@ -1,9 +1,10 @@
 """Softmax attention: non-causal for the codec DiT, causal with grouped K/V
 heads for the backbone's prefill probe.
 
-CUDA kernel ``ua2_flash_attn`` (``csrc/flash_attn.cu``) replaces
-`_flash_attention` (uniaudio2_tpu/codec/dit.py:174-193), the JAX package's
-call of JAX's Pallas TPU ``flash_attention``, and `bb_flash`
+CUDA kernel ``ua2_flash_attn`` (``csrc/flash_attn.cu``: wgmma products,
+K/V through a TMA ring, the launch planned on the host by `flash_plan`)
+replaces `_flash_attention` (uniaudio2_tpu/codec/dit.py:174-193), the JAX
+package's call of JAX's Pallas TPU ``flash_attention``, and `bb_flash`
 (scripts/profile_attention.py:102-108), the same bundled kernel with
 ``causal=True`` over K/V repeated from G groups to H heads. It computes the
 same function at every T: keys past T are masked inside the kernel, so
@@ -26,12 +27,49 @@ engine's prefill runs that XLA einsum, not a Pallas kernel.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
 from uniaudio2_tpu_torch.ops import _cuda
 from uniaudio2_tpu_torch.ops.quant import check_operand
 
 HEAD_DIMS = (64, 128)   # the kernel's instantiations
+
+
+class FlashPlan(NamedTuple):
+    """How one `flash_attention` call is launched: ``bq`` query rows a
+    block, ``tiles`` query tiles a (batch, head), ``blocks`` in the grid."""
+
+    bq: int
+    tiles: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def flash_plan(b: int, h: int, g: int, t: int, hd: int) -> FlashPlan:
+    """The launch of one call: a block of one 64-row consumer warpgroup at
+    hd 64 (small enough that two or three blocks share an SM), two sharing
+    each staged K/V tile at hd 128. ``g`` (K/V groups) does not change the
+    grid: the heads of a group read its K/V in place. The kernel's stages
+    and shared memory are its own (`ua2_flash_layout`)."""
+    if hd not in HEAD_DIMS or t < 1 or g <= 0 or h % g:
+        raise ValueError(f"flash_plan: no launch for H = {h}, G = {g}, "
+                         f"T = {t}, hd = {hd}")
+    bq = hd
+    tiles = -(-t // bq)
+    return FlashPlan(bq, tiles, b * h * tiles)
+
+
+def flash_layout(hd: int, bq: int) -> tuple[int, int, int]:
+    """The built kernel's (keys a K/V stage, stages in the ring, bytes of
+    dynamic shared memory a block) for ``bq`` query rows at head dim
+    ``hd``."""
+    out = (ctypes.c_int * 3)()
+    _cuda.check(_cuda.lib().ua2_flash_layout(hd, bq, out), "ua2_flash_layout")
+    return tuple(out)
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -70,9 +108,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     if t == 0:
         return o
+    plan = flash_plan(b, h, g, t, hd)
     err = _cuda.lib().ua2_flash_attn(
         _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(o), b, h, g, t, hd,
-        float(scale), int(causal), _cuda.stream_of(q))
+        float(scale), int(causal), plan.bq, _cuda.stream_of(q))
     _cuda.check(err, "ua2_flash_attn")
     _cuda.count(flash_attention, "causal" if causal else None)
     return o

@@ -18,9 +18,10 @@ the host neither reads the index nor slices the stack, so one captured
 launch with an index the device advances can walk every layer.
 
 Bound: the layer's weight bytes, 12.6 MB at (K, N) = (3072, 8192), 3.8 us
-at 3.35 TB/s. The design reuses row 5's K-split GEMV (`gemv_int4.cu`,
-64-column tiles, eight weight rows in flight a warp, f32 sums added in a
-fixed order) and gives its bits on every layer's slice; its one addition,
+at 3.35 TB/s. The design reuses the tiled instance of row 5's K-split
+GEMV (`gemv_int4.cu`, `quant.int4_matmul_tiled`: 64-column tiles, eight
+weight rows in flight a warp, f32 sums added in a fixed order) and gives
+its bits on every layer's slice; its one addition,
 the index load, is one dependent read before the weight stream.
 
 The plain twin is the JAX body's arithmetic: exact f32 products of bf16

@@ -7,8 +7,8 @@ the tile width and unpack width of row 5's K-split GEMV: ``(x[:, :K/2] @
 lo + x[:, K/2:] @ hi) * scale`` over (K/2, ldw) bytes, byte [r, c] = row r
 (low nibble) and row r + K/2 (high nibble). On the H100 a form is (byte
 columns a lane loads, weight rows in flight, activation rows a block
-reuses, unpack): `FORMS`, in the C table's order. Form 0 is `gemv_int4.cu`'s
-own and gives its bits.
+reuses, unpack): `FORMS`, in the C table's order. Form 0 is the tiled
+instance of `gemv_int4.cu` (`quant.int4_matmul_tiled`) and gives its bits.
 
 The plain twin is the Pallas kernel's arithmetic in interpret mode: two
 f32 products over the K halves, added, the scale, one rounding to bf16.

@@ -18,7 +18,8 @@ Six kernels of the JAX package live here, as CUDA C++ for ``sm_90a``
   per-channel or grouped scales; at decode the split-K cluster kernel of
   ``csrc/gemv_int4_splitk.cuh``, planned by `gemv_plan`);
 * `int8_matmul` replaces `_pallas_int8_matmul` (per-channel int8);
-* `int4_matmul` replaces `_pallas_int4_matmul` (K-split int4);
+* `int4_matmul` replaces `_pallas_int4_matmul` (K-split int4; at decode
+  the split-K cluster kernel too);
 * `int4g_matmul` replaces `_pallas_int4g_matmul` (K-split, grouped; at
   decode the split-K cluster kernel too);
 * `int4c_matmul` replaces `_pallas_int4c_matmul` (column-packed int4);
@@ -475,7 +476,7 @@ def check_weight(name, layout, values, scale, k, device) -> Tuple[int, int]:
     return n, g
 
 
-# The split-K int4 GEMV (csrc/gemv_int4_splitk.cuh) of rows 1 and 6 at
+# The split-K int4 GEMV (csrc/gemv_int4_splitk.cuh) of rows 1, 5 and 6 at
 # decode: up to SPLITK_MAX_M activation rows (one tile of the tensor cores'
 # 16 rows), at most SPLITK_MAX_SPLITS K-slices a cluster, GEMV_TILE_N
 # columns a block; SPLITK_BLOCKS_PER_SM blocks an SM is the grid it aims
@@ -647,10 +648,21 @@ def int4_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
     """x (M, K) bf16 @ K-split int4 (K/2, N_pad) * scale (N,) [+ residual]
     -> (M, N), optional RMSNorm prologue: byte [r, n] holds row r (low
     nibble) and row r + K/2 (high). CUDA kernel ``ua2_gemv_int4`` (replaces
-    `_pallas_int4_matmul`, uniaudio2_tpu/ops/quant.py:597); the plain twin
-    for CPU tensors."""
+    `_pallas_int4_matmul`, uniaudio2_tpu/ops/quant.py:597): the split-K or
+    the tiled kernel as `gemv_plan` says, one launch; the plain twin for
+    CPU tensors."""
     return _gemv(int4_matmul, "ua2_gemv_int4", QuantizedLinear4, x, values,
-                 scale, out_dtype, pre_norm, residual)
+                 scale, out_dtype, pre_norm, residual, planned=True)
+
+
+def int4_matmul_tiled(x, values, scale, *, out_dtype=None, pre_norm=None,
+                      residual=None):
+    """`int4_matmul` through the tiled kernel at any M
+    (``ua2_gemv_int4_tiled``), counted on its own; the yardstick, as
+    `int4i_matmul_tiled`, and the kernel whose bits rows 13 (form 0) and
+    14 give."""
+    return _gemv(int4_matmul_tiled, "ua2_gemv_int4_tiled", QuantizedLinear4,
+                 x, values, scale, out_dtype, pre_norm, residual)
 
 
 def int4g_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
@@ -694,7 +706,7 @@ def int4cg_matmul(x, values, scale, *, out_dtype=None):
 
 for _fn in (int4i_matmul, int8_matmul, int4_matmul, int4g_matmul,
             int4c_matmul, int4cg_matmul, int4i_matmul_tiled,
-            int4g_matmul_tiled):
+            int4g_matmul_tiled, int4_matmul_tiled):
     _cuda.reset_count(_fn)
 
 _GEMV = {QuantizedLinear: int8_matmul, QuantizedLinearI4: int4i_matmul,

@@ -1,11 +1,11 @@
-"""Rows 1 and 6's split-K int4 GEMV (`csrc/gemv_int4_splitk.cuh`) at every
+"""Rows 1, 5 and 6's split-K int4 GEMV (`csrc/gemv_int4_splitk.cuh`) at every
 legal number of K-slices, on the H100: the sweep behind
 `quant.gemv_plan`'s `SPLITK_BLOCKS_PER_SM`.
 
     python -m uniaudio2_tpu_torch.probes.gemv_splitk_sweep
 
 For each form (row-interleaved int4 per channel and grouped, K-split int4
-grouped, groups of 128 rows), each decode shape of the serving path
+per channel and grouped, groups of 128 rows), each decode shape of the serving path
 (`CASES`) and M = 1, 2, 8 and 16 (a row, the CFG pair, batched rows): the
 median time of one launch, L2 flushed before each, at every legal slice
 count (`quant.splitk_slices`), beside the slice count the plan picks. One
@@ -22,13 +22,15 @@ import torch
 
 from uniaudio2_tpu_torch.ops import _cuda, quant
 
-# (label, K, N, residual, f32 out) of the decode GEMVs of rows 1 and 6
+# (label, K, N, residual, f32 out) of the decode GEMVs of rows 1, 5 and 6
 CASES = (("attn_proj", 3072, 3072, True, False),
          ("decoder attn_proj", 2048, 2048, True, False),
          ("audio_head", 2048, 12300, False, True),
          ("projection", 3072, 2048, False, False))
 ROWS = (1, 2, 8, 16)
-FORMS = ("int4i", "int4ig", "int4g")
+FORMS = ("int4i", "int4ig", "int4", "int4g")
+ENTRY = {"int4i": "ua2_gemv_int4i", "int4ig": "ua2_gemv_int4i",
+         "int4": "ua2_gemv_int4", "int4g": "ua2_gemv_int4g"}
 
 
 def weight(form, k, n, gen, dev):
@@ -36,17 +38,18 @@ def weight(form, k, n, gen, dev):
     w = torch.randn((k, n), generator=gen, device=dev) * 0.02
     if form == "int4g":
         return quant.quantize4_grouped(w)
+    if form == "int4":
+        return quant.quantize4(w)
     return quant.to_interleaved(quant.quantize4_grouped(w) if form == "int4ig"
                                 else quant.quantize4(w))
 
 
-def launch(w, x, splits, span, residual=None, out_dtype=None):
-    """One launch of the split-K kernel with the given plan."""
+def launch(form, w, x, splits, span, residual=None, out_dtype=None):
+    """One launch of the split-K kernel of ``form`` with the given plan."""
     m, k = x.shape
     n = w.scale.shape[-1]
     g = w.scale.shape[0] if w.scale.ndim == 2 else 0
-    name = ("ua2_gemv_int4g" if quant.LAYOUTS[type(w)] == quant.LAYOUT_K4
-            else "ua2_gemv_int4i")
+    name = ENTRY[form]
     out = torch.empty((m, n), dtype=out_dtype or torch.bfloat16,
                       device=x.device)
     err = getattr(_cuda.lib(), name)(
@@ -84,7 +87,7 @@ def main(device: str = "cuda"):
                                                 device=dev) * 0.1).to(
                               torch.bfloat16) if res else None,
                           out_dtype=torch.float32 if f32 else None)
-                us = {s: timer(lambda: launch(w, x, s, span, **kw)) * 1e3
+                us = {s: timer(lambda: launch(form, w, x, s, span, **kw)) * 1e3
                       for s, span in quant.splitk_slices(k, g, layout)}
                 plan = quant.gemv_plan(m, k, n, g, layout, sms)
                 best = min(us, key=us.get)

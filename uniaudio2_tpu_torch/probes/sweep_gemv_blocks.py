@@ -16,9 +16,12 @@ sweep says what that costs.
 At each shape (backbone qkv 3072 -> 5120, attn_proj 3072 -> 3072, decoder
 qkv 2048 -> 4096, audio head 2048 -> 12300) and M = 1, 8, 16, on the bytes
 of the port's ``quantize4``: every form held to the twin (one bf16 ulp)
-and form 0 to the production `gemv_int4.cu` bit for bit; then the median
-time of one launch, L2 flushed before each, of every form, the production
-kernel and one ``torch._weight_int4pack_mm`` call (repacked once), with
+and form 0 to the tiled instance of the production `gemv_int4.cu` bit for
+bit (`quant.int4_matmul_tiled`: at M <= 16 `quant.int4_matmul` launches the
+split-K kernel, which sums in another order); then the median time of one
+launch, L2 flushed before each, of every form, the production wrapper
+`quant.int4_matmul` and one ``torch._weight_int4pack_mm`` call (repacked
+once), with
 GB/s of weight bytes and the bound (weight bytes, scale, x and output at
 3.35 TB/s; 2.4 / 1.4 / 1.3 / 3.8 us at M = 1). One JSON line per (shape,
 M). The counter counts the timed launches only.
@@ -48,8 +51,9 @@ def bound_us(k: int, n: int, m: int) -> float:
 
 
 def check(x, w):
-    """Every form against the twin, form 0 against `gemv_int4.cu` bit for
-    bit. Returns the worst |kernel - twin| and that bit-identity."""
+    """Every form against the twin, form 0 against `gemv_int4.cu`'s tiled
+    instance bit for bit. Returns the worst |kernel - twin| and that
+    bit-identity."""
     ref = int4_sweep.int4_sweep_matmul_plain(x, w.values, w.scale)
     tol = ULP * ref.float().abs().max().item()
     worst = 0.0
@@ -60,7 +64,7 @@ def check(x, w):
             raise AssertionError(f"int4 sweep form {form.name} disagrees with "
                                  f"its twin: {err:.3e} > {tol:.3e}")
         worst = max(worst, err)
-    prod = quant.int4_matmul(x, w.values, w.scale)
+    prod = quant.int4_matmul_tiled(x, w.values, w.scale)
     same = torch.equal(int4_sweep.int4_sweep_matmul(
         x, w.values, w.scale, int4_sweep.PRODUCTION), prod)
     torch.cuda.synchronize()
@@ -99,7 +103,7 @@ def main(device: str = "cuda"):
                 "GBps": {f: k * n / 2 / t / 1e3 for f, t in us.items()},
                 "best": best, "int4_matmul_us": prod_us,
                 "weight_int4pack_mm_us": lib_us, "bound_us": bound_us(k, n, m),
-                "forms_vs_twin": err, "form0_bit_identical_to_int4": same}
+                "forms_vs_twin": err, "form0_bit_identical_to_int4_tiled": same}
         print(json.dumps(line), flush=True)
         lines.append(line)
     return lines
