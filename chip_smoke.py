@@ -10,7 +10,8 @@ caught):
    from ``nvidia-smi``;
 2. build every CUDA kernel from ``uniaudio2_tpu_torch/csrc`` with nvcc
    (sm_90a) and print the build seconds, each kernel's registers and
-   spills, and a line for each of the four flash kernels;
+   spills, and a line for each of the four bf16 and two float32 flash
+   kernels and of the two tensor-core tile kernels of rows 7 and 8;
 3. each kernel, in every weight form it has, against its plain PyTorch
    twin at the serving path's shapes (bf16 activations, M = 1, 2 — the CFG
    pair —, 63 — the prefill bucket 64 — and, for the GEMVs, 255 — bucket
@@ -18,10 +19,15 @@ caught):
    the split-K kernel of the host's plan: at each of their decode shapes
    the plan, the time of the tiled instance and of
    ``torch._weight_int4pack_mm`` in the same run and the share of the byte
-   bound are printed; the flash attention kernel at (B, H, hd) =
+   bound are printed; the column-packed GEMVs (rows 7 and 8) also at
+   M = 510, the CFG pair's bucket-256 prefill, and at every M > 16, where
+   they run the tensor-core tile kernel, the plan (`quant.tc_plan`), the
+   tile kernel, its tiled instance and ``torch._weight_int4pack_mm`` in
+   the same run, the share of the bound, and at how many cases the tile
+   kernel beats the tiled instance; the flash attention kernel at (B, H, hd) =
    (2, 24, 64) and the
    codec windows' T = 186, 374 and 750, plus T = 130 and B = 1 for the
-   tails; its causal GQA form at the backbone prefill's (1, 24, 8, T, 128)
+   tails, in bf16 and (the float32 kernel) in float32; its causal GQA form at the backbone prefill's (1, 24, 8, T, 128)
    with T = 2048 and 1000, each with the host's plan (tile, stages,
    blocks) and the shares of the operations bound that the kernel and
    SDPA reach; the split-K int8 GEMV at the GEMV probe's six
@@ -48,10 +54,12 @@ caught):
    ``int4all`` not interleaved (K-split + column-packed) and E ``int4allg``
    not interleaved. Each serves the TTS prompt, one CFG pair and the ASR
    prompt for 16 frames, D and E also a prompt in bucket 256 (255 and 510
-   prefill rows, past the fused kernels' 128; a 512-slot cache, where
-   "auto" picks the int8 KV cache and block-128 reads); frames/s, memory,
-   and the launch count of every kernel form against the count the tree
-   implies.
+   prefill rows, past the fused kernels' 128, so the MLP's down-projection
+   runs rows 7 and 8 alone; a 512-slot cache, where "auto" picks the int8
+   KV cache and block-128 reads); frames/s, memory, the launch count of
+   every kernel form against the count the tree implies, and, for D and
+   E, each bucket-256 prefill's host-clock seconds (synchronised, the
+   median of three after a warm-up).
    Then the prefill and first frame: C against the CPU twins (phase 5's
    bounds); D against the interleaved int4all run and E against C, on the
    card, on the TTS prompt at buckets 64 and 256 and on the ASR prompt
@@ -116,8 +124,16 @@ caught):
    of the last tile enter the softmax) that the comparison must reject;
    (b) `CodecDecoder.decode` (10 steps, guidance 1.5) of 125 and 500 rec
    frames (one 15 s window, two 30 s windows): seconds, RTF, length,
-   finite samples, flash launches = windows x steps x layers;
+   finite samples, flash launches = windows x steps x layers and none on
+   the DiT's plain attention path;
    (c) `StreamingCodecDecoder` fed the 500 frames in pieces, against (b);
+   (e) the codec's default float32 tree (`init_decode_params` with no
+   dtype) at full width: one DiT evaluation through the float32 flash
+   kernel against its twin and the planted faults of (a); one 125-frame
+   window decoded on the card through the float32 kernel, and the same
+   weights cast to bf16 through the bf16 kernel: the DiT's kernel and
+   plain counts of each, finite samples, and the two waveforms within
+   CODEC_F32_BOUNDS;
    (d) TTS end to end as scripts/bench_tts_e2e.py times it on the TPU:
    int4all `generate_audio` for 175 frames, then the codec decode of 125
    semantic frames; RTF = (stage 1 + stage 2) / 10 s;
@@ -213,6 +229,9 @@ BOUNDS = {"text": (1e-1, 0.995), "codebook0": (1e-1, 0.995),
 # what holds a fault inside the kernel; each bound lies between the sound
 # reading and the faults it must reject. Readings in PERF_HISTORY.md.
 DIT_BOUNDS = {"velocity": (1.3e-2, 0.9999), "attention": (1e-2, 0.9999)}
+# The float32 flash kernel against its twin, row by row: both keep every
+# product and probability in f32 and sum in another order.
+RTOL_F32 = 1e-5
 # A grouped-scale GEMV scales and rounds each weight to bf16 before the
 # product, as its twin does: without a residual the two differ in the order
 # of one f32 sum and land within one bf16 ulp, 2^-7 x max|twin|.
@@ -290,24 +309,40 @@ def phase_build():
            else "already built from these sources")
     print(f"[2] {Path(lib).name} ready in {time.perf_counter() - t0:.2f} s "
           f"({how})", flush=True)
-    kernel, flash = "", {}
+    kernel, flash, flash32, tile = "", {}, {}, {}
     for line in _cuda.build_info["log"].splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
         elif "registers" in line or "spill" in line and " 0 bytes spill" not in line:
             print(f"[2] {kernel[:72]}: {line.strip()}", flush=True)
-        form = re.search(r"flash_attn_kernelILi(\d+)ELb(\d)ELi(\d)E", kernel)
-        if form:     # hd, causal, consumer warpgroups
-            got = re.search(r"Used (\d+) registers|(\d+) bytes spill stores", line)
+        for forms, pattern in (
+                (flash, r"flash_attn_kernelILi(\d+)ELb(\d)ELi(\d)E"),
+                (flash32, r"flash_f32_kernelILi(\d+)EE"),
+                (tile, r"gemv_tc_kernelILb(\d)E")):
+            form = re.search(pattern, kernel)
+            got = form and re.search(
+                r"Used (\d+) registers|(\d+) bytes spill stores", line)
             if got:
                 key = "registers" if got.group(1) else "spill stores"
-                flash.setdefault(form.groups(), {})[key] = int(got.group(1) or got.group(2))
+                forms.setdefault(form.groups(), {})[key] = int(
+                    got.group(1) or got.group(2))
     for (hd, causal, nc), got in sorted(flash.items()):
         print(f"[2] flash_attn_kernel<HD {hd}, causal {causal}, {nc} consumer "
               f"warpgroups>: {got.get('registers')} registers, "
               f"{got.get('spill stores')} bytes of spill stores", flush=True)
-    if _cuda.build_info["log"] and len(flash) != 4:
-        fail(f"ptxas reported {len(flash)} of the 4 flash kernels")
+    for (hd,), got in sorted(flash32.items()):
+        print(f"[2] flash_f32_kernel<HD {hd}>: "
+              f"{got.get('registers')} registers, {got.get('spill stores')} "
+              f"bytes of spill stores", flush=True)
+    for (grouped,), got in sorted(tile.items()):
+        print(f"[2] gemv_tc_kernel<grouped {grouped}>: "
+              f"{got.get('registers')} registers, {got.get('spill stores')} "
+              f"bytes of spill stores", flush=True)
+    if _cuda.build_info["log"] and (len(flash), len(flash32), len(tile)) != (
+            4, 2, 2):
+        fail(f"ptxas reported {len(flash)} of the 4 bf16 flash kernels, "
+             f"{len(flash32)} of the 2 float32 ones and {len(tile)} of the 2 "
+             f"tile kernels")
 
 
 def nbytes(*tensors) -> int:
@@ -460,20 +495,28 @@ def phase_kernels(torch, dev):
                       lambda: qkv_step.qkv_rope_step_plain(*args), case,
                       row=m == 1 and name == "backbone")
 
-    def splitk_case(form, label, k, n, m, w, x, kw, case, fn, fn_tiled,
-                    lib_ms, rtol):
-        """Rows 1, 5 and 6 at a decode M: the tiled instance held to the twin
-        and timed beside the split-K kernel and the library's GEMV (split-K,
-        tiled, tiled, split-K: the lesser median of each pair, against a
-        moment of noise in one), the plan and the share of the byte
-        bound."""
+    def yardstick_case(kind, form, label, k, n, m, w, x, kw, case, fn,
+                       fn_tiled, lib_ms, rtol, times):
+        """A planned kernel (``kind``: "split-K", rows 1, 5 and 6 at a
+        decode M, `quant.gemv_plan`; "tile", rows 7 and 8 above 16 rows,
+        `quant.tc_plan`): its tiled instance held to the twin and timed
+        beside it and the library's GEMV (kernel, tiled, tiled, kernel: the
+        lesser median of each pair, against a moment of noise in one), the
+        plan and the share of the bound, kept in ``times``."""
         out, ref = fn_tiled(x, w.values, w.scale, **kw), quant.matmul_plain(x, w, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         if err > rtol * ref.float().abs().max().item():
             fail(f"{form} tiled {label} M={m}: max_abs_err {err:.4g}")
         g = w.scale.shape[0] if w.scale.ndim == 2 else 0
-        plan = quant.gemv_plan(m, k, n, g, quant.LAYOUTS[type(w)], sms)
+        if kind == "tile":
+            plan = quant.tc_plan(m, k, n, g, sms)
+            shape = (f"bn={quant.tc_layout().bn} S={plan.splits} "
+                     f"span={plan.span}")
+        else:
+            plan = quant.gemv_plan(m, k, n, g, quant.LAYOUTS[type(w)], sms)
+            shape = (f"S={plan.splits} MT={plan.mt} tile={plan.tile} "
+                     f"span={plan.span}")
         if lib_ms is None:
             wp, group, sz = int4_tinygemm(w)
             lib_ms = timer(lambda: torch._weight_int4pack_mm(x, wp, group, sz))
@@ -482,10 +525,9 @@ def phase_kernels(torch, dev):
         ms, tiled_ms = timer(run), timer(run_tiled)
         tiled_ms, ms = min(tiled_ms, timer(run_tiled)), min(ms, timer(run))
         bound_ms = bound(*case)[0]
-        splitk_times[(form, label, m)] = (ms, tiled_ms, lib_ms)
-        print(f"[3] {form} split-K {label} {k}->{n} M={m}: plan S={plan.splits} "
-              f"MT={plan.mt} tile={plan.tile} span={plan.span} "
-              f"({plan.blocks(m, n)} blocks, {sms} SMs): split-K {ms:.4f} ms, "
+        times[(form, label, m)] = (ms, tiled_ms, lib_ms)
+        print(f"[3] {form} {kind} {label} {k}->{n} M={m}: plan {shape} "
+              f"({plan.blocks(m, n)} blocks, {sms} SMs): {kind} {ms:.4f} ms, "
               f"tiled {tiled_ms:.4f} ms (x{tiled_ms / ms:.2f}), library GEMV "
               f"{lib_ms:.4f} ms (x{lib_ms / ms:.2f}); bound {bound_ms:.4f} ms, "
               f"{bound_ms / ms:.1%} of it; tiled vs twin {err:.3e}", flush=True)
@@ -497,7 +539,8 @@ def phase_kernels(torch, dev):
     # (int4i, int4ig, int4, int4g) run the split-K kernel up to
     # quant.SPLITK_MAX_M rows: at those M each shape is also timed through
     # the tiled instance and the library call (the GEMV alone: no norm,
-    # residual or f32 cast), and the plan printed.
+    # residual or f32 cast), and the plan printed; above it (the prefills,
+    # their tiled instance) the library call is timed beside each case.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tiled = {"int4i": quant.int4i_matmul_tiled,
              "int4ig": quant.int4i_matmul_tiled,
@@ -526,7 +569,8 @@ def phase_kernels(torch, dev):
                         + (2 * res + out_bytes) * m * n, 2 * m * k * n)
                 library = None
                 row = m == 1 and label == "projection"
-                if row:
+                if row or (form in tiled and m > quant.SPLITK_MAX_M):
+                    # the prefills' tiled instances beside the library too
                     wp, group, sz = int4_tinygemm(w)
 
                     def library():
@@ -538,10 +582,11 @@ def phase_kernels(torch, dev):
                                library, row=row,
                                rtol=RTOL_GROUPED if grouped else RTOL)
                 if form in tiled and m <= quant.SPLITK_MAX_M:
-                    splitk_case(form, label, k, n, m, w, x, kw, case, fn,
-                                tiled[form], lib_ms,
-                                RTOL_GROUPED if grouped else RTOL)
-                if library is not None:
+                    yardstick_case("split-K", form, label, k, n, m, w, x, kw,
+                                   case, fn, tiled[form], lib_ms,
+                                   RTOL_GROUPED if grouped else RTOL,
+                                   splitk_times)
+                if row:
                     lib_err = (library().float() - quant.matmul_plain(
                         x, w).float()).abs().max().item()
                     print(f"[3] {GEMV_ROWS[form]} library _weight_int4pack_mm "
@@ -553,26 +598,44 @@ def phase_kernels(torch, dev):
           f"{len(splitk_times) - len(slower)} of {len(splitk_times)} decode "
           f"cases; not at {slower}", flush=True)
     # the column-packed GEMVs (the MLP down-projection): alone they run at a
-    # prefill of more than 128 rows; row: the backbone's at M = 255
+    # prefill of more than 128 rows (255 and, as the CFG pair, 510), where
+    # they launch the tensor-core tile kernel (csrc/gemv_int4_tc.cuh) above
+    # quant.SPLITK_MAX_M rows and the tiled instance at 16 rows or fewer;
+    # row: the backbone's at M = 255. At every M > 16 also the tiled
+    # instance and the library's GEMV, each timed in the same run.
+    tc_times = {}
     for form in ("int4c", "int4cg"):
-        fn = {"int4c": quant.int4c_matmul, "int4cg": quant.int4cg_matmul}[form]
-        for m in (1, 2, 63, 255):
+        fn, fn_tiled = {"int4c": (quant.int4c_matmul, quant.int4c_matmul_tiled),
+                        "int4cg": (quant.int4cg_matmul,
+                                   quant.int4cg_matmul_tiled)}[form]
+        rtol = RTOL_GROUPED if form == "int4cg" else RTOL
+        for m in (1, 2, 63, 255, 510):
             for label, k, n in (("mlp_proj", 8192, 3072),
                                 ("decoder mlp_proj", 8192, 2048)):
                 w = make_weight(torch, gen, dev, form, k, n)
                 x = bf16(m, k)
                 case = (nbytes(x) + weight_bytes(w) + 2 * m * n, 2 * m * k * n)
                 library = None
-                row = m == 255 and label == "mlp_proj"
-                if row:
+                if m > quant.SPLITK_MAX_M:
                     wp, group, sz = int4_tinygemm(w)
 
                     def library():
                         return torch._weight_int4pack_mm(x, wp, group, sz)
-                check(GEMV_ROWS[form], f"{label} {k}->{n} M={m}",
-                      lambda: fn(x, w.values, w.scale),
-                      lambda: quant.matmul_plain(x, w), case, library, row=row,
-                      rtol=RTOL_GROUPED if form == "int4cg" else RTOL)
+                _, lib_ms = check(GEMV_ROWS[form], f"{label} {k}->{n} M={m}",
+                                  lambda: fn(x, w.values, w.scale),
+                                  lambda: quant.matmul_plain(x, w), case,
+                                  library, row=m == 255 and label == "mlp_proj",
+                                  rtol=rtol)
+                if m > quant.SPLITK_MAX_M:
+                    yardstick_case("tile", form, label, k, n, m, w, x, {},
+                                   case, fn, fn_tiled, lib_ms, rtol, tc_times)
+    slower = [key for key, (ms, tiled_ms, _) in tc_times.items()
+              if ms >= tiled_ms]
+    beats = [key for key, (ms, _, lib_ms) in tc_times.items() if ms < lib_ms]
+    print(f"[3] tile kernel faster than the tiled instance at "
+          f"{len(tc_times) - len(slower)} of {len(tc_times)} column-packed "
+          f"cases above {quant.SPLITK_MAX_M} rows; not at {slower}; faster "
+          f"than the library at {len(beats)} of them", flush=True)
     # the fused SwiGLU half-block in the forms the serving trees hold; row:
     # the backbone's at M = 1
     for up, down in (("int4i", "int4i"), ("int8", "int8"), ("int4", "int4c"),
@@ -641,6 +704,23 @@ def phase_kernels(torch, dev):
         flash_plan_line((b, h, h, t, hd), case, ms, lib_ms)
         print(f"[3] flash_attention T={t}: SDPA ran {sdpa_backend(torch, q, k, v)}",
               flush=True)
+    # the float32 form (the codec's default float32 tree) at the same
+    # shapes, its bound at float32's rate outside the tensor cores; TF32 is
+    # off, so the twin's products are float32 too
+    for b, t in ((2, 186), (2, 374), (2, 750), (2, 130), (1, 130)):
+        h, hd = 24, 64
+        q, k, v = (torch.randn((b, h, t, hd), generator=gen, device=dev)
+                   for _ in range(3))
+        scale = hd ** -0.5
+        case = (nbytes(q, k, v) * 4 // 3, 4 * b * h * t * t * hd, PEAK_F32)
+        check("flash_attention:f32", f"(B, H, T, hd) = ({b}, {h}, {t}, {hd})",
+              lambda: flash_attention.flash_attention(q, k, v, scale),
+              lambda: flash_attention.attention_plain(q, k, v, scale), case,
+              lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+              row=(b, t) == (2, 750), rtol=RTOL_F32, per_row=True)
+        if t == 750:
+            print(f"[3] flash_attention:f32 T={t}: SDPA ran "
+                  f"{sdpa_backend(torch, q, k, v)}", flush=True)
     # the causal GQA form: the backbone's prefill probe at T = 2048 (the row)
     # and T = 1000 (a tail tile); the head map reads 8 K/V groups in place.
     # Held row by row: causal row i averages i + 1 values, so late rows are
@@ -1268,7 +1348,38 @@ def serve_format(torch, cfg, params, label, ksplit):
         if name.endswith("256") and (policy["kv_dtype"] != torch.int8
                                      or policy["attn_block"] != 128):
             fail(f"{label} {name}: auto picked {policy}, not int8 and block 128")
+    if ksplit:
+        prefill_seconds(torch, cfg, params, long_eng, label,
+                        (("tts bucket 256", lg, lm, None, None),
+                         ("tts_cfg bucket 256", lg, lm, lng, lnm)))
     return got
+
+
+def prefill_seconds(torch, cfg, params, eng, label, requests):
+    """The host-clock seconds of each request's prefill as ``eng`` runs it
+    (its padded grid into a fresh cache of 512 slots), synchronised before
+    and after: one warm-up, then the median of three. These launches are
+    not in the phase's counts."""
+    from uniaudio2_tpu_torch.models import unified
+
+    for name, grid, mask, neg_grid, neg_mask in requests:
+        g, m, _, _ = eng._pad_grid(grid, mask, neg_grid is not None, neg_grid,
+                                   neg_mask)
+        caches = eng._caches(g.shape[0], 512)
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                unified.prefill(params, cfg, g[:, :-1], m[:, :-1], caches)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        rows = g.shape[0] * (g.shape[1] - 1)
+        print(f"[8] {label}: {name} prefill of {rows} rows: "
+              f"{statistics.median(times[1:]):.4f} s (host clock, median of 3 "
+              f"after a warm-up: {', '.join(f'{t:.4f}' for t in times)})",
+              flush=True)
+        del caches
 
 
 def with_layer(params, sub, index, change):
@@ -2415,15 +2526,17 @@ def build_codec(torch, dev):
     return cfg, dec
 
 
-def phase_estimator(torch, dev, cfg, dec):
-    """(a) One DiT evaluation through the flash kernel against the same
-    evaluation through the twin, both on the card; then planted faults."""
+def phase_estimator(torch, dev, cfg, params, dtype, bounds, tag):
+    """One DiT evaluation of ``params`` in ``dtype`` through the flash
+    kernel against the same evaluation through the twin, both on the card,
+    within ``bounds``; then planted faults that must fall outside them.
+    (a): the bf16 tree, DIT_BOUNDS; (e): the float32 tree, DIT_F32_BOUNDS."""
     from uniaudio2_tpu_torch.codec import dit
     from uniaudio2_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(7)
     x = torch.randn((2, 374, cfg.dit.in_channels), generator=gen,
-                    device=dev).to(torch.bfloat16)
+                    device=dev).to(dtype)
     t = torch.full((2,), 0.5, device=dev)
     kernel = fa.flash_attention
 
@@ -2438,6 +2551,7 @@ def phase_estimator(torch, dev, cfg, dec):
 
     # the wrapper counts its launches on the function its module holds
     scale_twice.launches = mask_dropped.launches = 0
+    scale_twice.forms, mask_dropped.forms = {}, {}
 
     def run(attn):
         """The velocity, and every layer's (q, k, v, attention output)."""
@@ -2448,9 +2562,9 @@ def phase_estimator(torch, dev, cfg, dec):
             seen.append((q, k, v, o))
             return o
 
-        record.launches = 0
+        record.launches, record.forms = 0, {}
         with mock.patch.object(fa, "flash_attention", record):
-            vel = dit.forward(dec.params["dit"], cfg.dit, x, t)
+            vel = dit.forward(params, cfg.dit, x, t)
         return vel.float(), seen
 
     def fro(a, b):
@@ -2472,21 +2586,21 @@ def phase_estimator(torch, dev, cfg, dec):
                                                          o, o_ref)[1])}
         caught = []
         for name, (err, cos) in readings.items():
-            tol, min_cos = DIT_BOUNDS[name]
+            tol, min_cos = bounds[name]
             ok = err <= tol and cos >= min_cos
             if not ok:
                 caught.append(name)
             what = (f"velocity {tuple(vel.shape)} max_abs_err {err:.4e} x max|ref|"
                     if name == "velocity" else f"attention outputs "
                     f"{tuple(o.shape)} ||diff|| {err:.4e} x ||ref||")
-            print(f"[6a] {label}: {what} (tol {tol}), cosine {cos:.6f} "
+            print(f"[{tag}] {label}: {what} (tol {tol}), cosine {cos:.9f} "
                   f"(min {min_cos}){'' if ok else '  REJECTED'}", flush=True)
         verdicts[label] = caught
     if verdicts.pop("sound"):
-        fail("DiT through the flash kernel disagrees with the twin")
+        fail(f"[{tag}] DiT through the flash kernel disagrees with the twin")
     missed = [k for k, caught in verdicts.items() if not caught]
     if missed:
-        fail(f"the DiT comparison passed planted faults: {missed}")
+        fail(f"[{tag}] the DiT comparison passed planted faults: {missed}")
 
 
 def chunk_noise(i, shape):
@@ -2502,6 +2616,8 @@ def phase_decode(torch, cfg, dec):
     import numpy as np
     from uniaudio2_tpu_torch.ops import flash_attention as fa
 
+    from uniaudio2_tpu_torch.codec import dit
+
     rng = np.random.default_rng(3)
     dec.decode(rng.integers(0, cfg.rec_codebook_size, (8, 125)), num_steps=10,
                noise_fn=chunk_noise)               # warm-up (cuDNN, cuBLAS)
@@ -2509,26 +2625,121 @@ def phase_decode(torch, cfg, dec):
     for frames, windows in ((125, 1), (500, 2)):
         codes = rng.integers(0, cfg.rec_codebook_size, (8, frames))
         fa.flash_attention.launches = 0
+        dit._attention.plain_launches = 0
         t0 = time.perf_counter()
         wav = dec.decode(codes, num_steps=10, guidance_scale=1.5,
                          noise_fn=chunk_noise)     # returns host numpy
         dt = time.perf_counter() - t0
-        n = fa.flash_attention.launches
+        n, plain = fa.flash_attention.launches, dit._attention.plain_launches
         want = windows * 10 * cfg.dit.num_layers
         audio_s = frames / cfg.rec_hz
         length = int(frames / cfg.rec_hz * cfg.sample_rate)
         print(f"[6b] decode {frames} frames ({audio_s:.0f} s, {windows} "
               f"window(s)): {dt:.3f} s, RTF {dt / audio_s:.4f}; wav "
-              f"{wav.shape} max|x| {np.abs(wav).max():.4f}; flash launches "
-              f"{n} (expected {want})", flush=True)
+              f"{wav.shape} max|x| {np.abs(wav).max():.4f}; DiT attention: "
+              f"flash launches {n} (expected {want}), plain path {plain}",
+              flush=True)
         if wav.shape != (1, length):
             fail(f"decode of {frames} frames: {wav.shape} != (1, {length})")
         if not np.isfinite(wav).all():
             fail(f"decode of {frames} frames: non-finite samples")
-        if n != want:
-            fail(f"flash launches {n} != windows x steps x layers = {want}")
+        if n != want or plain:
+            fail(f"flash launches {n} != windows x steps x layers = {want}, "
+                 f"or {plain} attentions took the plain path")
         launches += n
     return launches, codes, wav
+
+
+def cast_tree(torch, tree, dtype):
+    """``tree`` (nested dicts and lists) with every floating tensor in
+    ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(torch, v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_tree(torch, v, dtype) for v in tree)
+    if torch.is_tensor(tree) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+# The codec's default float32 tree against the same weights in bf16, one
+# window on the card: ||bf16 - f32|| / ||f32|| of the waveform, and its
+# cosine. The bf16 run rounds every DiT product, the flash kernel's
+# probabilities and the ScalarAE's convolutions; the float32 run (TF32 off)
+# rounds none. On the H100, with the float32 attention on the einsum path,
+# the two read 7.4e-3 and 0.999987 (PERF.md); the bounds allow 4x that
+# error and 40x its 1 - cosine. At random init the attention barely moves
+# the velocity (phase 6a), so this holds the path as a whole (finite, the
+# right length, the same waveform), not the attention: DIT_F32_BOUNDS does.
+CODEC_F32_BOUNDS = (0.03, 0.9995)
+# The float32 DiT at B = 2, T = 374, the float32 flash kernel vs the twin,
+# both on the card, TF32 off, as DIT_BOUNDS: (1) the velocity, (2) the 32
+# layers' attention outputs. Both keep every product in f32 and sum in
+# another order: set before the first reading at ~100x the f32 rounding
+# the sums can stack (2^-24 x sqrt(T) per dot product, a few 1e-7); the
+# planted faults of phase 6a read 1e-2 to 0.1 in bf16.
+DIT_F32_BOUNDS = {"velocity": (1e-4, 0.9999999), "attention": (1e-5, 0.9999999)}
+
+
+def phase_codec_f32(torch, dev, cfg):
+    """(e) The default float32 codec tree (`init_decode_params` with no
+    dtype) at full width: one DiT evaluation through the float32 flash
+    kernel against the twin and the planted faults (`phase_estimator`,
+    DIT_F32_BOUNDS); then one 125-frame window decoded on the card through
+    the float32 kernel, and the same weights cast to bf16 through the bf16
+    kernel: the DiT's kernel and plain counts of each, finite samples, and
+    the two waveforms within CODEC_F32_BOUNDS. Returns the float32
+    kernel's launches in the float32 decode."""
+    import numpy as np
+    from uniaudio2_tpu_torch.codec import dit
+    from uniaudio2_tpu_torch.codec.decoder import CodecDecoder, init_decode_params
+    from uniaudio2_tpu_torch.ops import _cuda
+    from uniaudio2_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    p32 = init_decode_params(gen, cfg, device=dev)
+    phase_estimator(torch, dev, cfg, p32["dit"], torch.float32,
+                    DIT_F32_BOUNDS, "6e")
+    codes = np.random.default_rng(12).integers(0, cfg.rec_codebook_size, (8, 125))
+    want = 10 * cfg.dit.num_layers
+    waves, f32_launches = {}, 0
+    for label, params, form in (("float32", p32, "f32"),
+                                ("bf16", cast_tree(torch, p32, torch.bfloat16),
+                                 None)):
+        dec = CodecDecoder(params, cfg)
+        _cuda.reset_count(fa.flash_attention)
+        dit._attention.plain_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav = dec.decode(codes, num_steps=10, guidance_scale=1.5,
+                         noise_fn=chunk_noise)
+        dt = time.perf_counter() - t0
+        got = (fa.flash_attention.launches, dict(fa.flash_attention.forms),
+               dit._attention.plain_launches)
+        expect = (want, {form: want} if form else {}, 0)
+        print(f"[6e] {label} tree, decode 125 frames (one window): {dt:.3f} s; "
+              f"wav {wav.shape} max|x| {np.abs(wav).max():.4f}; DiT attention: "
+              f"flash kernel {got[0]} {got[1]}, plain path {got[2]} "
+              f"(expected {expect[0]} {expect[1]}, {expect[2]})", flush=True)
+        if got != expect:
+            fail(f"{label} codec tree: DiT attention launches {got} != {expect}")
+        if not np.isfinite(wav).all() or wav.shape != (
+                1, int(125 / cfg.rec_hz * cfg.sample_rate)):
+            fail(f"{label} codec tree: bad waveform {wav.shape}")
+        if form:
+            f32_launches = got[1][form]
+        waves[label] = wav.astype(np.float64)
+        del dec, params
+    ref, got = waves["float32"], waves["bf16"]
+    err = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    cos = float((got * ref).sum() / (np.linalg.norm(got) * np.linalg.norm(ref)))
+    tol, min_cos = CODEC_F32_BOUNDS
+    print(f"[6e] the bf16 cast through the bf16 flash kernel vs the float32 "
+          f"tree through the float32 kernel: ||diff|| {err:.4e} x ||f32|| (tol "
+          f"{tol}), cosine {cos:.6f} (min {min_cos})", flush=True)
+    if not (err <= tol and cos >= min_cos):
+        fail("the float32 codec tree and its bf16 cast disagree")
+    return f32_launches
 
 
 def phase_stream(cfg, dec, codes, offline):
@@ -3022,9 +3233,11 @@ def main():
     for k in launches:
         launches[k] += formats[k] + defaults[k] + batched[k] + graphs[k]
     ccfg, dec = build_codec(torch, dev)
-    phase_estimator(torch, dev, ccfg, dec)
+    phase_estimator(torch, dev, ccfg, dec.params["dit"], torch.bfloat16,
+                    DIT_BOUNDS, "6a")
     launches["flash_attention"], codes, wav = phase_decode(torch, ccfg, dec)
     phase_stream(ccfg, dec, codes, wav)
+    launches["flash_attention:f32"] = phase_codec_f32(torch, dev, ccfg)
     phase_tts(torch, cfg, params, ccfg, dec)
     stamp("phase 6")
     del params, dec, codes, wav
@@ -3045,6 +3258,8 @@ def main():
             "int4c_matmul": ("gemv_int4c.cu", "uniaudio2_tpu/ops/quant.py:799"),
             "int4cg_matmul": ("gemv_int4cg.cu", "uniaudio2_tpu/ops/quant.py:864"),
             "flash_attention": ("flash_attn.cu", "uniaudio2_tpu/codec/dit.py:174"),
+            "flash_attention:f32": ("flash_attn_f32.cu",
+                                    "uniaudio2_tpu/codec/dit.py:174"),
             "lean_update": ("lean_update.cu", "uniaudio2_tpu/ops/lean_update.py:100"),
             "int8_splitk_gemv": ("gemv_int8_splitk.cu", "scripts/profile_gemv.py:82"),
             "flash_attention:causal": ("flash_attn.cu",

@@ -371,3 +371,51 @@ def test_convert_params_carries_none_and_lists():
         tp["dec_blocks"][0]["units"], list)
     np.testing.assert_array_equal(tp["dec_blocks"][1]["units"][4]["conv1"]["w"],
                                   np.asarray(jp["dec_blocks"][1]["units"][4]["conv1"]["w"]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_dit_attention_path_by_dtype_and_head_dim(monkeypatch, dtype, hd):
+    """The DiT sends an attention to the flash kernels in bf16 and float32
+    at a head dim they are built for (64, 128), as the JAX DiT's `_flash_ok`
+    does, and counts every other call on the plain path
+    (`_attention.plain_launches`); both paths compute the JAX einsum
+    attention here (the kernels' wrapper takes its twin on the CPU), held
+    to JAX's `_attention` on the same inputs: float32 within `_close`,
+    bf16 (the inputs cast to bf16 for JAX too) within 2e-2 x max|ref|."""
+    from uniaudio2_tpu_torch.ops import flash_attention
+
+    kernel_calls = []
+    real = flash_attention.flash_attention
+
+    def record(q, k, v, scale):
+        kernel_calls.append(q.shape)
+        return real(q, k, v, scale)
+
+    monkeypatch.setattr(flash_attention, "flash_attention", record)
+    heads, t = 2, 24
+    d = heads * hd
+    rng = np.random.default_rng(hd)
+    x, qkv_w, out_w = (torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32) * 0.1).to(dtype)
+        for s in ((2, t, d), (d, 3 * d), (d, d)))
+    qkv_b, out_b = torch.zeros(3 * d, dtype=dtype), torch.zeros(d, dtype=dtype)
+    before = dit._attention.plain_launches
+    out = dit._attention(x, qkv_w, qkv_b, out_w, out_b, heads)
+    kernel = hd in (64, 128)
+    assert dit.flash_ok(dtype, hd) == kernel
+    assert len(kernel_calls) == int(kernel)
+    assert dit._attention.plain_launches == before + int(not kernel)
+    assert out.shape == (2, t, d) and out.dtype == dtype
+
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jx, jw, jo = (jnp.asarray(a.float().numpy()).astype(jdt)
+                  for a in (x, qkv_w, out_w))
+    ref = jdit._attention(jx, jw, jnp.zeros(3 * d, jdt), jo,
+                          jnp.zeros(d, jdt), heads)
+    if dtype == torch.float32:
+        _close(out, ref)
+    else:
+        ref = np.asarray(ref.astype(jnp.float32))
+        err = np.abs(out.float().numpy() - ref).max()
+        assert err <= 2e-2 * np.abs(ref).max(), err

@@ -23,7 +23,9 @@ The split-K int8 GEMV and its twin add exact f32 products in another
 order and round once, so they too agree within RTOL_GROUPED; the causal
 GQA flash form keeps the flash kernel's 2e-2. Both flash forms are held
 row by row (each query row to 2e-2 x its own max|twin|): a causal row i
-averages i + 1 values and is ~sqrt(1 / i) the size of row 0.
+averages i + 1 values and is ~sqrt(1 / i) the size of row 0. The float32
+flash kernel and its twin keep every product in f32 and sum in another
+order: rows within 1e-5 x their max|twin|.
 The two int4 probe kernels (rows 11 and 13: the conversion-free unpack
 and the twelve tile forms of the K-split GEMV) add exact f32 products in
 another order than their twins and round once: one bf16 ulp
@@ -50,7 +52,7 @@ import pytest
 import torch
 
 from uniaudio2_tpu_torch.ops import (
-    flash_attention, fused_mlp, int4_native, int4_stacked, int4_sweep,
+    _cuda, flash_attention, fused_mlp, int4_native, int4_stacked, int4_sweep,
     lean_update, qkv_step, quant, splitk_gemv,
 )
 from uniaudio2_tpu_torch.probes import int4_native_probe
@@ -329,6 +331,35 @@ def test_flash_attention_every_instantiation(dev, hd, causal, b, h, g_, t):
                                                      causal=causal))
 
 
+@pytest.mark.parametrize("t", [1, 15, 64, 65, 130, 186, 374, 750])
+@pytest.mark.parametrize("b,h,g_", [(2, 24, 24), (1, 4, 2)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_f32(dev, hd, b, h, g_, t):
+    """The float32 kernel (`csrc/flash_attn_f32.cu`, non-causal), K/V
+    groups equal to the heads and fewer, at the codec windows' T and
+    around its 64-row query and key tiles: rows within 1e-5 x their
+    max|twin| (both sum f32 products, in another order), one launch a call
+    counted as the form "f32", two launches the same bits. TF32 off for the
+    twin's products."""
+    g = _gen(dev, 9)
+    q = torch.randn((b, h, t, hd), generator=g, device=dev)
+    k, v = (torch.randn((b, g_, t, hd), generator=g, device=dev)
+            for _ in range(2))
+    before = flash_attention.flash_attention.forms.get("f32", 0)
+    out = flash_attention.flash_attention(q, k, v, hd ** -0.5)
+    again = flash_attention.flash_attention(q, k, v, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention.forms["f32"] == before + 2
+    assert torch.equal(out, again)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = flash_attention.attention_plain(q, k, v, hd ** -0.5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    _close_rows(out, ref, rtol=1e-5)
+
+
 @pytest.mark.parametrize("b,h,g_,t,hd", [(1, 24, 8, 2048, 128), (1, 24, 8, 1000, 128),
                                           (1, 4, 2, 130, 128), (2, 6, 3, 77, 64),
                                           (1, 8, 8, 64, 64), (1, 2, 1, 1, 128)])
@@ -579,6 +610,11 @@ def test_wrappers_raise_on_unsupported_input(dev):
     with pytest.raises(ValueError):
         flash_attention.flash_attention(q, q, q, 32 ** -0.5)
     q, kv = _bf16(g, dev, 1, 6, 8, 64), _bf16(g, dev, 1, 4, 8, 64)
+    with pytest.raises(ValueError):             # float16: no kernel takes it
+        flash_attention.flash_attention(q.half(), q.half(), q.half(), 0.125)
+    with pytest.raises(ValueError):             # the float32 kernel is non-causal
+        flash_attention.flash_attention(q.float(), q.float(), q.float(), 0.125,
+                                        causal=True)
     with pytest.raises(ValueError):             # 6 heads over 4 groups
         flash_attention.flash_attention(q, kv, kv, 0.125, causal=True)
     with pytest.raises(ValueError):             # a 100-wide chunk: no whole tiles
@@ -734,3 +770,220 @@ def test_frame_graph_shared_stream_and_new_levels_on_tiny(dev):
                                                    **kw))
         (fg, _) = eng.frame_graphs.values()
         assert sorted(fg.graphs) == [128, 256, 384, 512]
+
+
+TC_FORMS = {"int4c": (quant.int4c_matmul, quant.int4c_matmul_tiled),
+            "int4cg": (quant.int4cg_matmul, quant.int4cg_matmul_tiled)}
+
+
+def _c4_odd(gen, dev, form, k, n, group):
+    """A column-packed container of odd width ``n`` (the quantizers take
+    even N only; the kernels any): random bytes in a storage 64 bytes wider
+    than ceil(N/2), random positive scales ((K/group, N) when grouped)."""
+    ldw = -(-(n - n // 2) // 64) * 64 + 64
+    values = torch.randint(-128, 128, (k, ldw), generator=gen, device=dev,
+                           dtype=torch.int8)
+    shape = (k // group, n) if form == "int4cg" else (n,)
+    scale = 0.002 + 0.002 * torch.rand(shape, generator=gen, device=dev)
+    cls = quant.QuantizedLinearC4G if form == "int4cg" else quant.QuantizedLinearC4
+    return cls(values, scale)
+
+
+def _tc_call(dev, form, w, x, **kw):
+    """One call of the column-packed wrapper: exactly one launch, on the
+    kernel `tc_plan` names (the tile kernel above 16 rows: the tiled
+    yardstick's count does not move), the same bits twice."""
+    fn, tiled = TC_FORMS[form]
+    m, k = x.shape
+    n = w.scale.shape[-1]
+    g = w.scale.shape[0] if w.scale.ndim == 2 else 0
+    plan = quant.tc_plan(m, k, n, g, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    assert plan.splits > 0
+    before = (fn.launches, tiled.launches)
+    out = fn(x, w.values, w.scale, **kw)
+    again = fn(x, w.values, w.scale, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, tiled.launches) == (before[0] + 2, before[1])
+    assert torch.equal(out, again)
+    return out
+
+
+@pytest.mark.parametrize("m", [17, 63, 128, 129, 255, 510])
+@pytest.mark.parametrize("k,n", [(8192, 3072), (8192, 2048)])
+@pytest.mark.parametrize("form", list(TC_FORMS))
+def test_int4c_tile_gemv(dev, form, k, n, m):
+    """Rows 7 and 8 above 16 rows on the tensor-core tile kernel, at the MLP
+    down-projections (G = 64 grouped): within the twin's bound (one bf16
+    ulp grouped), one launch of the tile kernel a call."""
+    g = _gen(dev, 31 + m)
+    w = _make(g, dev, form, k, n, group=k // 64)
+    x = _bf16(g, dev, m, k)
+    out = _tc_call(dev, form, w, x)
+    _close(out, quant.matmul_plain(x, w),
+           RTOL_GROUPED if form == "int4cg" else RTOL)
+
+
+@pytest.mark.parametrize("m", [40, 130, 255])
+@pytest.mark.parametrize("n", [600, 601])
+@pytest.mark.parametrize("norm,res,out_dtype", FOLDS)
+@pytest.mark.parametrize("form", list(TC_FORMS))
+def test_int4c_tile_gemv_folds(dev, form, norm, res, out_dtype, n, m):
+    """The folds the column-packed C entry points admit, at an even N
+    (quantized, storage padded to 384 bytes) and an odd N (ldw 384 >
+    ceil(N/2) = 301), K = 512, groups of 64 rows: f32 output on the tile
+    kernel, one launch a call; a norm prologue or a residual, which the
+    tile kernel does not fold, on the tiled instance: the entry point,
+    given the tile kernel's plan, gives the tiled yardstick's bits. Within
+    the twin's bound."""
+    g = _gen(dev, 41 + m + n)
+    k = 512
+    w = (_make(g, dev, form, k, n, group=64) if n % 2 == 0
+         else _c4_odd(g, dev, form, k, n, 64))
+    x = _bf16(g, dev, m, k)
+    kw = dict(out_dtype=out_dtype,
+              pre_norm=(_bf16(g, dev, k), 1e-5) if norm else None,
+              residual=_bf16(g, dev, m, n, std=0.1) if res else None)
+    if norm or res:
+        fn, tiled = TC_FORMS[form]
+        before = (fn.launches, tiled.launches)
+        out = tiled(x, w.values, w.scale, **kw)
+        assert (fn.launches, tiled.launches) == (before[0], before[1] + 1)
+        gs = w.scale.shape[0] if w.scale.ndim == 2 else 0
+        plan = quant.tc_plan(m, k, n, gs, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        assert plan.splits > 0
+        entry = torch.empty_like(out)
+        name = "ua2_gemv_int4cg" if form == "int4cg" else "ua2_gemv_int4c"
+        nw, eps = kw["pre_norm"] or (None, 0.0)
+        _cuda.check(getattr(_cuda.lib(), name)(
+            _cuda.ptr(x), _cuda.ptr(w.values), _cuda.ptr(w.scale),
+            _cuda.ptr(nw), _cuda.ptr(kw["residual"]), _cuda.ptr(entry), m, k,
+            n, w.values.shape[1], gs, eps, int(out.dtype == torch.float32),
+            plan.splits, plan.span, _cuda.stream_of(x)), name)
+        torch.cuda.synchronize()
+        assert torch.equal(entry, out)
+    else:
+        out = _tc_call(dev, form, w, x, out_dtype=out_dtype)
+    grouped_plain = form == "int4cg" and not res
+    _close(out, quant.matmul_plain(x, w, **kw),
+           RTOL_GROUPED if grouped_plain else RTOL)
+
+
+@pytest.mark.parametrize("m", [1, 63, 255])
+@pytest.mark.parametrize("form", list(TC_FORMS))
+def test_int4c_tiled_yardstick(dev, form, m):
+    """The tiled instances at any M, counted on their own (the wrapper's
+    count does not move): within the twin's bound; the wrapper at 16 rows
+    or fewer launches the same kernel and gives its bits."""
+    g = _gen(dev, 51 + m)
+    k, n = 8192, 3072
+    w = _make(g, dev, form, k, n, group=128)
+    x = _bf16(g, dev, m, k)
+    fn, tiled = TC_FORMS[form]
+    before = (fn.launches, tiled.launches)
+    out = tiled(x, w.values, w.scale)
+    torch.cuda.synchronize()
+    assert (fn.launches, tiled.launches) == (before[0], before[1] + 1)
+    _close(out, quant.matmul_plain(x, w),
+           RTOL_GROUPED if form == "int4cg" else RTOL)
+    if m <= quant.SPLITK_MAX_M:
+        assert torch.equal(fn(x, w.values, w.scale), out)
+
+
+def _codec_on_card_and_cpu(dev, dit_cfg):
+    """One decode of the tiny codec with DiT ``dit_cfg`` from the default
+    float32 tree of `init_decode_params`, on the card and on the CPU, with
+    the same numpy noise; TF32 off for the card's convolutions and
+    products (restored after). Returns both waveforms and the card run's
+    DiT attention counts (flash kernel, plain path)."""
+    import dataclasses
+
+    import numpy as np
+
+    from uniaudio2_tpu_torch.codec import dit
+    from uniaudio2_tpu_torch.codec.decoder import (
+        CodecConfig, CodecDecoder, init_decode_params,
+    )
+
+    cfg = dataclasses.replace(CodecConfig.tiny(), dit=dit_cfg)
+    params = init_decode_params(torch.Generator().manual_seed(3), cfg,
+                                device="cpu")
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(to(v, device) for v in tree)
+        return tree.to(device) if torch.is_tensor(tree) else tree
+
+    codes = np.random.default_rng(4).integers(0, cfg.rec_codebook_size, (8, 40))
+
+    def noise(i, shape):
+        return np.random.default_rng(10 + i).standard_normal(shape, np.float32)
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        counts = (flash_attention.flash_attention.launches,
+                  dit._attention.plain_launches)
+        card = CodecDecoder(to(params, dev), cfg).decode(
+            codes, num_steps=4, noise_fn=noise)
+        counts = (flash_attention.flash_attention.launches - counts[0],
+                  dit._attention.plain_launches - counts[1])
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    cpu = CodecDecoder(params, cfg).decode(codes, num_steps=4, noise_fn=noise)
+    return card, cpu, counts
+
+
+@pytest.mark.parametrize("head_dim", [64, 16])
+def test_codec_float32_tree_on_the_card(dev, head_dim):
+    """F6: the codec's default float32 tree decodes on the card within
+    1e-5 x max|cpu| of the same decode on the CPU; at head dim 64 (a DiT
+    of 2 x 2 x 64) its DiT attention runs the float32 flash kernel, at 16
+    (`DiTConfig.tiny()`) the einsum path."""
+    import dataclasses
+
+    import numpy as np
+
+    from uniaudio2_tpu_torch.codec.dit import DiTConfig
+
+    dit_cfg = DiTConfig.tiny()
+    if head_dim != dit_cfg.head_dim:
+        dit_cfg = dataclasses.replace(dit_cfg, head_dim=head_dim)
+    dit_cfg = dataclasses.replace(dit_cfg, in_channels=32)   # 8 + 8 + 16
+    f32 = flash_attention.flash_attention.forms.get("f32", 0)
+    card, cpu, (kernel, plain) = _codec_on_card_and_cpu(dev, dit_cfg)
+    f32 = flash_attention.flash_attention.forms.get("f32", 0) - f32
+    assert card.shape == cpu.shape and np.isfinite(card).all()
+    if head_dim == 64:
+        assert kernel == f32 > 0 and plain == 0
+    else:
+        assert kernel == 0 and plain > 0
+    err = np.abs(card - cpu).max()
+    assert err <= 1e-5 * np.abs(cpu).max(), err
+
+
+def test_codec_bf16_dit_still_takes_the_kernel(dev):
+    """bf16 at head dim 64 still launches the flash kernel, once a layer
+    and solver step, and never the plain path."""
+    import dataclasses
+
+    from uniaudio2_tpu_torch.codec import dit
+    from uniaudio2_tpu_torch.codec.dit import DiTConfig
+
+    cfg = dataclasses.replace(DiTConfig.tiny(), head_dim=64, in_channels=32)
+    params = dit.init_params(_gen(dev, 61), cfg, dtype=torch.bfloat16,
+                             device=dev)
+    x = _bf16(_gen(dev, 62), dev, 2, 40, cfg.in_channels)
+    t = torch.full((2,), 0.5, device=dev)
+    before = (flash_attention.flash_attention.launches,
+              dit._attention.plain_launches)
+    out = dit.forward(params, cfg, x, t)
+    torch.cuda.synchronize()
+    assert (flash_attention.flash_attention.launches,
+            dit._attention.plain_launches) == (before[0] + cfg.num_layers,
+                                               before[1])
+    assert bool(torch.isfinite(out.float()).all())

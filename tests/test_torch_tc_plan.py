@@ -1,0 +1,208 @@
+"""The tensor-core tile kernel of rows 7 and 8 (`csrc/gemv_int4_tc.cuh`, the
+column-packed int4 GEMVs above 16 rows): its host plan (`quant.tc_plan`)
+and, on the CPU, a plain emulation of the plan's fixed-order split sum.
+
+The plan is a function of the shape and the SM count only. It sends up to
+16 rows, K not a multiple of 8 and groups of K/G rows that are not a whole
+number of k-steps of 16 to the tiled kernel; above that its tiles cover
+the output exactly (BC byte columns a block: columns c and N/2 + c; BN
+activation rows, the constants read from the kernel's source), its 1-8
+K-slices cover K with none empty, each a whole number of BK-row stages
+and of scale groups, its clusters fit in one wave (`TC_BLOCKS_PER_SM`
+blocks an SM) unless a single slice does not, no further slice would, and
+at the model's prefill shapes its grid on 132 SMs is the one the
+docstring states.
+
+The emulation adds, slice by slice in rank order, the f32 products of the
+activations with the levels (per channel: unscaled, the scale on the f32
+sum; grouped: level x scale rounded to bf16). It is held
+ * to JAX's `_pallas_int4c_matmul` / `_pallas_int4cg_matmul` in interpret
+   mode with f32 output (no folds: the Pallas kernels have none): the same
+   arithmetic in another order of f32 sums, within 1e-5 x max|ref|;
+ * to the port's plain twins (`int4c_matmul_plain` / `int4cg_matmul_plain`
+   through `matmul_plain`, the XLA fallback's rounding, bf16 output):
+   within 2e-2 x max|twin| per channel, one bf16 ulp, 2^-7 x max|twin|,
+   grouped.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from uniaudio2_tpu.ops import quant as jq
+
+from uniaudio2_tpu_torch.ops import quant
+
+SMS = 132                                  # an H100 SXM
+# (K, N) of the MLP down-projections, the narrow trees' widths, ragged N
+SHAPES = ((8192, 3072), (8192, 2048), (512, 600), (64, 200), (192, 200),
+          (320, 200), (520, 37), (100, 300))
+ROWS = (1, 16, 17, 63, 64, 65, 128, 129, 255, 256, 257, 510)
+
+
+def _groups(k):
+    """0 (per channel) and every G whose group of K/G rows is one of 8-128."""
+    return [0] + [k // gs for gs in (8, 16, 32, 48, 64, 128) if k % gs == 0]
+
+
+def _legal(plan, m, k, n, g):
+    gs = k // g if g else 0
+    if m <= quant.SPLITK_MAX_M or k % 8 or (g and gs % 16):
+        assert plan.splits == 0
+        return
+    lay = quant.tc_layout()
+    cols, splits, rows = plan.grid(m, n)
+    width = n - n // 2                     # byte columns in use
+    assert cols * lay.bc >= width > (cols - 1) * lay.bc
+    assert rows * lay.bn >= m > (rows - 1) * lay.bn
+    assert 1 <= splits == plan.splits <= lay.max_splits
+    assert plan.span % lay.bk == 0
+    assert plan.splits * plan.span >= k > (plan.splits - 1) * plan.span
+    if g:
+        assert plan.span % gs == 0         # scale groups stay whole
+
+
+@pytest.mark.parametrize("m", ROWS)
+@pytest.mark.parametrize("k,n", SHAPES)
+def test_plan_is_legal(k, n, m):
+    for g in _groups(k):
+        _legal(quant.tc_plan(m, k, n, g, SMS), m, k, n, g)
+
+
+@pytest.mark.parametrize("m,k,n,g,plan,blocks", [
+    (255, 8192, 3072, 0, (4, 2048), 96),
+    (255, 8192, 3072, 64, (4, 2048), 96),
+    (510, 8192, 3072, 0, (2, 4096), 96),
+    (510, 8192, 3072, 64, (2, 4096), 96),
+    (255, 8192, 2048, 0, (6, 1408), 96),
+    (510, 8192, 2048, 64, (3, 2816), 96),
+])
+def test_plan_grid_on_132_sms(m, k, n, g, plan, blocks):
+    """The grids `tc_plan`'s docstring states."""
+    got = quant.tc_plan(m, k, n, g, SMS)
+    assert tuple(got) == plan
+    assert got.blocks(m, n) == blocks
+
+
+def test_layout_is_the_kernels():
+    """The constants the plan reads are the tile kernel's: 64 input rows a
+    stage, 256 activation rows and 64 byte columns a block, 8 slices."""
+    assert tuple(quant.tc_layout()) == (64, 256, 64, 8)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+def test_plan_fills_one_wave(sms):
+    """Above 16 rows the plan's clusters fit in one wave of
+    `TC_BLOCKS_PER_SM` x ``sms`` blocks unless one slice a tile already
+    does not, and a further slice would leave the wave, pass the most a
+    cluster holds, or leave a slice empty; the same inputs give the same
+    plan."""
+    lay = quant.tc_layout()
+    wave = int(quant.TC_BLOCKS_PER_SM * sms)
+    for k, n in SHAPES[:3]:
+        for m in (17, 63, 255, 510):
+            for g in (0, k // 64):
+                plan = quant.tc_plan(m, k, n, g, sms)
+                cols, _, rows = plan.grid(m, n)
+                tiles = cols * rows
+                assert plan.blocks(m, n) <= wave or plan.splits == 1
+                unit = math.lcm(lay.bk, k // g) if g else lay.bk
+                more = plan.splits + 1
+                span = -(-(-(-k // unit)) // more) * unit
+                assert (tiles * more > wave or more > lay.max_splits
+                        or -(-k // span) < more)
+                quant.tc_plan.cache_clear()
+                assert quant.tc_plan(m, k, n, g, sms) == plan
+
+
+def _emulate(x, w, plan):
+    """The tile kernel's arithmetic, f32 out: slice partials in rank order,
+    then the scale (per channel)."""
+    k = x.shape[-1]
+    grouped = isinstance(w, quant.GROUPED)
+    xs = x.float()
+    lv = quant.levels(w).float()                       # (K, N)
+    if grouped:
+        g = w.scale.shape[0]
+        lv = (lv.reshape(g, k // g, -1) * w.scale[:, None, :]).reshape(k, -1)
+        lv = lv.to(torch.bfloat16).float()
+    total = torch.zeros(x.shape[0], lv.shape[1])
+    for s in range(plan.splits):
+        k0, k1 = s * plan.span, min(k, (s + 1) * plan.span)
+        total = total + xs[:, k0:k1] @ lv[k0:k1]
+    if not grouped:
+        total = total * w.scale
+    return total
+
+
+def _inputs(grouped, k, n, m, group, seed):
+    """A column-packed weight (quantized at even N; at odd N, which the
+    quantizers refuse but the kernels take, random bytes in a storage 64
+    bytes wider than ceil(N/2) and random scales), x, a norm weight and a
+    residual."""
+    rng = np.random.default_rng(seed)
+    if n % 2:
+        ldw = -(-(n - n // 2) // 64) * 64 + 64
+        values = torch.from_numpy(rng.integers(-128, 128, (k, ldw), dtype=np.int8))
+        shape = (k // group, n) if grouped else (n,)
+        scale = torch.from_numpy(
+            (0.002 + 0.002 * rng.random(shape)).astype(np.float32))
+        c = (quant.QuantizedLinearC4G if grouped else quant.QuantizedLinearC4)(
+            values, scale)
+    else:
+        w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32) * 0.02)
+        c = (quant.quantize4_cols_grouped(w, group) if grouped
+             else quant.quantize4_cols(w))
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        torch.bfloat16)
+    nw = torch.from_numpy(1.0 + 0.1 * rng.standard_normal(k).astype(
+        np.float32)).to(torch.bfloat16)
+    res = torch.from_numpy(0.1 * rng.standard_normal((m, n)).astype(
+        np.float32)).to(torch.bfloat16)
+    return c, x, nw, res
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("k,n,m,group", [(1024, 300, 17, 64),
+                                         (768, 601, 40, 128),
+                                         (2048, 256, 130, 32)])
+def test_split_sum_matches_jax_and_the_twin(grouped, k, n, m, group):
+    c, x, _, _ = _inputs(grouped, k, n, m, group, seed=k + n + m)
+    g = c.scale.shape[0] if grouped else 0
+    plan = quant.tc_plan(m, k, n, g, SMS)
+    assert plan.splits > 1                 # a real split at these shapes
+    emu = _emulate(x, c, plan)
+    jfn = jq._pallas_int4cg_matmul if grouped else jq._pallas_int4c_matmul
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jfn(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+                             jnp.asarray(c.values.numpy()),
+                             jnp.asarray(c.scale.numpy()),
+                             out_dtype=jnp.float32))
+    np.testing.assert_allclose(emu.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    twin = quant.matmul_plain(x, c)
+    tol = (2.0 ** -7 if grouped else 2e-2) * twin.float().abs().max().item()
+    assert (emu.to(torch.bfloat16).float()
+            - twin.float()).abs().max().item() <= tol
+
+
+def test_wrappers_take_the_twin_on_the_cpu():
+    """On CPU tensors the column-packed wrappers (f32 output) and their
+    tiled yardsticks (with every fold) return the twin, and count no
+    launch."""
+    c, x, nw, res = _inputs(False, 512, 600, 63, 64, seed=3)
+    cg, *_ = _inputs(True, 512, 600, 63, 64, seed=4)
+    for fn, tiled, w in ((quant.int4c_matmul, quant.int4c_matmul_tiled, c),
+                         (quant.int4cg_matmul, quant.int4cg_matmul_tiled, cg)):
+        before = (fn.launches, tiled.launches)
+        f32 = quant.matmul_plain(x, w, out_dtype=torch.float32)
+        assert torch.equal(fn(x, w.values, w.scale, out_dtype=torch.float32),
+                           f32)
+        kw = dict(pre_norm=(nw, 1e-5), residual=res, out_dtype=torch.float32)
+        ref = quant.matmul_plain(x, w, **kw)
+        assert torch.equal(tiled(x, w.values, w.scale, **kw), ref)
+        assert (fn.launches, tiled.launches) == before

@@ -11,10 +11,19 @@ scale-shift table and a conv + linear output projection.
 Shipped shape: 32 layers x 24 heads x 64 head-dim (D = 1536), in 1040
 (136 noisy latent | 136 in-context latent | 768 condition), out 136.
 
-The self-attention runs `ops.flash_attention.flash_attention`: the
-hand-written CUDA kernel on the card at every T, its plain twin (the JAX
-einsum path) on the CPU. The matrix products stay ``torch.matmul``, as
-they are XLA code in the JAX package.
+The self-attention picks its path by dtype and head dim as the JAX DiT's
+`_flash_ok` does (`flash_ok`): bf16 and float32 at a head dim the kernels
+are built for (`flash_attention.HEAD_DIMS`) run
+`ops.flash_attention.flash_attention`, the hand-written CUDA kernels on
+the card (``flash_attn.cu`` in bf16, ``flash_attn_f32.cu`` in float32)
+and their plain twin on the CPU; every other head dim (the tiny config's
+16) runs `flash_attention.attention_plain`, the JAX einsum path, on any
+device. Two differences from `_flash_ok`: the kernels run at every T,
+since they mask T themselves (the JAX gate's T >= 128 is a TPU tuning
+choice), and hd 256, which no DiT configuration has, takes the einsum
+path. ``_attention.plain_launches`` counts the calls that took it.
+The matrix products stay ``torch.matmul``, as they are XLA code in the
+JAX package.
 
 Params (JAX key names and layouts; convs (k, C_in, C_out), linears
 (in, out), blocks stacked on a leading L):
@@ -161,14 +170,27 @@ def _sinusoidal_positions(length: int, dim: int, device: torch.device) -> torch.
     return pe
 
 
+def flash_ok(dtype: torch.dtype, hd: int) -> bool:
+    """Whether the DiT's attention of this dtype and head dim goes to the
+    flash kernels (else to the einsum path)."""
+    return dtype in flash_attention.DTYPES and hd in flash_attention.HEAD_DIMS
+
+
 def _attention(x: torch.Tensor, qkv_w, qkv_b, out_w, out_b,
                num_heads: int) -> torch.Tensor:
     b, t, d = x.shape
     hd = d // num_heads
     qkv = (x @ qkv_w + qkv_b).reshape(b, t, 3, num_heads, hd)
     q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().unbind(0)  # (B, H, T, hd)
-    o = flash_attention.flash_attention(q, k, v, hd ** -0.5)
+    if flash_ok(q.dtype, hd):
+        o = flash_attention.flash_attention(q, k, v, hd ** -0.5)
+    else:
+        o = flash_attention.attention_plain(q, k, v, hd ** -0.5)
+        _attention.plain_launches += 1
     return o.transpose(1, 2).reshape(b, t, d) @ out_w + out_b
+
+
+_attention.plain_launches = 0
 
 
 def forward(params: Params, cfg: DiTConfig, x: torch.Tensor,

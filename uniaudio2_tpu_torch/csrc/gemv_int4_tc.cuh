@@ -1,0 +1,537 @@
+// Tensor-core tile kernel of the int4 GEMVs above the decode rows, for
+// sm_90a. Included by gemv_int4c.cu and gemv_int4cg.cu, which instantiate
+// it for the column-packed layout (C4) with per-column and with grouped
+// scales; the layout enters only through `unpack` and the epilogue's
+// column map, so the row-interleaved and K-split layouts can take it too.
+//
+//   out (M, N) = x (M, K) @ unpack(W) (K, N) [* scale]
+//
+// Replaces, above quant.SPLITK_MAX_M activation rows, the tiled template of
+// gemv_common.cuh for `_pallas_int4c_matmul` / `_pallas_int4cg_matmul`
+// (uniaudio2_tpu/ops/quant.py:789-916). The serving path calls them alone at
+// a prefill of more than 128 rows (the fused MLP takes up to 128): the MLP
+// down-projection, 8192 -> 3072 or 2048, at M = 255 or 510.
+//
+// Bound: operations. At (M = 255, K = 8192, N = 3072) a call is 12.8 GFLOP
+// (13 us at 989 TFLOP/s) against 12.6 MB of weights (3.8 us at 3.35 TB/s).
+// The tiled template gives every 4 activation rows a block that reads all of
+// W through L2 and spends f32 FMAs on the CUDA cores (0.19 ms at 67 TFLOP/s
+// before any unpacking), so only the tensor cores can reach the bound.
+//
+// Design:
+//  * products on wgmma, operands swapped: out^T = W^T . x^T. The unpacked
+//    weights are the A operand (64 output columns a warpgroup, from
+//    registers) and the activations are B (BN = 256 rows, bf16,
+//    contraction-major as x (M, K) already is, from shared memory); f32
+//    sums. A thread of an A fragment holds rows g and g + 8 of its warp's
+//    16 (g = lane / 4); row g is the low nibble and row g + 8 the high
+//    nibble of one byte column, so each byte a thread loads gives it both of
+//    its rows' levels, and the epilogue writes columns c and N/2 + c;
+//  * a block is WGS = 2 consumer warpgroups (64 byte columns, 128 output
+//    columns) and one producer warp. The producer keeps a ring of STAGES
+//    stages of BK = 64 input rows full by TMA (x: a (BN, 64) bf16 box,
+//    128-byte swizzled as wgmma reads it; W: a (64, 64) byte box, 64-byte
+//    swizzled so that the four rows a thread reads of a k-step of 16 fall in
+//    distinct banks), each stage with a `full` mbarrier (the box bytes) and
+//    an `empty` one (every consumer thread arrives once its products of the
+//    stage have completed), so the loads of later stages run under the
+//    products of this one. Rows past M and K are zero-filled by the TMA
+//    unit; the epilogue masks columns past N;
+//  * each weight byte is read once per row tile of BN rows: at M = 255 one
+//    row tile reads the 12.6 MB once;
+//  * unpack without conversions, as gemv_int4_splitk.cuh: XOR 0x88 makes a
+//    nibble n + 8, one LOP3 puts two nibbles under the bf16 exponent of 128
+//    and one bf16x2 FMA subtracts 136: the exact levels. Grouped: each level
+//    becomes f32 the same way, is multiplied by its f32 scale (row k / (K/G),
+//    fetched from L2 a stage ahead) and rounded to bf16 before the product,
+//    as the Pallas kernel rounds the scaled tile;
+//  * the host (`quant.tc_plan`) picks a split of K into S <= 8 slices of
+//    whole stages (and whole scale groups) from the shape and the SM count.
+//    The S slices of a tile are one thread-block cluster; each block parks
+//    its f32 partial tile in its shared memory (the drained ring) and rank r
+//    finishes rows r, r + S, ... of the tile, adding the ranks' partials in
+//    rank order through distributed shared memory, then the scale and one
+//    rounding (bf16 or f32 output). No atomics, no workspace, the same bits
+//    on every run;
+//  * one row tile of BN = 256: at the serving path's M (255 and 510) a
+//    smaller tile would only add blocks that read the weights again; rows
+//    past M are zero-filled and never written;
+//  * no RMSNorm prologue and no residual: the serving path applies both
+//    around these GEMVs (`quant.matmul`, as the JAX package does), and the
+//    C entry points send a call that passes either to the tiled template,
+//    which folds both.
+// Not here: a persistent schedule, TMA multicast of x across a cluster of
+// column tiles, overlapping a stage's unpacking with the previous stage's
+// products inside a warpgroup (the two warpgroups of a block interleave
+// instead). Tried for that overlap, and none ran faster than this step at
+// every M: two sets of A fragments with wait_group 1 spill at BN = 256 (a
+// block of 288 threads gets 168 registers a thread: registers go by whole
+// warpgroups); handing the producer's registers over with setmaxnreg left
+// ptxas's allocation, and the spills, as they were; one commit group a
+// k-step with four A slots made ptxas serialize the products (C7513:
+// registers of a wgmma defined inside the pipeline stage).
+//
+// `quant.tc_plan` reads BK, BN, BC and MAX_SPLITS from this file.
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda.h>
+
+#include "gemv_common.cuh"
+
+namespace ua2 {
+namespace tc {
+
+namespace cg = cooperative_groups;
+
+constexpr int BK = 64;                    // input rows a stage
+constexpr int BN = 256;                   // activation rows a block (wgmma's N)
+constexpr int STAGES = 4;
+constexpr int WGS = 2;                    // consumer warpgroups a block
+constexpr int BC = 64;                    // byte columns a block
+constexpr int CONSUMERS = 128 * WGS;
+constexpr int THREADS = CONSUMERS + 32;   // + the producer warp
+constexpr int PITCH = 2 * BC + 4;         // floats a row of the partial tile
+constexpr int X_BYTES = BN * 128;         // an x stage: BN rows of BK bf16
+constexpr int W_BYTES = BK * BC;          // a W stage
+constexpr int MAX_SPLITS = 8;
+constexpr unsigned OFFSET = 0x88888888u;  // two's complement -> n + 8
+constexpr unsigned MAGIC2 = 0x43004300u;  // bf16x2 (128, 128)
+static_assert(BC == 32 * WGS, "a consumer warpgroup owns 32 byte columns");
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+// The ring during the loop, the partial tile after it.
+constexpr int REGION = cmax(STAGES * (X_BYTES + W_BYTES), BN * PITCH * 4);
+// Dynamic shared memory: 1024 bytes of alignment slack (the 128-byte
+// swizzle's period), the region, the 2 STAGES mbarriers.
+constexpr int SMEM = 1024 + REGION + 16 * STAGES;
+static_assert(SMEM <= 232448, "over the 227 KB a block may take");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A box of the 2-D tensor map at (c0, c1) into this block's shared memory,
+// completing its bytes on the barrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// The consumer warpgroups' barrier (the producer warp is not in it).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
+}
+
+// A wgmma descriptor of the 128-byte-swizzled layout (16-byte units).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Pins the registers a wgmma reads or writes here (see flash_attn.cu): the
+// accumulator after a wait, the A fragments before the fence.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// d (64 x 256, f32) += A (64 x 16, bf16 in registers) . B (16 x 256, bf16
+// in shared memory, contraction-major: no transpose).
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "
+      "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
+      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "
+      "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "
+      "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "
+      "%119, %120, %121, %122, %123, %124, %125, %126, %127}"
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]),
+        "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]),
+        "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
+        "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// (a & b) | c in one LOP3.
+__device__ __forceinline__ unsigned and_or(unsigned a, unsigned b, unsigned c) {
+  unsigned d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// The offset nibbles at bits 0-3 and 16-19 of q as the bf16x2 of their
+// levels, exact: 128 + (n + 8) - 136.
+__device__ __forceinline__ unsigned levels2(unsigned q) {
+  const unsigned v = and_or(q, 0x000F000Fu, MAGIC2);
+  unsigned d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;"
+      : "=r"(d) : "r"(v), "r"(0x3F803F80u), "r"(0xC308C308u));   // x 1 - 136
+  return d;
+}
+
+// The level of the nibble of byte b under `mask` (0x0F: the low nibble, n;
+// 0xF0: the high one, as 16 n), exact, in f32: 2^23 + (n + 8) - (2^23 + 8).
+__device__ __forceinline__ float level_f(unsigned b, unsigned mask) {
+  const unsigned flip = mask & 0x88u;
+  const float f = __uint_as_float(((b & mask) ^ flip) | 0x4B000000u);
+  return f - (8388608.f + (float)flip);
+}
+
+__device__ __forceinline__ unsigned pack_bf2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// The A fragment of one k-step of 16 from the four bytes of this thread's
+// byte column at rows 2t, 2t + 1, 2t + 8, 2t + 9 of the step: registers 0
+// and 2 the low nibbles (A row g), 1 and 3 the high ones (row g + 8); each
+// register the levels of two consecutive rows, the lower row in its low
+// half. Grouped: the levels times the f32 scales of the byte column's low
+// (slo) and high (shi16 = shi / 16) columns, rounded to bf16.
+template <bool GROUPED>
+__device__ __forceinline__ void unpack(unsigned b0, unsigned b1, unsigned b2,
+                                       unsigned b3, float slo, float shi16,
+                                       uint32_t (&a)[4]) {
+  if constexpr (GROUPED) {
+    a[0] = pack_bf2(level_f(b0, 0x0Fu) * slo, level_f(b1, 0x0Fu) * slo);
+    a[1] = pack_bf2(level_f(b0, 0xF0u) * shi16, level_f(b1, 0xF0u) * shi16);
+    a[2] = pack_bf2(level_f(b2, 0x0Fu) * slo, level_f(b3, 0x0Fu) * slo);
+    a[3] = pack_bf2(level_f(b2, 0xF0u) * shi16, level_f(b3, 0xF0u) * shi16);
+  } else {
+    // bytes (b0, b2, b1, b3): levels2 pairs byte 0 with byte 2
+    const unsigned v = __byte_perm(__byte_perm(b0, b2, 0x0040), __byte_perm(b1, b3, 0x0040),
+                                   0x5410) ^ OFFSET;
+    a[0] = levels2(v);
+    a[1] = levels2(v >> 4);
+    a[2] = levels2(v >> 8);
+    a[3] = levels2(v >> 12);
+  }
+}
+
+// Fragments (PTX ISA, wgmma m64nNk16): warp u of a warpgroup holds A rows
+// 16 u + g and 16 u + g + 8 (lane = 4 g + t); accumulator register 4 n + e
+// (e < 2) is A row 16 u + g, B column (activation row) 8 n + 2 t + e, and
+// 4 n + 2 + e the A row 8 below.
+//
+// Grid: (column tiles of BC bytes, S K-slices of `span` input rows, row
+// tiles of BN), launched as clusters of (1, S, 1).
+template <bool GROUPED>
+__global__ void __launch_bounds__(THREADS, 1)
+gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
+               const __grid_constant__ CUtensorMap tw, const float* __restrict__ scale,
+               void* __restrict__ out, int M, int K, int N, int G, int out_f32, int span) {
+  constexpr int XB = X_BYTES;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int nh = N / 2;
+  const int col0 = blockIdx.x * BC;                   // first byte column
+  const int k_begin = blockIdx.y * span;
+  const int steps = (min(K, k_begin + span) - k_begin + BK - 1) / BK;
+  const int m0 = blockIdx.z * BN;
+  // the warp index broadcast from lane 0, so that the compiler sees it (and
+  // every descriptor made from it) as uniform
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int lane = threadIdx.x & 31;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);     // `base` as a pointer
+  const uint32_t x_s = base;                          // stage s at + s XB
+  const uint32_t w_s = base + STAGES * XB;            // stage s at + s W_BYTES
+  float* part = reinterpret_cast<float*>(gbase);      // BN x PITCH, after the loop
+  const uint32_t bars = base + REGION;                // full[s], then empty[s]
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);                     // the producer's arrival
+      mbar_init(bars + 8 * (STAGES + s), CONSUMERS);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * WGS) {
+    // the producer: stage j holds input rows k_begin + 64 j ...
+    if (lane == 0) {
+      for (int j = 0; j < steps; ++j) {
+        const int s = j % STAGES;
+        const uint32_t full = bars + 8 * s;
+        if (j >= STAGES) mbar_wait(bars + 8 * (STAGES + s), ((j / STAGES) - 1) & 1);
+        mbar_expect_tx(full, XB + W_BYTES);
+        const int k = k_begin + j * BK;
+        tma_load(x_s + s * XB, &tx, full, k, m0);
+        tma_load(w_s + s * W_BYTES, &tw, full, col0, k);
+      }
+    }
+  } else {
+    const int wg = warp >> 2, u = warp & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int cl = 32 * wg + 8 * u + g;               // byte column in the tile
+    const int c = col0 + cl;
+    // byte (row 2t, column cl) of a W stage under the 64-byte swizzle: the
+    // 16-byte chunk of a row is XORed with bits 7-8 of its offset, which
+    // are t for each of the rows 2t, 2t + 1, 2t + 8, 2t + 9 of a k-step
+    const int w_off = 2 * t * BK + ((((cl >> 4) ^ t) << 4) | (cl & 15));
+    const unsigned char* wsm = gbase + STAGES * XB + w_off;
+
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    const int gs = GROUPED ? K / G : 1;               // input rows a group
+    for (int j = 0; j < steps; ++j) {
+      const int s = j % STAGES;
+      const int k0 = k_begin + j * BK;
+      float slo[4] = {0.f, 0.f, 0.f, 0.f}, shi[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (GROUPED) {
+        // a k-step of 16 lies in one group (the plan: K / G % 16 == 0)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int gi = min((k0 + 16 * kk) / gs, G - 1);
+          slo[kk] = c < nh ? __ldg(scale + (size_t)gi * N + c) : 0.f;
+          shi[kk] = nh + c < N ? __ldg(scale + (size_t)gi * N + nh + c) * 0.0625f : 0.f;
+        }
+      }
+      mbar_wait(bars + 8 * s, (j / STAGES) & 1);
+      uint32_t a[4][4];
+      const unsigned char* wp = wsm + s * W_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const unsigned char* q = wp + kk * 16 * BK;
+        unpack<GROUPED>(q[0], q[BK], q[8 * BK], q[9 * BK], slo[kk], shi[kk], a[kk]);
+      }
+      fence_regs(a);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc, a[kk], sw128_desc(x_s + s * XB + 32 * kk, 16, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      mbar_arrive(bars + 8 * (STAGES + s));             // the stage is free
+    }
+
+    // the block's partial tile: row = activation row, column cl the low
+    // nibbles' output column, BC + cl the high nibbles'
+    consumers_sync();                                   // the ring is drained
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float* dst = part + (8 * n + 2 * t + e) * PITCH + cl;
+        dst[0] = acc[4 * n + e];
+        dst[BC] = acc[4 * n + 2 + e];
+      }
+  }
+
+  // across the cluster: rank r finishes activation rows r, r + S, ... of the
+  // tile, adding the ranks' partials in rank order
+  __syncwarp();                       // the producer warp's lanes meet again
+  cluster.sync();
+  const int rows = (BN - rank + S - 1) / S;
+  for (int i = threadIdx.x; i < rows * 2 * BC; i += THREADS) {
+    const int r = rank + S * (i / (2 * BC)), jc = i % (2 * BC);
+    const int row = m0 + r, bcol = col0 + jc % BC;
+    const bool hi = jc >= BC;
+    if (row >= M || bcol >= (hi ? N - nh : nh)) continue;
+    const int col = hi ? nh + bcol : bcol;
+    float pv[MAX_SPLITS];
+#pragma unroll
+    for (int q = 0; q < MAX_SPLITS; ++q)
+      pv[q] = q < S ? cluster.map_shared_rank(part, q)[r * PITCH + jc] : 0.f;
+    float v = 0.f;
+#pragma unroll
+    for (int q = 0; q < MAX_SPLITS; ++q)
+      if (q < S) v += pv[q];
+    if (!GROUPED) v *= __ldg(scale + col);
+    if (out_f32)
+      reinterpret_cast<float*>(out)[(size_t)row * N + col] = v;
+    else
+      reinterpret_cast<__nv_bfloat16*>(out)[(size_t)row * N + col] = __float2bfloat16(v);
+  }
+  cluster.sync();                     // no block leaves while its tile is read
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
+// (no -lcuda), as flash_attn.cu does.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a row-major (rows, cols) matrix, rows `pitch` bytes
+// apart, read in boxes of (box_rows, box_cols);
+// entries past either edge read as zeros.
+inline bool map2d(CUtensorMap* map, const void* p, CUtensorMapDataType type, int rows,
+                  int cols, int pitch, int box_rows, int box_cols,
+                  CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(p), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// True when (splits, span) is a launch this kernel takes for the shape:
+// what `quant.tc_plan` returns for it, and what the C entry points check.
+inline bool plan_ok(int M, int K, int N, int ldw, int G, int splits, int span) {
+  if (splits < 1 || splits > MAX_SPLITS || span < BK || span % BK) return false;
+  if ((long long)splits * span < K || (long long)(splits - 1) * span >= K) return false;
+  if (M < 1 || N < 1 || K % 8 || ldw % 16 || ldw < N - N / 2) return false;
+  if (G > 0 && (K % G || (K / G) % 16)) return false;
+  return true;
+}
+
+// The C4 launch: x (M, K) bf16 and w (K, ldw) int8, both 16-byte aligned.
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a plan the
+// kernel does not take or a tensor map cuTensorMapEncodeTiled refuses.
+template <bool GROUPED>
+int launch_c4(const void* x, const void* w, const void* scale, void* out, int M, int K,
+              int N, int ldw, int G, int out_f32, int splits, int span,
+              cudaStream_t stream) {
+  if (GROUPED != (G > 0) || !plan_ok(M, K, N, ldw, G, splits, span) ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  if (!map2d(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, M, K, K * 2, BN, BK,
+             CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !map2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, ldw, ldw, BK, BC,
+             CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = gemv_tc_kernel<GROUPED>;
+  static bool ready[64] = {};     // the shared-memory cap, raised once a device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64 || !ready[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) ready[dev] = true;
+  }
+  const int width = N - N / 2;                         // byte columns in use
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((width + BC - 1) / BC, splits, (M + BN - 1) / BN);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, tx, tw, static_cast<const float*>(scale), out, M,
+                         K, N, G, out_f32, span);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+}  // namespace ua2

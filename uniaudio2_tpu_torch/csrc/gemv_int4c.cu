@@ -8,22 +8,41 @@
 // W is (K, ldw) int8, ldw >= ceil(N/2): byte [k, c] holds column c in its
 // low nibble and column N/2 + c in its high nibble, the layout of the MLP
 // down-projection under int4 (8192 -> 3072 or 2048). One byte feeds two
-// far-apart output columns, so a thread keeps two accumulator sets and the
-// epilogue writes column c (c < N/2) and column N/2 + c (c < N - N/2); the
-// Pallas kernel's (2, M, halfpad) block and its re-concatenation do not
-// exist here. `quant.matmul` calls it with neither norm nor residual, as the
-// Pallas kernel has neither (the fused SwiGLU's second pass does pass a
-// residual, which this kernel adds in f32 before the one rounding).
+// far-apart output columns, so the epilogue writes column c (c < N/2) and
+// column N/2 + c (c < N - N/2); the Pallas kernel's (2, M, halfpad) block
+// and its re-concatenation do not exist here. `quant.matmul` calls it with
+// neither norm nor residual, as the Pallas kernel has neither (the fused
+// SwiGLU's second pass runs the tiled template with a residual, which it
+// adds in f32 before the one rounding).
 //
-// Bound: weight bytes (K*N/2) at M <= 128, where the fused SwiGLU runs it;
-// alone it runs at a prefill of more than 128 rows, bound by operations.
-#include "gemv_common.cuh"
+// Two kernels behind one entry point, as the host's plan says
+// (`quant.tc_plan`, splits = 0: the tiled one):
+//  * above quant.SPLITK_MAX_M rows, the tensor-core tile kernel of
+//    gemv_int4_tc.cuh (a prefill of more than 128 rows: bound by
+//    operations);
+//  * at up to 16 rows, at shapes the tile kernel does not take, and for a
+//    call with a norm or a residual (the tile kernel folds neither), the
+//    tiled template of gemv_common.cuh (bound by weight bytes at M <= 2);
+//    `ua2_gemv_int4c_tiled` launches it at any M (the yardstick).
+#include "gemv_int4_tc.cuh"
 
 extern "C" int ua2_gemv_int4c(const void* x, const void* w, const void* scale,
-                    const void* norm_w, const void* residual, void* out, int M,
-                    int K, int N, int ldw, int G, float eps, int out_f32,
-                    void* stream) {
-  return ua2::launch_gemv<ua2::C4, false>(x, w, scale, norm_w, residual, out, M, K,
-                                          N, ldw, G, eps, out_f32,
+                              const void* norm_w, const void* residual, void* out, int M,
+                              int K, int N, int ldw, int G, float eps, int out_f32, int splits,
+                              int span, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (splits == 0 || norm_w != nullptr || residual != nullptr)
+    return ua2::launch_gemv<ua2::C4, false>(x, w, scale, norm_w, residual, out, M, K, N,
+                                            ldw, G, eps, out_f32, st);
+  return ua2::tc::launch_c4<false>(x, w, scale, out, M, K, N, ldw, G, out_f32, splits,
+                                    span, st);
+}
+
+extern "C" int ua2_gemv_int4c_tiled(const void* x, const void* w, const void* scale,
+                                    const void* norm_w, const void* residual, void* out,
+                                    int M, int K, int N, int ldw, int G, float eps,
+                                    int out_f32, void* stream) {
+  return ua2::launch_gemv<ua2::C4, false>(x, w, scale, norm_w, residual, out, M, K, N,
+                                          ldw, G, eps, out_f32,
                                           static_cast<cudaStream_t>(stream));
 }

@@ -27,8 +27,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("gemv_int4i.cu", "gemv_int8.cu", "gemv_int4.cu", "gemv_int4g.cu",
            "gemv_int4c.cu", "gemv_int4cg.cu", "qkv_rope.cu", "fused_swiglu.cu",
-           "flash_attn.cu", "lean_update.cu", "gemv_int8_splitk.cu",
-           "gemv_int4_native.cu", "gemv_int4_sweep.cu", "gemv_int4_stacked.cu")
+           "flash_attn.cu", "flash_attn_f32.cu", "lean_update.cu",
+           "gemv_int8_splitk.cu", "gemv_int4_native.cu", "gemv_int4_sweep.cu",
+           "gemv_int4_stacked.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -38,8 +39,10 @@ _L = ctypes.c_longlong
 # (G scale groups, 0 = per-channel)
 _GEMV = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]
 # the same with the host's plan before the stream: splits (0 = the tiled
-# instance), mt, span (`quant.gemv_plan`)
+# instance), mt, span (`quant.gemv_plan`); for the column-packed forms
+# splits (0 = the tiled instance), span (`quant.tc_plan`)
 _GEMV_PLAN = _GEMV[:-1] + [_I, _I, _I, _P]
+_GEMV_TC = _GEMV[:-1] + [_I, _I, _P]
 _SIGNATURES = {
     "ua2_gemv_int4i": _GEMV_PLAN,
     "ua2_gemv_int4i_tiled": _GEMV,
@@ -48,8 +51,10 @@ _SIGNATURES = {
     "ua2_gemv_int4_tiled": _GEMV,
     "ua2_gemv_int4g": _GEMV_PLAN,
     "ua2_gemv_int4g_tiled": _GEMV,
-    "ua2_gemv_int4c": _GEMV,
-    "ua2_gemv_int4cg": _GEMV,
+    "ua2_gemv_int4c": _GEMV_TC,
+    "ua2_gemv_int4c_tiled": _GEMV,
+    "ua2_gemv_int4cg": _GEMV_TC,
+    "ua2_gemv_int4cg_tiled": _GEMV,
     # x, w, scale, norm_w, cos, sin, q, k, v, B, K, n_head, n_groups,
     # head_size, layout, G, eps, stream
     "ua2_qkv_rope": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -61,6 +66,9 @@ _SIGNATURES = {
     # q, k, v, o, B, H, G, T, hd, scale, causal, bq (query rows a block,
     # `flash_attention.flash_plan`), stream
     "ua2_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, o, B, H, G, T, hd, scale, stream: float32, non-causal
+    # (csrc/flash_attn_f32.cu)
+    "ua2_flash_attn_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # hd, bq, int[3] out: keys a stage, stages, dynamic shared bytes
     "ua2_flash_layout": [_I, _I, _P],
     # g, m_q, m_scale, p, a, b, upd, new_m_q, new_m_scale, rows,

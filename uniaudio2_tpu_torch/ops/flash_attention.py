@@ -1,9 +1,11 @@
 """Softmax attention: non-causal for the codec DiT, causal with grouped K/V
 heads for the backbone's prefill probe.
 
-CUDA kernel ``ua2_flash_attn`` (``csrc/flash_attn.cu``: wgmma products,
-K/V through a TMA ring, the launch planned on the host by `flash_plan`)
-replaces `_flash_attention` (uniaudio2_tpu/codec/dit.py:174-193), the JAX
+CUDA kernels ``ua2_flash_attn`` (``csrc/flash_attn.cu``, bf16: wgmma
+products, K/V through a TMA ring, the launch planned on the host by
+`flash_plan`) and ``ua2_flash_attn_f32`` (``csrc/flash_attn_f32.cu``,
+float32, non-causal: f32 FMAs on the CUDA cores) replace
+`_flash_attention` (uniaudio2_tpu/codec/dit.py:174-193), the JAX
 package's call of JAX's Pallas TPU ``flash_attention``, and `bb_flash`
 (scripts/profile_attention.py:102-108), the same bundled kernel with
 ``causal=True`` over K/V repeated from G groups to H heads. It computes the
@@ -19,7 +21,8 @@ f32 softmax, probabilities cast to ``v.dtype``, then P.V. The kernel rounds
 the *unnormalised* P to bf16 and divides by the row sum at the end (the
 flash convention); in bf16 the two agree to about 2^-8 of the output's
 range, so the card-side check is |kernel - twin| <= 2e-2 x max|twin|, as
-for the GEMV kernels.
+for the GEMV kernels. In float32 both keep every product and probability
+in f32 and differ in the order of the sums only.
 
 The backbone's own prefill keeps `ops.attention.causal_attention`: the JAX
 engine's prefill runs that XLA einsum, not a Pallas kernel.
@@ -36,7 +39,8 @@ import torch
 from uniaudio2_tpu_torch.ops import _cuda
 from uniaudio2_tpu_torch.ops.quant import check_operand
 
-HEAD_DIMS = (64, 128)   # the kernel's instantiations
+HEAD_DIMS = (64, 128)   # the kernels' instantiations
+DTYPES = (torch.bfloat16, torch.float32)   # flash_attn.cu, flash_attn_f32.cu
 
 
 class FlashPlan(NamedTuple):
@@ -91,29 +95,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``q`` (B, H, T, hd), ``k``, ``v`` (B, G, T, hd) with H % G == 0 ->
     (B, H, T, hd) in ``q.dtype``: softmax(q k^T * scale) v per (batch,
     head) over all T keys, or keys up to each query's own position when
-    ``causal``."""
+    ``causal``. bf16 launches ``ua2_flash_attn``, float32 (non-causal
+    only: the DiT is its one caller) ``ua2_flash_attn_f32``, counted as
+    the form "f32"."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale, causal)
     b, h, t, hd = q.shape
     g = k.shape[1]
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"flash_attention: dtype {q.dtype} not in {DTYPES}")
+    if causal and q.dtype == torch.float32:
+        raise ValueError("flash_attention: the float32 kernel is non-causal")
     if g <= 0 or h % g:
         raise ValueError(f"flash_attention: {h} heads over {g} K/V groups")
     dev = q.device
     for name, x, heads in (("q", q, h), ("k", k, g), ("v", v, g)):
-        check_operand(x, name, torch.bfloat16, (b, heads, t, hd), dev)
+        check_operand(x, name, q.dtype, (b, heads, t, hd), dev)
         if x.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
     o = torch.empty_like(q)
     if t == 0:
         return o
-    plan = flash_plan(b, h, g, t, hd)
-    err = _cuda.lib().ua2_flash_attn(
-        _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(o), b, h, g, t, hd,
-        float(scale), int(causal), plan.bq, _cuda.stream_of(q))
-    _cuda.check(err, "ua2_flash_attn")
-    _cuda.count(flash_attention, "causal" if causal else None)
+    args = (_cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(o), b, h, g, t,
+            hd, float(scale))
+    if q.dtype == torch.float32:
+        err = _cuda.lib().ua2_flash_attn_f32(*args, _cuda.stream_of(q))
+        _cuda.check(err, "ua2_flash_attn_f32")
+        form = "f32"
+    else:
+        plan = flash_plan(b, h, g, t, hd)
+        err = _cuda.lib().ua2_flash_attn(*args, int(causal), plan.bq,
+                                         _cuda.stream_of(q))
+        _cuda.check(err, "ua2_flash_attn")
+        form = "causal" if causal else None
+    _cuda.count(flash_attention, form)
     return o
 
 

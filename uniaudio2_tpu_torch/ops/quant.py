@@ -22,9 +22,11 @@ Six kernels of the JAX package live here, as CUDA C++ for ``sm_90a``
   the split-K cluster kernel too);
 * `int4g_matmul` replaces `_pallas_int4g_matmul` (K-split, grouped; at
   decode the split-K cluster kernel too);
-* `int4c_matmul` replaces `_pallas_int4c_matmul` (column-packed int4);
+* `int4c_matmul` replaces `_pallas_int4c_matmul` (column-packed int4;
+  above 16 rows the tensor-core tile kernel of ``csrc/gemv_int4_tc.cuh``,
+  planned by `tc_plan`);
 * `int4cg_matmul` replaces `_pallas_int4cg_matmul` (column-packed,
-  grouped).
+  grouped; above 16 rows the tile kernel too).
 
 Each wrapper takes its plain twin (``*_plain``) only for a tensor on the
 CPU; for a CUDA tensor it launches the kernel or raises. The twins follow
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import functools
 import math
+import re
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -542,13 +545,99 @@ def splitk_slices(k: int, g: int, layout: int):
     return out
 
 
+# The blocks a wave of the tile kernel's clusters can hold, an SM: clusters
+# are placed whole inside a GPC, so fewer than one block an SM run at once.
+# Chosen by `probes/tc_splits_sweep.py` on the H100 (132 SMs): the fastest
+# slice count at each of its eight cases is the most with <= 96 blocks.
+TC_BLOCKS_PER_SM = 0.75
+
+
+class TcLayout(NamedTuple):
+    """The tensor-core tile kernel's constants (csrc/gemv_int4_tc.cuh):
+    ``bk`` input rows a stage of its ring, ``bn`` activation rows a block
+    (wgmma's N), ``bc`` byte columns a block (twice as many output
+    columns), at most ``max_splits`` K-slices a cluster."""
+
+    bk: int
+    bn: int
+    bc: int
+    max_splits: int
+
+
+@functools.lru_cache(maxsize=None)
+def tc_layout() -> TcLayout:
+    """`TcLayout`, read from the kernel's source, the only copy."""
+    text = (_cuda.CSRC / "gemv_int4_tc.cuh").read_text()
+    return TcLayout(*(int(re.search(rf"constexpr int {name} = (\d+);",
+                                    text).group(1))
+                      for name in ("BK", "BN", "BC", "MAX_SPLITS")))
+
+
+class TcPlan(NamedTuple):
+    """How one column-packed int4 GEMV is launched: ``splits`` K-slices of
+    ``span`` input rows, one cluster a (column, row) tile of the tile
+    kernel; ``splits`` = 0: the tiled kernel of `gemv_common.cuh`."""
+
+    splits: int
+    span: int
+
+    def grid(self, m: int, n: int) -> Tuple[int, int, int]:
+        """(column tiles, K-slices, row tiles) of an (m, n) output, for a
+        plan of the tile kernel (``splits`` > 0)."""
+        lay = tc_layout()
+        return (-(-(n - n // 2) // lay.bc), self.splits, -(-m // lay.bn))
+
+    def blocks(self, m: int, n: int) -> int:
+        return math.prod(self.grid(m, n))
+
+
+@functools.lru_cache(maxsize=None)
+def tc_plan(m: int, k: int, n: int, g: int, sms: int) -> TcPlan:
+    """The launch of a column-packed int4 GEMV (`int4c_matmul`,
+    `int4cg_matmul`) of ``m`` rows, contraction width ``k``, ``n`` output
+    columns and ``g`` scale groups (0: per channel) on a card of ``sms``
+    SMs: a function of the shape and the SM count only.
+
+    The tiled kernel (``splits`` = 0) takes up to `SPLITK_MAX_M` rows, and
+    the shapes the tile kernel does not: K not a multiple of 8 (its TMA
+    boxes need 16-byte rows) or, grouped, a group of K/G rows that is not a
+    whole number of k-steps of 16. (The C entry points also send a call
+    with a norm or a residual to it; the wrappers pass neither.) Above that
+    the tile kernel, which masks the ragged edges itself (rows past M and K
+    read as zeros, columns past N are not written), over S K-slices: the
+    most that keep its clusters in one wave on the card (column tiles x row
+    tiles x S <= `TC_BLOCKS_PER_SM` x ``sms``), at least 1 and at most
+    ``max_splits``. Every
+    slice but the last is a whole number of units (`bk` rows, grouped the
+    least common multiple of `bk` and K/G, so that scale groups stay
+    whole), and none is empty. The S partial tiles of a tile are added in
+    rank order, so the sum's order is fixed by the plan.
+
+    On 132 SMs, per channel and grouped at K/G = 128: (255, 8192 -> 3072)
+    24 tiles x 4 slices of 2048 rows = 96 blocks; (510, 8192 -> 3072) 48 x
+    2 slices of 4096 = 96; (255, 8192 -> 2048) 16 x 6 slices of 1408 = 96;
+    (510, 8192 -> 2048) 32 x 3 of 2752 (grouped 2816) = 96. The rule
+    against every S from 1 to 8 at those shapes:
+    `probes/tc_splits_sweep.py`."""
+    if m <= SPLITK_MAX_M or k % 8 or (g and (k // g) % 16):
+        return TcPlan(0, k)
+    lay = tc_layout()
+    tiles = -(-(n - n // 2) // lay.bc) * -(-m // lay.bn)
+    unit = math.lcm(lay.bk, k // g) if g else lay.bk
+    units = -(-k // unit)
+    s = max(1, min(lay.max_splits, units,
+                   int(TC_BLOCKS_PER_SM * sms) // tiles))
+    span = -(-units // s) * unit
+    return TcPlan(-(-k // span), span)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch_gemv(fn_name, layout, x, values, scale, out_dtype, pre_norm,
-                 residual, planned=False):
+                 residual, planner=None):
     dev = x.device
     if x.ndim != 2 or x.dtype != torch.bfloat16:
         raise ValueError(f"{fn_name}: x must be 2-D bf16, got "
@@ -567,11 +656,16 @@ def _launch_gemv(fn_name, layout, x, values, scale, out_dtype, pre_norm,
     if m == 0 or n == 0:
         return out
     plan = ()
-    if planned:
+    if planner == "splitk":
         if values.data_ptr() % 16:
             raise ValueError(f"{fn_name}: values must be 16-byte aligned")
         p = gemv_plan(m, k, n, g, layout, _sm_count(dev))
         plan = (p.splits, p.mt, p.span)
+    elif planner == "tc":
+        plan = tuple(tc_plan(m, k, n, g, _sm_count(dev)))
+        if plan[0] and (values.data_ptr() % 16 or x.data_ptr() % 16):
+            raise ValueError(f"{fn_name}: x and values must be 16-byte "
+                             f"aligned")
     lib = _cuda.lib()
     err = getattr(lib, fn_name)(
         _cuda.ptr(x), _cuda.ptr(values), _cuda.ptr(scale), _cuda.ptr(norm_w),
@@ -583,11 +677,12 @@ def _launch_gemv(fn_name, layout, x, values, scale, out_dtype, pre_norm,
 
 
 def _gemv(wrapper, c_name, cls, x, values, scale, out_dtype, pre_norm=None,
-          residual=None, form=None, planned=False):
+          residual=None, form=None, planner=None):
     """The body of every GEMV wrapper: validate ``values`` / ``scale`` as a
     container of type ``cls``, then the plain twin for a CPU tensor, else
     one launch of the C entry point ``c_name`` (given `gemv_plan`'s plan
-    when ``planned``), counted on ``wrapper``."""
+    when ``planner`` is "splitk", `tc_plan`'s when it is "tc"), counted on
+    ``wrapper``."""
     name = wrapper.__name__
     if (scale.ndim == 2) != (cls in GROUPED):
         raise ValueError(
@@ -599,7 +694,7 @@ def _gemv(wrapper, c_name, cls, x, values, scale, out_dtype, pre_norm=None,
         return matmul_plain(x, cls(values, scale), out_dtype=out_dtype,
                             pre_norm=pre_norm, residual=residual)
     out = _launch_gemv(c_name, LAYOUTS[cls], x, values, scale, out_dtype,
-                       pre_norm, residual, planned)
+                       pre_norm, residual, planner)
     _cuda.count(wrapper, form)
     return out
 
@@ -617,7 +712,7 @@ def int4i_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
     return _gemv(int4i_matmul, "ua2_gemv_int4i",
                  QuantizedLinearI4G if grouped else QuantizedLinearI4, x,
                  values, scale, out_dtype, pre_norm, residual,
-                 form="int4ig" if grouped else "int4i", planned=True)
+                 form="int4ig" if grouped else "int4i", planner="splitk")
 
 
 def int4i_matmul_tiled(x, values, scale, *, out_dtype=None, pre_norm=None,
@@ -652,7 +747,7 @@ def int4_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
     the tiled kernel as `gemv_plan` says, one launch; the plain twin for
     CPU tensors."""
     return _gemv(int4_matmul, "ua2_gemv_int4", QuantizedLinear4, x, values,
-                 scale, out_dtype, pre_norm, residual, planned=True)
+                 scale, out_dtype, pre_norm, residual, planner="splitk")
 
 
 def int4_matmul_tiled(x, values, scale, *, out_dtype=None, pre_norm=None,
@@ -673,7 +768,7 @@ def int4g_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
     uniaudio2_tpu/ops/quant.py:712): the split-K or the tiled kernel as
     `gemv_plan` says, one launch; the plain twin for CPU tensors."""
     return _gemv(int4g_matmul, "ua2_gemv_int4g", QuantizedLinear4G, x, values,
-                 scale, out_dtype, pre_norm, residual, planned=True)
+                 scale, out_dtype, pre_norm, residual, planner="splitk")
 
 
 def int4g_matmul_tiled(x, values, scale, *, out_dtype=None, pre_norm=None,
@@ -689,24 +784,51 @@ def int4g_matmul_tiled(x, values, scale, *, out_dtype=None, pre_norm=None,
 def int4c_matmul(x, values, scale, *, out_dtype=None):
     """x (M, K) bf16 @ column-packed int4 (K, halfpad) * scale (N,) ->
     (M, N): byte [k, n] holds column n (low nibble) and column n + N/2
-    (high). No norm and no residual, as the Pallas kernel. CUDA kernel
+    (high). No norm and no residual, as the Pallas kernel (`matmul`
+    applies both around the product, as the JAX package does). CUDA kernel
     ``ua2_gemv_int4c`` (replaces `_pallas_int4c_matmul`,
-    uniaudio2_tpu/ops/quant.py:799); the plain twin for CPU tensors."""
+    uniaudio2_tpu/ops/quant.py:799), one launch: above `SPLITK_MAX_M` rows
+    the tensor-core tile kernel of ``csrc/gemv_int4_tc.cuh`` with
+    `tc_plan`'s launch, else the tiled kernel; the plain twin for CPU
+    tensors."""
     return _gemv(int4c_matmul, "ua2_gemv_int4c", QuantizedLinearC4, x, values,
-                 scale, out_dtype)
+                 scale, out_dtype, planner="tc")
+
+
+def int4c_matmul_tiled(x, values, scale, *, out_dtype=None, pre_norm=None,
+                       residual=None):
+    """`int4c_matmul` through the tiled kernel at any M
+    (``ua2_gemv_int4c_tiled``), counted on its own: the yardstick the tile
+    kernel is timed against, with the norm prologue and the residual the
+    tiled kernel folds. No serving path calls it."""
+    return _gemv(int4c_matmul_tiled, "ua2_gemv_int4c_tiled",
+                 QuantizedLinearC4, x, values, scale, out_dtype, pre_norm,
+                 residual)
 
 
 def int4cg_matmul(x, values, scale, *, out_dtype=None):
     """`int4c_matmul` with a grouped scale (G, N). CUDA kernel
     ``ua2_gemv_int4cg`` (replaces `_pallas_int4cg_matmul`,
-    uniaudio2_tpu/ops/quant.py:864); the plain twin for CPU tensors."""
+    uniaudio2_tpu/ops/quant.py:864), the tile kernel or the tiled one as
+    `tc_plan` says; the plain twin for CPU tensors."""
     return _gemv(int4cg_matmul, "ua2_gemv_int4cg", QuantizedLinearC4G, x,
-                 values, scale, out_dtype)
+                 values, scale, out_dtype, planner="tc")
+
+
+def int4cg_matmul_tiled(x, values, scale, *, out_dtype=None, pre_norm=None,
+                        residual=None):
+    """`int4cg_matmul` through the tiled kernel at any M
+    (``ua2_gemv_int4cg_tiled``), counted on its own; the yardstick, as
+    `int4c_matmul_tiled`."""
+    return _gemv(int4cg_matmul_tiled, "ua2_gemv_int4cg_tiled",
+                 QuantizedLinearC4G, x, values, scale, out_dtype, pre_norm,
+                 residual)
 
 
 for _fn in (int4i_matmul, int8_matmul, int4_matmul, int4g_matmul,
             int4c_matmul, int4cg_matmul, int4i_matmul_tiled,
-            int4g_matmul_tiled, int4_matmul_tiled):
+            int4g_matmul_tiled, int4_matmul_tiled, int4c_matmul_tiled,
+            int4cg_matmul_tiled):
     _cuda.reset_count(_fn)
 
 _GEMV = {QuantizedLinear: int8_matmul, QuantizedLinearI4: int4i_matmul,
