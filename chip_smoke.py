@@ -11,7 +11,9 @@ caught):
 2. build every CUDA kernel from ``uniaudio2_tpu_torch/csrc`` with nvcc
    (sm_90a) and print the build seconds, each kernel's registers and
    spills, and a line for each of the four bf16 and two float32 flash
-   kernels and of the two tensor-core tile kernels of rows 7 and 8;
+   kernels and of the five tensor-core tile kernels (rows 7 and 8,
+   column-packed; row 1, interleaved, per channel and grouped; row 6,
+   K-split grouped);
 3. each kernel, in every weight form it has, against its plain PyTorch
    twin at the serving path's shapes (bf16 activations, M = 1, 2 — the CFG
    pair —, 63 — the prefill bucket 64 — and, for the GEMVs, 255 — bucket
@@ -19,7 +21,12 @@ caught):
    the split-K kernel of the host's plan: at each of their decode shapes
    the plan, the time of the tiled instance and of
    ``torch._weight_int4pack_mm`` in the same run and the share of the byte
-   bound are printed; the column-packed GEMVs (rows 7 and 8) also at
+   bound are printed; rows 1 and 6 also at M = 510 and, above 16 rows,
+   at the served QKV call with its norm and the unfused MLP's shapes,
+   where they run the tensor-core tile kernel: the plan, the tile kernel,
+   its tiled instance and the library in the same run, the share of the
+   bound, and at how many cases the tile kernel beats the tiled instance
+   and the library; the column-packed GEMVs (rows 7 and 8) also at
    M = 510, the CFG pair's bucket-256 prefill, and at every M > 16, where
    they run the tensor-core tile kernel, the plan (`quant.tc_plan`), the
    tile kernel, its tiled instance and ``torch._weight_int4pack_mm`` in
@@ -41,7 +48,9 @@ caught):
    `generate_audio`, and `generate_text` on bench.py's ASR prompt, through
    the frame graphs (the engine's default; so in phases 8-10); frames/s
    and the launch count of every kernel, checked against the count the
-   path implies over the frames the card ran (warm-up frames and replays);
+   path implies over the frames the card ran (warm-up frames and replays),
+   and of the tile kernel (`quant.gemv_tc`, by form) against the prefills'
+   GEMVs (phases 8 and 9 check it too);
 5. the prefill and first frame once through the kernels (on the card) and
    once through the twins (on the CPU): text and codebook-0 logits and the
    frame's backbone K rows compared; then three planted faults (nibble
@@ -57,9 +66,10 @@ caught):
    prefill rows, past the fused kernels' 128, so the MLP's down-projection
    runs rows 7 and 8 alone; a 512-slot cache, where "auto" picks the int8
    KV cache and block-128 reads); frames/s, memory, the launch count of
-   every kernel form against the count the tree implies, and, for D and
-   E, each bucket-256 prefill's host-clock seconds (synchronised, the
-   median of three after a warm-up).
+   every kernel form and of the tile kernel against the count the tree
+   implies, and the bucket-256 prefill's host-clock seconds (255 and 510
+   rows, synchronised, the median of three after a warm-up) of phase 4's
+   interleaved int4all tree, C, D and E, with a summary line.
    Then the prefill and first frame: C against the CPU twins (phase 5's
    bounds); D against the interleaved int4all run and E against C, on the
    card, on the TTS prompt at buckets 64 and 256 and on the ASR prompt
@@ -318,7 +328,7 @@ def phase_build():
         for forms, pattern in (
                 (flash, r"flash_attn_kernelILi(\d+)ELb(\d)ELi(\d)E"),
                 (flash32, r"flash_f32_kernelILi(\d+)EE"),
-                (tile, r"gemv_tc_kernelILb(\d)E")):
+                (tile, r"gemv_tc_kernelILi(\d)ELb(\d)E")):
             form = re.search(pattern, kernel)
             got = form and re.search(
                 r"Used (\d+) registers|(\d+) bytes spill stores", line)
@@ -334,15 +344,16 @@ def phase_build():
         print(f"[2] flash_f32_kernel<HD {hd}>: "
               f"{got.get('registers')} registers, {got.get('spill stores')} "
               f"bytes of spill stores", flush=True)
-    for (grouped,), got in sorted(tile.items()):
-        print(f"[2] gemv_tc_kernel<grouped {grouped}>: "
+    names = {"1": "I4", "2": "K4", "3": "C4"}
+    for (layout, grouped), got in sorted(tile.items()):
+        print(f"[2] gemv_tc_kernel<layout {names[layout]}, grouped {grouped}>: "
               f"{got.get('registers')} registers, {got.get('spill stores')} "
               f"bytes of spill stores", flush=True)
     if _cuda.build_info["log"] and (len(flash), len(flash32), len(tile)) != (
-            4, 2, 2):
+            4, 2, 5):
         fail(f"ptxas reported {len(flash)} of the 4 bf16 flash kernels, "
-             f"{len(flash32)} of the 2 float32 ones and {len(tile)} of the 2 "
-             f"tile kernels")
+             f"{len(flash32)} of the 2 float32 ones and {len(tile)} of the 5 "
+             f"tile kernels (C4 and I4 per channel and grouped, K4 grouped)")
 
 
 def nbytes(*tensors) -> int:
@@ -498,8 +509,8 @@ def phase_kernels(torch, dev):
     def yardstick_case(kind, form, label, k, n, m, w, x, kw, case, fn,
                        fn_tiled, lib_ms, rtol, times):
         """A planned kernel (``kind``: "split-K", rows 1, 5 and 6 at a
-        decode M, `quant.gemv_plan`; "tile", rows 7 and 8 above 16 rows,
-        `quant.tc_plan`): its tiled instance held to the twin and timed
+        decode M, `quant.gemv_plan`; "tile", rows 1, 6, 7 and 8 above 16
+        rows, `quant.tc_plan`): its tiled instance held to the twin and timed
         beside it and the library's GEMV (kernel, tiled, tiled, kernel: the
         lesser median of each pair, against a moment of noise in one), the
         plan and the share of the bound, kept in ``times``."""
@@ -509,14 +520,17 @@ def phase_kernels(torch, dev):
         if err > rtol * ref.float().abs().max().item():
             fail(f"{form} tiled {label} M={m}: max_abs_err {err:.4g}")
         g = w.scale.shape[0] if w.scale.ndim == 2 else 0
+        layout = quant.LAYOUTS[type(w)]
         if kind == "tile":
-            plan = quant.tc_plan(m, k, n, g, sms)
+            plan = quant.tc_plan(m, k, n, g, sms, layout)
             shape = (f"bn={quant.tc_layout().bn} S={plan.splits} "
                      f"span={plan.span}")
+            blocks = plan.blocks(m, n, layout)
         else:
-            plan = quant.gemv_plan(m, k, n, g, quant.LAYOUTS[type(w)], sms)
+            plan = quant.gemv_plan(m, k, n, g, layout, sms)
             shape = (f"S={plan.splits} MT={plan.mt} tile={plan.tile} "
                      f"span={plan.span}")
+            blocks = plan.blocks(m, n)
         if lib_ms is None:
             wp, group, sz = int4_tinygemm(w)
             lib_ms = timer(lambda: torch._weight_int4pack_mm(x, wp, group, sz))
@@ -527,65 +541,83 @@ def phase_kernels(torch, dev):
         bound_ms = bound(*case)[0]
         times[(form, label, m)] = (ms, tiled_ms, lib_ms)
         print(f"[3] {form} {kind} {label} {k}->{n} M={m}: plan {shape} "
-              f"({plan.blocks(m, n)} blocks, {sms} SMs): {kind} {ms:.4f} ms, "
+              f"({blocks} blocks, {sms} SMs): {kind} {ms:.4f} ms, "
               f"tiled {tiled_ms:.4f} ms (x{tiled_ms / ms:.2f}), library GEMV "
               f"{lib_ms:.4f} ms (x{lib_ms / ms:.2f}); bound {bound_ms:.4f} ms, "
               f"{bound_ms / ms:.1%} of it; tiled vs twin {err:.3e}", flush=True)
 
-    splitk_times = {}
+    splitk_times, rows_tc_times = {}, {}
     # the GEMVs over K-axis-packed weights; row: the projection at M = 1,
     # a plain product, which the library computes too. M = 255 is the
-    # prefill of a bucket-256 prompt, bound by operations. Rows 1, 5 and 6
-    # (int4i, int4ig, int4, int4g) run the split-K kernel up to
-    # quant.SPLITK_MAX_M rows: at those M each shape is also timed through
-    # the tiled instance and the library call (the GEMV alone: no norm,
-    # residual or f32 cast), and the plan printed; above it (the prefills,
-    # their tiled instance) the library call is timed beside each case.
+    # prefill of a bucket-256 prompt and 510 its CFG pair, bound by
+    # operations. Rows 1, 5 and 6 (int4i, int4ig, int4, int4g) run the
+    # split-K kernel up to quant.SPLITK_MAX_M rows: at those M each shape is
+    # also timed through the tiled instance and the library call (the GEMV
+    # alone: no norm, residual or f32 cast), and the plan printed. Above
+    # it rows 1 and 6 (int4i, int4ig, int4g) run the tensor-core tile
+    # kernel, held and timed the same way, also at M = 510, at the served
+    # QKV call with its norm and at the unfused MLP's shapes (gate / up and,
+    # interleaved, the down-projection: alone above 128 rows); row 5 (int4)
+    # its tiled instance, timed beside the library call.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tiled = {"int4i": quant.int4i_matmul_tiled,
              "int4ig": quant.int4i_matmul_tiled,
              "int4": quant.int4_matmul_tiled,
              "int4g": quant.int4g_matmul_tiled}
+    rows_tc = ("int4i", "int4ig", "int4g")
+    shapes = (("attn_proj +res", 3072, 3072, True, False, None),
+              ("decoder attn_proj +res", 2048, 2048, True, False, None),
+              ("audio_head f32", 2048, 12300, False, False, torch.float32),
+              ("projection", 3072, 2048, False, False, None),
+              ("prefill qkv", 3072, 5120, False, False, None))
+    prefill = (("prefill qkv +norm", 3072, 5120, False, True, None),
+               ("mlp gate/up", 3072, 8192, False, False, None),
+               ("mlp_proj", 8192, 3072, False, False, None))
     for form in ("int4i", "int4ig", "int4", "int4g", "int8"):
         fn = {"int4i": quant.int4i_matmul, "int4ig": quant.int4i_matmul,
               "int4": quant.int4_matmul, "int4g": quant.int4g_matmul,
               "int8": quant.int8_matmul}[form]
-        for m in (1, 2, 8, 16, 63, 255) if form in tiled else (1, 2, 63, 255):
-            for label, k, n, res, out_dtype in (
-                    ("attn_proj +res", 3072, 3072, True, None),
-                    ("decoder attn_proj +res", 2048, 2048, True, None),
-                    ("audio_head f32", 2048, 12300, False, torch.float32),
-                    ("projection", 3072, 2048, False, None),
-                    ("prefill qkv", 3072, 5120, False, None)):
+        ms_list = ((1, 2, 8, 16, 63, 255, 510) if form in rows_tc else
+                   (1, 2, 8, 16, 63, 255) if form in tiled else (1, 2, 63, 255))
+        for m in ms_list:
+            cases = shapes
+            if form in rows_tc and m > quant.SPLITK_MAX_M:
+                # the K-split trees' down-projection is column-packed (row 8)
+                cases += prefill[:2] if form == "int4g" else prefill
+            for label, k, n, res, norm, out_dtype in cases:
                 if form == "int8" and label in ("decoder attn_proj +res",
                                                 "projection"):
                     continue        # int8's row is the lm_head, below
                 w = make_weight(torch, gen, dev, form, k, n)
                 x = bf16(m, k)
                 kw = dict(out_dtype=out_dtype,
-                          residual=bf16(m, n) if res else None)
+                          residual=bf16(m, n) if res else None,
+                          pre_norm=(bf16(k), 1e-5) if norm else None)
                 out_bytes = 4 if out_dtype is torch.float32 else 2
-                case = (nbytes(x) + weight_bytes(w)
+                case = (nbytes(x) + weight_bytes(w) + 2 * k * norm
                         + (2 * res + out_bytes) * m * n, 2 * m * k * n)
                 library = None
                 row = m == 1 and label == "projection"
                 if row or (form in tiled and m > quant.SPLITK_MAX_M):
-                    # the prefills' tiled instances beside the library too
+                    # the prefills' kernels beside the library too
                     wp, group, sz = int4_tinygemm(w)
 
                     def library():
                         return torch._weight_int4pack_mm(x, wp, group, sz)
                 grouped = form.endswith("g") and not res
+                rtol = RTOL_GROUPED if grouped else RTOL
                 _, lib_ms = check(GEMV_ROWS[form], f"{label} {k}->{n} M={m}",
                                lambda: fn(x, w.values, w.scale, **kw),
                                lambda: quant.matmul_plain(x, w, **kw), case,
-                               library, row=row,
-                               rtol=RTOL_GROUPED if grouped else RTOL)
+                               library, row=row, rtol=rtol)
                 if form in tiled and m <= quant.SPLITK_MAX_M:
                     yardstick_case("split-K", form, label, k, n, m, w, x, kw,
-                                   case, fn, tiled[form], lib_ms,
-                                   RTOL_GROUPED if grouped else RTOL,
+                                   case, fn, tiled[form], lib_ms, rtol,
                                    splitk_times)
+                elif form in rows_tc:
+                    yardstick_case("tile", form, label, k, n, m, w, x, kw,
+                                   case, fn, tiled[form], lib_ms, rtol,
+                                   rows_tc_times)
                 if row:
                     lib_err = (library().float() - quant.matmul_plain(
                         x, w).float()).abs().max().item()
@@ -597,6 +629,15 @@ def phase_kernels(torch, dev):
     print(f"[3] split-K faster than the tiled instance at "
           f"{len(splitk_times) - len(slower)} of {len(splitk_times)} decode "
           f"cases; not at {slower}", flush=True)
+    slower = [key for key, (ms, tiled_ms, _) in rows_tc_times.items()
+              if ms >= tiled_ms]
+    beats = [key for key, (ms, _, lib_ms) in rows_tc_times.items()
+             if ms < lib_ms]
+    print(f"[3] rows 1 and 6: tile kernel faster than the tiled instance at "
+          f"{len(rows_tc_times) - len(slower)} of {len(rows_tc_times)} cases "
+          f"above {quant.SPLITK_MAX_M} rows; not at {slower}; faster than the "
+          f"library at {len(beats)} of them; not at "
+          f"{[key for key in rows_tc_times if key not in beats]}", flush=True)
     # the column-packed GEMVs (the MLP down-projection): alone they run at a
     # prefill of more than 128 rows (255 and, as the CFG pair, 510), where
     # they launch the tensor-core tile kernel (csrc/gemv_int4_tc.cuh) above
@@ -977,10 +1018,11 @@ def counters():
 
 
 def reset_counts():
-    from uniaudio2_tpu_torch.ops import _cuda
+    from uniaudio2_tpu_torch.ops import _cuda, quant
 
     for fn, _ in counters().values():
         _cuda.reset_count(fn)
+    _cuda.reset_count(quant.gemv_tc)
 
 
 def read_counts():
@@ -1043,6 +1085,51 @@ def expected_launches(cfg, params, mode: str, frames: int, prefill_rows: int):
     return want
 
 
+# The weight forms whose GEMV runs the tensor-core tile kernel above
+# quant.SPLITK_MAX_M rows (rows 1, 6, 7 and 8), as `quant.gemv_tc` counts
+# them.
+TILE_FORMS = ("int4i", "int4ig", "int4g", "int4c", "int4cg")
+
+
+def expected_tile(params, prefill_rows: int):
+    """Launches of the tile kernel, by form, in one request over ``params``:
+    its prefill's GEMVs of the tile forms (QKV and attn_proj, and above 128
+    rows gate, up and down); no decode step has more than 16 rows."""
+    from uniaudio2_tpu_torch.ops.fused_mlp import FORMS
+
+    want = {}
+
+    def add(w, n=1):
+        form = FORMS[type(w)]
+        if form in TILE_FORMS:
+            want[form] = want.get(form, 0) + n
+
+    for sub in ("understanding_expert", "backbone", "generation_expert"):
+        for layer in params[sub]["layers"]:
+            add(layer["qkv_w"])
+            add(layer["attn_proj_w"])
+            if prefill_rows > 128:
+                add(layer["fc1_w"], 2)
+                add(layer["mlp_proj_w"])
+    return want
+
+
+def check_tile(tag, want):
+    """The tile kernel's launches since `reset_counts` against ``want``."""
+    from uniaudio2_tpu_torch.ops import quant
+
+    got = nonzero(quant.gemv_tc.forms)
+    print(f"{tag} tile kernel launches {json.dumps(got)} expected "
+          f"{json.dumps(nonzero(want))}", flush=True)
+    if got != nonzero(want):
+        fail(f"{tag} tile kernel launches {got} != the prefills' {want}")
+
+
+def add_to(total, more):
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
 def nonzero(counts):
     return {k: v for k, v in counts.items() if v}
 
@@ -1058,7 +1145,7 @@ def phase_model(torch, dev, cfg, params):
         g, m, temperature=0.9, topk=50, seed=0)
     eng = DecodeEngine(params, cfg, max_frames=FRAMES, buckets=(64,))
     reset_counts()
-    want = dict.fromkeys(counters(), 0)
+    want, want_tile = dict.fromkeys(counters(), 0), {}
     runs = (("tts", "audio", dict(use_cfg=False)),
             ("tts_cfg", "audio", dict(use_cfg=True, cfg_scale=1.5,
                                       neg_grid=ng, neg_mask=nm)),
@@ -1086,6 +1173,7 @@ def phase_model(torch, dev, cfg, params):
         for k, v in expected_launches(cfg, params, mode, eng.last_frames_run,
                                       rows).items():
             want[k] += v
+        add_to(want_tile, expected_tile(params, rows))
         rate = n / dt
         extra = (f", {rate * ts.num_codebooks:.1f} audio tokens/s"
                  if mode == "audio" else "")
@@ -1096,6 +1184,7 @@ def phase_model(torch, dev, cfg, params):
           f"{json.dumps(nonzero(want))}", flush=True)
     if got != want:
         fail(f"launch counts {got} != the path's {want}")
+    check_tile("[4]", want_tile)
     missing = [k for k in ("qkv_rope_step", "fused_swiglu", "int4i_matmul",
                            "int8_matmul") if got[k] == 0]
     if missing:
@@ -1288,7 +1377,7 @@ def serve(torch, cfg, params, tag, runs):
     import numpy as np
 
     reset_counts()
-    want = dict.fromkeys(counters(), 0)
+    want, want_tile = dict.fromkeys(counters(), 0), {}
     done = []
     for name, engine, mode, rows, (grid, mask), kw in runs:
         torch.cuda.synchronize()
@@ -1311,6 +1400,7 @@ def serve(torch, cfg, params, tag, runs):
         for k, v in expected_launches(cfg, params, mode,
                                       engine.last_frames_run, rows).items():
             want[k] += v
+        add_to(want_tile, expected_tile(params, rows))
         print(f"{tag} {name}: {n} frames in {dt:.3f} s = {n / dt:.2f} "
               f"frames/s (prefill of {rows} rows included); output {out.shape}",
               flush=True)
@@ -1319,6 +1409,7 @@ def serve(torch, cfg, params, tag, runs):
     print(f"{tag} launches {json.dumps(nonzero(got))}", flush=True)
     if got != want:
         fail(f"{tag} launch counts {nonzero(got)} != the tree's {nonzero(want)}")
+    check_tile(tag, want_tile)
     return got, done
 
 
@@ -1355,11 +1446,28 @@ def serve_format(torch, cfg, params, label, ksplit):
     return got
 
 
+PREFILL_SECONDS = {}     # (configuration, request) -> phase 8's median
+
+
+def bucket256_prefills(torch, cfg, params, label):
+    """`prefill_seconds` of the bucket-256 prompt alone and as a CFG pair
+    (255 and 510 prefill rows) through a bucket-256 engine over
+    ``params``."""
+    from uniaudio2_tpu_torch.engine.decode import DecodeEngine
+
+    eng = DecodeEngine(params, cfg, max_frames=FORMAT_FRAMES // 2,
+                       buckets=(256,))
+    (lg, lm), (lng, lnm), _ = bucket_prompts(cfg, 256)
+    prefill_seconds(torch, cfg, params, eng, label,
+                    (("tts bucket 256", lg, lm, None, None),
+                     ("tts_cfg bucket 256", lg, lm, lng, lnm)))
+
+
 def prefill_seconds(torch, cfg, params, eng, label, requests):
     """The host-clock seconds of each request's prefill as ``eng`` runs it
     (its padded grid into a fresh cache of 512 slots), synchronised before
-    and after: one warm-up, then the median of three. These launches are
-    not in the phase's counts."""
+    and after: one warm-up, then the median of three, kept in
+    `PREFILL_SECONDS`. These launches are not in the phase's counts."""
     from uniaudio2_tpu_torch.models import unified
 
     for name, grid, mask, neg_grid, neg_mask in requests:
@@ -1375,10 +1483,35 @@ def prefill_seconds(torch, cfg, params, eng, label, requests):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         rows = g.shape[0] * (g.shape[1] - 1)
+        PREFILL_SECONDS[(label, name)] = statistics.median(times[1:])
         print(f"[8] {label}: {name} prefill of {rows} rows: "
               f"{statistics.median(times[1:]):.4f} s (host clock, median of 3 "
               f"after a warm-up: {', '.join(f'{t:.4f}' for t in times)})",
               flush=True)
+        # one more under torch.profiler: the device's share of it, and the
+        # GEMV kernels' part of the device time
+        prof = torch.profiler
+        with prof.profile(activities=[prof.ProfilerActivity.CPU,
+                                      prof.ProfilerActivity.CUDA]) as p:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                unified.prefill(params, cfg, g[:, :-1], m[:, :-1], caches)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        by = {}
+        for e in p.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                kind = ("tile GEMV" if "gemv_tc_kernel" in e.name
+                        or "rows_kernel" in e.name else
+                        "tiled GEMV" if "gemv_kernel" in e.name else "other")
+                n, ms = by.get(kind, (0, 0.0))
+                by[kind] = (n + 1, ms + e.device_time / 1e3)
+        busy = sum(ms for _, ms in by.values())
+        print(f"[8] {label}: {name} prefill profiled: wall {wall:.1f} ms, "
+              f"device {busy:.1f} ms (busy share {busy / wall:.3f}); "
+              + ", ".join(f"{k} {n} kernels {ms:.2f} ms"
+                          for k, (n, ms) in sorted(by.items())), flush=True)
         del caches
 
 
@@ -1483,6 +1616,7 @@ def phase_formats(torch, dev, cfg, base, int4all, sound64):
                           **first_frames(torch, cfg, dev, int4all,
                                          FORMAT_PROBES[1:])}}
     verdicts = {}
+    bucket256_prefills(torch, cfg, int4all, "int4all (phase 4's tree)")
     for label, (_, _, interleave, need) in FORMATS.items():
         letter = label[0]
         torch.cuda.synchronize()
@@ -1510,6 +1644,7 @@ def phase_formats(torch, dev, cfg, base, int4all, sound64):
         for k, v in got.items():
             total[k] += v
         if letter == "C":
+            bucket256_prefills(torch, cfg, params, label)
             t0 = time.perf_counter()
             plain = first_frame(torch, cfg, to_cpu(params), g, m, "cpu")
             print(f"[8] {label}: twins {time.perf_counter() - t0:.1f} s on the "
@@ -1524,6 +1659,10 @@ def phase_formats(torch, dev, cfg, base, int4all, sound64):
                                             ref, ""))
         del params
         torch.cuda.empty_cache()
+    print("[8] bucket-256 prefill seconds (255 / 510 rows): " + "; ".join(
+        f"{label} {PREFILL_SECONDS[(label, 'tts bucket 256')]:.4f} / "
+        f"{PREFILL_SECONDS[(label, 'tts_cfg bucket 256')]:.4f}"
+        for label in dict.fromkeys(k[0] for k in PREFILL_SECONDS)), flush=True)
     # the same layout comparisons on the trees of a second seed
     base1, int4all1 = int4all_tree(torch, dev, cfg, SECOND_SEED)
     tag = f"seed {SECOND_SEED}: "

@@ -36,8 +36,13 @@ split-K kernel, which sums in another order) and sweep form 0 the tiled
 instance of `gemv_int4.cu` (`int4_matmul_tiled`) its bits.
 Rows 1, 5 and 6 at decode (M <= 16) run the split-K cluster kernel with the
 host's plan (`quant.gemv_plan`): held to their twins with the bounds
-above at the decode shapes and at the prefill's M (the tiled kernel),
-bit-identical from launch to launch, one kernel node in a captured graph. Row 14's stacked-layer kernel, with the layer index read
+above at the decode shapes and at the prefill's M (rows 1 and 6 the
+tensor-core tile kernel, row 5 the tiled kernel), bit-identical from
+launch to launch, one kernel node in a captured graph. Rows 1 and 6 above
+16 rows run the tile kernel of `quant.tc_plan` with the norm and the
+residual their served callers fold, one counted launch of it a call (a
+norm, and the K-split layout, add its row kernel), and a planted fault
+(the K-split halves swapped) fails the same check. Row 14's stacked-layer kernel, with the layer index read
 on the device, is held to its twin within one bf16 ulp and to the bits
 of `gemv_int4.cu`'s tiled instance on every layer's slice.
 The lean-update kernel rounds every operation as its twin does, so the two
@@ -439,8 +444,9 @@ SPLITK_SHAPES = {"attn_proj": (3072, 3072, True, False),
 @pytest.mark.parametrize("form", list(SPLITK_FORMS))
 def test_int4_decode_gemv(dev, form, shape, m):
     """Rows 1 (per-channel and grouped), 5 and 6 at their decode shapes (the
-    split-K kernel, M <= 16) and the prefill's M (the tiled kernel), as the
-    path calls them and with the other folds (norm, residual, f32 out):
+    split-K kernel, M <= 16) and the prefill's M (rows 1 and 6 the tile
+    kernel, row 5 the tiled kernel), as the path calls them and with the
+    other folds (norm, residual, f32 out):
     within the twin's bound, one counted launch a call, the same bits from
     launch to launch."""
     g = _gen(dev, 21)
@@ -987,3 +993,82 @@ def test_codec_bf16_dit_still_takes_the_kernel(dev):
             dit._attention.plain_launches) == (before[0] + cfg.num_layers,
                                                before[1])
     assert bool(torch.isfinite(out.float()).all())
+
+
+ROW_TC_FORMS = {"int4i": (quant.int4i_matmul, quant.int4i_matmul_tiled),
+                "int4ig": (quant.int4i_matmul, quant.int4i_matmul_tiled),
+                "int4g": (quant.int4g_matmul, quant.int4g_matmul_tiled)}
+# the prefill's calls of rows 1 and 6: (K, N, norm, residual), the QKV
+# projection with its norm, attn_proj with its residual, gate / up, the
+# interleaved down-projection (row 6's is row 8), and a ragged narrow one
+ROW_TC_SHAPES = {"qkv +norm": (3072, 5120, True, False),
+                 "attn_proj +res": (3072, 3072, False, True),
+                 "gate/up": (3072, 8192, False, False),
+                 "mlp_proj": (8192, 3072, False, False),
+                 "ragged +norm +res": (512, 601, True, True)}
+
+
+def _row_tc_call(dev, form, w, x, **kw):
+    """One call of a row-packed wrapper above 16 rows: one launch counted
+    on the wrapper and one on the tile kernel's counter under the form,
+    none on the tiled yardstick, the same bits twice."""
+    fn, tiled = ROW_TC_FORMS[form]
+    m, k = x.shape
+    n = w.scale.shape[-1]
+    g = w.scale.shape[0] if w.scale.ndim == 2 else 0
+    layout = quant.LAYOUTS[type(w)]
+    plan = quant.tc_plan(m, k, n, g, torch.cuda.get_device_properties(
+        dev).multi_processor_count, layout)
+    assert plan.splits > 0
+    before = (fn.launches, tiled.launches, quant.gemv_tc.forms.get(form, 0))
+    out = fn(x, w.values, w.scale, **kw)
+    again = fn(x, w.values, w.scale, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, tiled.launches, quant.gemv_tc.forms.get(form, 0)) == (
+        before[0] + 2, before[1], before[2] + 2)
+    assert torch.equal(out, again)
+    return out
+
+
+@pytest.mark.parametrize("m", [17, 63, 255, 510])
+@pytest.mark.parametrize("form,shape", [
+    (form, shape) for form in ROW_TC_FORMS for shape in ROW_TC_SHAPES
+    if not (form == "int4g" and shape == "mlp_proj")])
+def test_row_tile_gemv(dev, form, shape, m):
+    """Rows 1 (per channel and grouped) and 6 above 16 rows on the tile
+    kernel, with the folds their served callers pass (the QKV norm, the
+    attn_proj residual) and all of them on a ragged (512, 601): within the
+    twin's bound (one bf16 ulp grouped without a residual); at M = 63 also
+    with f32 output. Row 6's down-projection is row 8's, so it skips
+    mlp_proj."""
+    g = _gen(dev, 61 + m)
+    k, n, norm, res = ROW_TC_SHAPES[shape]
+    w = _make(g, dev, form, k, n, group=64 if k == 512 else 128)
+    x = _bf16(g, dev, m, k)
+    kw = dict(pre_norm=(_bf16(g, dev, k), 1e-5) if norm else None,
+              residual=_bf16(g, dev, m, n, std=0.1) if res else None)
+    for out_dtype in (None, torch.float32) if m == 63 else (None,):
+        out = _row_tc_call(dev, form, w, x, out_dtype=out_dtype, **kw)
+        grouped_plain = form != "int4i" and not res
+        _close(out, quant.matmul_plain(x, w, out_dtype=out_dtype, **kw),
+               RTOL_GROUPED if grouped_plain else RTOL)
+
+
+def test_row_tile_gemv_rejects_swapped_k_halves(dev):
+    """A planted fault the check above must reject: row 6's weight with its
+    K-split halves swapped (each byte's nibbles exchanged, so row r takes
+    row K/2 + r's level), through the tile kernel with the QKV norm, lands
+    far outside one bf16 ulp of the sound twin."""
+    g = _gen(dev, 71)
+    k, n, m = 3072, 5120, 255
+    w = _make(g, dev, "int4g", k, n)
+    x = _bf16(g, dev, m, k)
+    kw = dict(pre_norm=(_bf16(g, dev, k), 1e-5))
+    v = w.values.to(torch.int32) & 0xFF
+    swapped = ((((v << 4) | (v >> 4)) & 0xFF).to(torch.uint8).view(torch.int8)
+               .contiguous())
+    ref = quant.matmul_plain(x, w, **kw)
+    _close(_row_tc_call(dev, "int4g", w, x, **kw), ref, RTOL_GROUPED)
+    bad = _row_tc_call(dev, "int4g", type(w)(swapped, w.scale), x, **kw)
+    with pytest.raises(AssertionError):
+        _close(bad, ref, RTOL_GROUPED)

@@ -8,8 +8,9 @@ number of k-steps of 16 to the tiled kernel; above that its tiles cover
 the output exactly (BC byte columns a block: columns c and N/2 + c; BN
 activation rows, the constants read from the kernel's source), its 1-8
 K-slices cover K with none empty, each a whole number of BK-row stages
-and of scale groups, its clusters fit in one wave (`TC_BLOCKS_PER_SM`
-blocks an SM) unless a single slice does not, no further slice would, and
+and of scale groups, its clusters fit in one wave (`quant.tc_wave`: fewer
+blocks an SM in clusters of three or more) unless a single slice does
+not, no further slice would, and
 at the model's prefill shapes its grid on 132 SMs is the one the
 docstring states.
 
@@ -36,6 +37,7 @@ from jax.experimental.pallas import tpu as pltpu
 from uniaudio2_tpu.ops import quant as jq
 
 from uniaudio2_tpu_torch.ops import quant
+from uniaudio2_tpu_torch.ops.norms import rms_norm
 
 SMS = 132                                  # an H100 SXM
 # (K, N) of the MLP down-projections, the narrow trees' widths, ragged N
@@ -94,29 +96,37 @@ def test_layout_is_the_kernels():
     assert tuple(quant.tc_layout()) == (64, 256, 64, 8)
 
 
+def _fills_one_wave(m, k, n, g, sms, layout):
+    """Above 16 rows the plan's clusters fit in one wave of `tc_wave` (S,
+    ``sms``) blocks unless one slice a tile already does not, and no larger
+    slice count would fit, pass the most a cluster holds, or leave a slice
+    empty; the same inputs give the same plan."""
+    lay = quant.tc_layout()
+    plan = quant.tc_plan(m, k, n, g, sms, layout)
+    cols, _, rows = plan.grid(m, n, layout)
+    tiles = cols * rows
+    assert (plan.blocks(m, n, layout) <= quant.tc_wave(plan.splits, sms)
+            or plan.splits == 1)
+    group = (2 * k // g if layout == quant.LAYOUT_K4 else k // g) if g else 0
+    unit = math.lcm(lay.bk, group) if g else lay.bk
+    for more in range(plan.splits + 1, lay.max_splits + 1):
+        span = -(-(-(-k // unit)) // more) * unit
+        assert (tiles * more > quant.tc_wave(more, sms)
+                or -(-k // span) < more)
+    quant.tc_plan.cache_clear()
+    assert quant.tc_plan(m, k, n, g, sms, layout) == plan
+
+
 @pytest.mark.parametrize("sms", [132, 114, 78])
 def test_plan_fills_one_wave(sms):
-    """Above 16 rows the plan's clusters fit in one wave of
-    `TC_BLOCKS_PER_SM` x ``sms`` blocks unless one slice a tile already
-    does not, and a further slice would leave the wave, pass the most a
-    cluster holds, or leave a slice empty; the same inputs give the same
-    plan."""
-    lay = quant.tc_layout()
-    wave = int(quant.TC_BLOCKS_PER_SM * sms)
+    """`_fills_one_wave` at the column-packed shapes; clusters of one or two
+    fill every SM, of three or more `TC_BLOCKS_PER_SM` of them."""
+    assert quant.tc_wave(2, sms) == int(quant.TC_PAIR_BLOCKS_PER_SM * sms)
+    assert quant.tc_wave(3, sms) == int(quant.TC_BLOCKS_PER_SM * sms)
     for k, n in SHAPES[:3]:
         for m in (17, 63, 255, 510):
             for g in (0, k // 64):
-                plan = quant.tc_plan(m, k, n, g, sms)
-                cols, _, rows = plan.grid(m, n)
-                tiles = cols * rows
-                assert plan.blocks(m, n) <= wave or plan.splits == 1
-                unit = math.lcm(lay.bk, k // g) if g else lay.bk
-                more = plan.splits + 1
-                span = -(-(-(-k // unit)) // more) * unit
-                assert (tiles * more > wave or more > lay.max_splits
-                        or -(-k // span) < more)
-                quant.tc_plan.cache_clear()
-                assert quant.tc_plan(m, k, n, g, sms) == plan
+                _fills_one_wave(m, k, n, g, sms, quant.LAYOUT_C4)
 
 
 def _emulate(x, w, plan):
@@ -206,3 +216,212 @@ def test_wrappers_take_the_twin_on_the_cpu():
         ref = quant.matmul_plain(x, w, **kw)
         assert torch.equal(tiled(x, w.values, w.scale, **kw), ref)
         assert (fn.launches, tiled.launches) == before
+
+
+# Rows 1 and 6 above 16 rows: the tile kernel's row-interleaved (I4) and
+# K-split (K4) instances. The K-split one runs I4's products on x' (x[0],
+# x[K/2], x[1], x[K/2 + 1], ...), which its row kernel writes, normalised
+# when the call folds a norm; a slice of the plan is a range of x' (span / 2
+# rows of each K half).
+I4, K4 = quant.LAYOUT_I4, quant.LAYOUT_K4
+# (K, N) of the prefill GEMVs (QKV, attn_proj, gate / up, the interleaved
+# down-projection), the narrow trees' widths, ragged N
+ROW_SHAPES = ((3072, 5120), (3072, 3072), (3072, 8192), (8192, 3072),
+              (512, 600), (256, 300), (192, 200), (1024, 601), (520, 37))
+
+
+def _row_groups(k, layout):
+    """0 and every G whose group of K/G rows is one of 8-128 and, for the
+    K-split layout, whose K halves hold whole groups (G even)."""
+    return [g for g in _groups(k) if not g or layout == I4 or g % 2 == 0]
+
+
+def _row_legal(plan, m, k, n, g, layout):
+    gs = k // g if g else 0
+    if m <= quant.SPLITK_MAX_M or k % 8 or (g and gs % 16):
+        assert plan.splits == 0
+        return
+    lay = quant.tc_layout()
+    cols, splits, rows = plan.grid(m, n, layout)
+    # one output column a byte column, 2 bc a block: every byte column in
+    # use (the true width N) covered, no tile past it
+    assert cols * 2 * lay.bc >= n > (cols - 1) * 2 * lay.bc
+    assert rows * lay.bn >= m > (rows - 1) * lay.bn
+    assert 1 <= splits == plan.splits <= lay.max_splits
+    assert plan.span % lay.bk == 0
+    assert plan.splits * plan.span >= k > (plan.splits - 1) * plan.span
+    if g and layout == I4:
+        assert plan.span % gs == 0         # whole groups
+    if g and layout == K4:
+        # a slice of x' holds span / 2 rows of each K half: whole groups of
+        # the low half's [0, G/2) and of the high half's [G/2, G)
+        assert (plan.span // 2) % gs == 0
+
+
+@pytest.mark.parametrize("layout", [I4, K4])
+@pytest.mark.parametrize("m", ROWS)
+@pytest.mark.parametrize("k,n", ROW_SHAPES)
+def test_row_plan_is_legal(k, n, m, layout):
+    for g in _row_groups(k, layout):
+        _row_legal(quant.tc_plan(m, k, n, g, SMS, layout), m, k, n, g, layout)
+
+
+@pytest.mark.parametrize("layout", [I4, K4])
+@pytest.mark.parametrize("m,k,n,g,plan,blocks", [
+    (255, 3072, 5120, 0, (2, 1536), 80),
+    (255, 3072, 5120, 24, (2, 1536), 80),
+    (255, 3072, 3072, 0, (4, 768), 96),
+    (255, 3072, 8192, 24, (2, 1536), 128),
+    (255, 8192, 3072, 64, (4, 2048), 96),
+    (510, 3072, 8192, 0, (1, 3072), 128),
+])
+def test_row_plan_grid_on_132_sms(m, k, n, g, plan, blocks, layout):
+    """The row-packed grids `tc_plan`'s docstring states (128 output
+    columns a tile)."""
+    got = quant.tc_plan(m, k, n, g, SMS, layout)
+    assert tuple(got) == plan
+    assert got.blocks(m, n, layout) == blocks
+
+
+@pytest.mark.parametrize("layout", [I4, K4])
+@pytest.mark.parametrize("sms", [132, 114, 78])
+def test_row_plan_fills_one_wave(sms, layout):
+    """`_fills_one_wave` at the row-packed shapes (128 output columns a
+    column tile)."""
+    lay = quant.tc_layout()
+    for k, n in ROW_SHAPES[:5]:
+        for m in (17, 63, 255, 510):
+            for g in (0, k // 64):
+                assert quant.tc_plan(m, k, n, g, sms, layout).splits == 0 or \
+                    quant.tc_plan(m, k, n, g, sms, layout).grid(
+                        m, n, layout)[0] == -(-n // (2 * lay.bc))
+                _fills_one_wave(m, k, n, g, sms, layout)
+
+
+def _x_prime(x, layout):
+    """The k order the tile kernel reads: x itself (I4), or x[0], x[K/2],
+    x[1], x[K/2 + 1], ... (K4)."""
+    if layout == I4:
+        return x
+    k = x.shape[-1]
+    return torch.stack([x[:, :k // 2], x[:, k // 2:]], -1).reshape(x.shape)
+
+
+def _emulate_rows(x, w, plan, xn=None, residual=None):
+    """The row-packed tile kernel's arithmetic, f32 out: the row kernel's
+    output ``xn`` (x normalised and rounded to bf16, for a call that folds
+    a norm) in its k order, the slices' partials over x' added in rank
+    order, then the scale (per channel), then the residual in f32 (the one
+    rounding is the caller's)."""
+    k = x.shape[-1]
+    layout = quant.LAYOUTS[type(w)]
+    grouped = isinstance(w, quant.GROUPED)
+    xs = x if xn is None else xn
+    lv = quant.levels(w).float()                       # (K, N) in x order
+    if grouped:
+        g = w.scale.shape[0]
+        lv = (lv.reshape(g, k // g, -1) * w.scale[:, None, :]).reshape(k, -1)
+        lv = lv.to(torch.bfloat16).float()
+    xp, lp = _x_prime(xs.float(), layout), _x_prime(lv.T, layout).T
+    total = torch.zeros(x.shape[0], lv.shape[1])
+    for s in range(plan.splits):
+        k0, k1 = s * plan.span, min(k, (s + 1) * plan.span)
+        total = total + xp[:, k0:k1] @ lp[k0:k1]
+    if not grouped:
+        total = total * w.scale
+    if residual is not None:
+        total = total + residual.float()
+    return total
+
+
+ROW_FORMS = {"int4i": (I4, False), "int4ig": (I4, True), "int4g": (K4, True)}
+
+
+def _row_inputs(form, k, n, m, group, seed):
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32) * 0.02)
+    if form == "int4g":
+        c = quant.quantize4_grouped(w, group)
+    else:
+        c = quant.to_interleaved(quant.quantize4_grouped(w, group)
+                                 if form == "int4ig" else quant.quantize4(w))
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        torch.bfloat16)
+    nw = torch.from_numpy(1.0 + 0.1 * rng.standard_normal(k).astype(
+        np.float32)).to(torch.bfloat16)
+    res = torch.from_numpy(0.1 * rng.standard_normal((m, n)).astype(
+        np.float32)).to(torch.bfloat16)
+    return c, x, nw, res
+
+
+def _jax(a):
+    return jnp.asarray(a.float().numpy()).astype(
+        jnp.bfloat16 if a.dtype == torch.bfloat16 else jnp.float32)
+
+
+@pytest.mark.parametrize("folds", ["plain", "norm", "res", "norm+res"])
+@pytest.mark.parametrize("k,n,m,group", [(1024, 300, 40, 64),
+                                         (768, 601, 130, 128),
+                                         (2048, 200, 17, 32)])
+@pytest.mark.parametrize("form", list(ROW_FORMS))
+def test_row_split_sum_matches_jax_and_the_twin(form, k, n, m, group, folds):
+    """The row-packed emulation against JAX's `_pallas_int4i_matmul` /
+    `_pallas_int4g_matmul` in interpret mode (f32 out, with the same folds)
+    and the port's twin (bf16 out: 2e-2 x max|twin|, one bf16 ulp grouped
+    without a residual), given the twin's normalised rows, as the row
+    kernel rounds them. Against JAX the f32 sums differ in order only:
+    1e-5 x max|ref|; with a norm the Pallas kernel's rows may differ from
+    the twin's by one bf16 ulp in a few elements (their f32 statistics
+    differ in the last bit, and XLA's order of the mean follows the row
+    block's shape), so the bound adds two such flips of the largest
+    product, 2^-7 x max|xn| x max|W|."""
+    c, x, nw, res = _row_inputs(form, k, n, m, group, seed=k + n + m)
+    layout, grouped = ROW_FORMS[form]
+    g = c.scale.shape[0] if grouped else 0
+    plan = quant.tc_plan(m, k, n, g, SMS, layout)
+    assert plan.splits > 1                 # a real split at these shapes
+    pre_norm = (nw, 1e-5) if "norm" in folds else None
+    residual = res if "res" in folds else None
+
+    jfn = jq._pallas_int4g_matmul if layout == K4 else jq._pallas_int4i_matmul
+    kw = dict(out_dtype=jnp.float32)
+    xn = None
+    if pre_norm is not None:
+        kw["pre_norm"] = (_jax(nw), 1e-5)
+        xn = rms_norm(x, nw, 1e-5)
+        xn_jax = np.asarray(jq._maybe_norm(_jax(x), _jax(nw), 1e-5)).astype(
+            np.float32)
+        assert (np.abs(xn.float().numpy() - xn_jax)
+                <= 2.0 ** -7 * np.abs(xn_jax)).all()
+    if residual is not None:
+        kw["residual"] = _jax(res)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jfn(_jax(x), jnp.asarray(c.values.numpy()),
+                             jnp.asarray(c.scale.numpy()), **kw))
+    emu = _emulate_rows(x, c, plan, xn, residual)
+    atol = 1e-5 * np.abs(ref).max()
+    if xn is not None:
+        atol += 2.0 ** -7 * xn.float().abs().max().item() * \
+            quant.dequantize_any(c, torch.float32).abs().max().item()
+    np.testing.assert_allclose(emu.numpy(), ref, rtol=0, atol=atol)
+
+    twin = quant.matmul_plain(x, c, pre_norm=pre_norm, residual=residual)
+    tol = (2.0 ** -7 if grouped and residual is None else 2e-2) * \
+        twin.float().abs().max().item()
+    assert (emu.to(torch.bfloat16).float()
+            - twin.float()).abs().max().item() <= tol
+
+
+def test_row_wrappers_take_the_twin_on_the_cpu():
+    """On CPU tensors above 16 rows `int4i_matmul` (per channel and
+    grouped) and `int4g_matmul` return the twin with every fold and count
+    no launch, on the wrapper or on the tile kernel's counter."""
+    cases = [(quant.int4i_matmul, _row_inputs("int4i", 512, 600, 63, 64, 5)),
+             (quant.int4i_matmul, _row_inputs("int4ig", 512, 600, 63, 64, 6)),
+             (quant.int4g_matmul, _row_inputs("int4g", 512, 600, 63, 64, 7))]
+    for fn, (w, x, nw, res) in cases:
+        before = (fn.launches, quant.gemv_tc.launches)
+        kw = dict(pre_norm=(nw, 1e-5), residual=res, out_dtype=torch.float32)
+        assert torch.equal(fn(x, w.values, w.scale, **kw),
+                           quant.matmul_plain(x, w, **kw))
+        assert (fn.launches, quant.gemv_tc.launches) == before

@@ -1,22 +1,27 @@
 // Tensor-core tile kernel of the int4 GEMVs above the decode rows, for
-// sm_90a. Included by gemv_int4c.cu and gemv_int4cg.cu, which instantiate
-// it for the column-packed layout (C4) with per-column and with grouped
-// scales; the layout enters only through `unpack` and the epilogue's
-// column map, so the row-interleaved and K-split layouts can take it too.
+// sm_90a. Included by gemv_int4c.cu and gemv_int4cg.cu (the column-packed
+// layout, C4, per column and grouped), gemv_int4i.cu (the row-interleaved
+// layout, I4, per column and grouped) and gemv_int4g.cu (the K-split
+// layout, K4, grouped). A layout enters only through the W stage's box,
+// `unpack` and the epilogue's column map.
 //
-//   out (M, N) = x (M, K) @ unpack(W) (K, N) [* scale]
+//   out (M, N) = [rmsnorm(x)] (M, K) @ unpack(W) (K, N) [* scale] [+ res]
 //
 // Replaces, above quant.SPLITK_MAX_M activation rows, the tiled template of
 // gemv_common.cuh for `_pallas_int4c_matmul` / `_pallas_int4cg_matmul`
-// (uniaudio2_tpu/ops/quant.py:789-916). The serving path calls them alone at
-// a prefill of more than 128 rows (the fused MLP takes up to 128): the MLP
-// down-projection, 8192 -> 3072 or 2048, at M = 255 or 510.
+// (uniaudio2_tpu/ops/quant.py:789-916), `_pallas_int4i_matmul` (:919-1038)
+// and `_pallas_int4g_matmul` (:688-786). The serving path calls them at
+// every prefill: the QKV projection (I4 / K4, with the RMSNorm folded),
+// attn_proj (with the residual folded) and, above 128 rows (the fused MLP
+// takes up to 128), gate, up and the down-projection, at M = 63 to 510.
 //
 // Bound: operations. At (M = 255, K = 8192, N = 3072) a call is 12.8 GFLOP
-// (13 us at 989 TFLOP/s) against 12.6 MB of weights (3.8 us at 3.35 TB/s).
-// The tiled template gives every 4 activation rows a block that reads all of
-// W through L2 and spends f32 FMAs on the CUDA cores (0.19 ms at 67 TFLOP/s
-// before any unpacking), so only the tensor cores can reach the bound.
+// (13 us at 989 TFLOP/s) against 12.6 MB of weights (3.8 us at 3.35 TB/s);
+// at (255, 3072 -> 5120), the QKV projection, 8.0 GFLOP (8.1 us) against
+// 7.9 MB. The tiled template gives every 4 activation rows a block that
+// reads all of W through L2 and spends f32 FMAs on the CUDA cores (0.19 ms
+// at 67 TFLOP/s before any unpacking), so only the tensor cores can reach
+// the bound.
 //
 // Design:
 //  * products on wgmma, operands swapped: out^T = W^T . x^T. The unpacked
@@ -24,42 +29,70 @@
 //    registers) and the activations are B (BN = 256 rows, bf16,
 //    contraction-major as x (M, K) already is, from shared memory); f32
 //    sums. A thread of an A fragment holds rows g and g + 8 of its warp's
-//    16 (g = lane / 4); row g is the low nibble and row g + 8 the high
-//    nibble of one byte column, so each byte a thread loads gives it both of
-//    its rows' levels, and the epilogue writes columns c and N/2 + c;
-//  * a block is WGS = 2 consumer warpgroups (64 byte columns, 128 output
-//    columns) and one producer warp. The producer keeps a ring of STAGES
-//    stages of BK = 64 input rows full by TMA (x: a (BN, 64) bf16 box,
-//    128-byte swizzled as wgmma reads it; W: a (64, 64) byte box, 64-byte
-//    swizzled so that the four rows a thread reads of a k-step of 16 fall in
-//    distinct banks), each stage with a `full` mbarrier (the box bytes) and
-//    an `empty` one (every consumer thread arrives once its products of the
-//    stage have completed), so the loads of later stages run under the
-//    products of this one. Rows past M and K are zero-filled by the TMA
-//    unit; the epilogue masks columns past N;
+//    16 (g = lane / 4) and, of a k-step of 16, the input-row pairs (2t,
+//    2t + 1) and (2t + 8, 2t + 9) (t = lane % 4):
+//     - C4: row g is the low nibble and row g + 8 the high nibble of one
+//       byte column, so each byte a thread loads gives it both of its
+//       rows' levels, and the epilogue writes columns c and N/2 + c;
+//     - I4: byte [r, c] holds input rows 2r and 2r + 1 of column c, so one
+//       byte is exactly one A register (its two nibbles, one pair), and
+//       rows g and g + 8 are output columns c and c + 8;
+//     - K4: byte [r, c] holds rows r and K/2 + r, the Pallas kernel's two
+//       dots. A small row kernel (`rows_kernel`) writes the activations in
+//       the k order x'[2r] = x[r], x'[2r + 1] = x[K/2 + r] into a scratch
+//       buffer the wrapper allocates, and the tile kernel runs I4's
+//       products on x'; only the grouped scales differ (low nibbles
+//       groups r / (K/G), high nibbles G/2 + r / (K/G)). Reading the byte
+//       as two runs of k-steps instead (the low nibbles against x at r,
+//       the high ones against a second x box at K/2 + r) pairs the same
+//       nibble of byte rows 2t and 2t + 1 in an A register: twice the
+//       shared-memory loads and a byte permute a register, and a second x
+//       box a stage (three stages in the 227 KB, not four). The permuted
+//       copy costs one pass over x (2 M K bytes each way) and a launch,
+//       and the served QKV call writes a normalised copy anyway;
+//  * a block is WGS = 2 consumer warpgroups (128 output columns: 64 byte
+//    columns of C4, 128 of I4 / K4) and one producer warp. The producer
+//    keeps a ring of STAGES stages of BK = 64 input rows full by TMA (x: a
+//    (BN, 64) bf16 box, 128-byte swizzled as wgmma reads it; W: C4 a (64,
+//    64) byte box, 64-byte swizzled, I4 / K4 a (32, 128) byte box,
+//    128-byte swizzled, so that the four bytes a thread reads of a k-step
+//    fall in distinct banks across its warp), each stage with a `full`
+//    mbarrier (the box bytes) and an `empty` one (every consumer thread
+//    arrives once its products of the stage have completed), so the loads
+//    of later stages run under the products of this one. Rows past M and K
+//    are zero-filled by the TMA unit; the epilogue masks columns past N;
 //  * each weight byte is read once per row tile of BN rows: at M = 255 one
 //    row tile reads the 12.6 MB once;
 //  * unpack without conversions, as gemv_int4_splitk.cuh: XOR 0x88 makes a
 //    nibble n + 8, one LOP3 puts two nibbles under the bf16 exponent of 128
-//    and one bf16x2 FMA subtracts 136: the exact levels. Grouped: each level
-//    becomes f32 the same way, is multiplied by its f32 scale (row k / (K/G),
-//    fetched from L2 a stage ahead) and rounded to bf16 before the product,
-//    as the Pallas kernel rounds the scaled tile;
+//    and one bf16x2 FMA subtracts 136: the exact levels (I4 / K4: the byte
+//    times 0x1001 puts its high nibble 16 bits above its low one, and the
+//    LOP3 flips the sign bits too). Grouped: each level becomes f32 the
+//    same way, is multiplied by its f32 scale (fetched from L2 a stage
+//    ahead) and rounded to bf16 before the product, as the Pallas kernel
+//    rounds the scaled tile;
+//  * the RMSNorm prologue (I4 / K4; the served QKV call) is `rows_kernel`,
+//    launched by the same C entry point before the tile kernel: f32 sums
+//    of squares in a fixed order, bf16(x * rsqrt(mean + eps) * w), the
+//    twin's rounding, into the scratch buffer the tile kernel then reads
+//    by TMA (1.6 MB at (255, 3072));
 //  * the host (`quant.tc_plan`) picks a split of K into S <= 8 slices of
-//    whole stages (and whole scale groups) from the shape and the SM count.
-//    The S slices of a tile are one thread-block cluster; each block parks
-//    its f32 partial tile in its shared memory (the drained ring) and rank r
-//    finishes rows r, r + S, ... of the tile, adding the ranks' partials in
-//    rank order through distributed shared memory, then the scale and one
-//    rounding (bf16 or f32 output). No atomics, no workspace, the same bits
-//    on every run;
+//    whole stages (and whole scale groups, of both K halves for K4) from
+//    the shape and the SM count. The S slices of a tile are one
+//    thread-block cluster; each block parks its f32 partial tile in its
+//    shared memory (the drained ring) and rank r finishes rows r, r + S,
+//    ... of the tile, adding the ranks' partials in rank order through
+//    distributed shared memory, then the scale (per column), the residual
+//    (f32, before the one rounding, as gemv_int4_splitk.cuh) and one
+//    rounding (bf16 or f32 output). No atomics, no workspace, the same
+//    bits on every run;
 //  * one row tile of BN = 256: at the serving path's M (255 and 510) a
 //    smaller tile would only add blocks that read the weights again; rows
 //    past M are zero-filled and never written;
-//  * no RMSNorm prologue and no residual: the serving path applies both
-//    around these GEMVs (`quant.matmul`, as the JAX package does), and the
-//    C entry points send a call that passes either to the tiled template,
-//    which folds both.
+//  * C4 folds neither the norm nor the residual: the serving path applies
+//    both around these GEMVs (`quant.matmul`, as the JAX package does),
+//    and its C entry points send a call that passes either to the tiled
+//    template.
 // Not here: a persistent schedule, TMA multicast of x across a cluster of
 // column tiles, overlapping a stage's unpacking with the previous stage's
 // products inside a warpgroup (the two warpgroups of a block interleave
@@ -88,16 +121,18 @@ constexpr int BK = 64;                    // input rows a stage
 constexpr int BN = 256;                   // activation rows a block (wgmma's N)
 constexpr int STAGES = 4;
 constexpr int WGS = 2;                    // consumer warpgroups a block
-constexpr int BC = 64;                    // byte columns a block
+constexpr int BC = 64;                    // byte columns a block, C4
+constexpr int COLS = 2 * BC;              // output columns a block, every layout
 constexpr int CONSUMERS = 128 * WGS;
 constexpr int THREADS = CONSUMERS + 32;   // + the producer warp
-constexpr int PITCH = 2 * BC + 4;         // floats a row of the partial tile
+constexpr int PITCH = COLS + 4;           // floats a row of the partial tile
 constexpr int X_BYTES = BN * 128;         // an x stage: BN rows of BK bf16
-constexpr int W_BYTES = BK * BC;          // a W stage
+constexpr int W_BYTES = BK * BC;          // a W stage: (BK, BC) C4, (BK/2, COLS) I4 / K4
 constexpr int MAX_SPLITS = 8;
 constexpr unsigned OFFSET = 0x88888888u;  // two's complement -> n + 8
 constexpr unsigned MAGIC2 = 0x43004300u;  // bf16x2 (128, 128)
-static_assert(BC == 32 * WGS, "a consumer warpgroup owns 32 byte columns");
+static_assert(BC == 32 * WGS, "a consumer warpgroup owns 32 byte columns of C4");
+static_assert((BK / 2) * COLS == W_BYTES, "one W stage size for every layout");
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 // The ring during the loop, the partial tile after it.
@@ -290,23 +325,49 @@ __device__ __forceinline__ void unpack(unsigned b0, unsigned b1, unsigned b2,
   }
 }
 
+// The A register of one row-packed byte b (I4: input rows 2r low, 2r + 1
+// high; K4 on x': the same places): its low nibble's level in the low
+// half, its high nibble's in the high half, exact. b * 0x1001 puts the
+// high nibble at bits 16-19; the LOP3 (0x6C: ~v where both masks are set,
+// v under the second alone, 1 under the first alone) keeps bits 0-3 and
+// 16-19 with their sign bits flipped (n + 8) under the bf16 exponent of
+// 128, and the bf16x2 FMA subtracts 136.
+__device__ __forceinline__ unsigned byte_levels(unsigned b) {
+  const unsigned v = b * 0x1001u;
+  unsigned q, d;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6C;"
+      : "=r"(q) : "r"(v), "r"(MAGIC2 | 0x00080008u), "r"(0x000F000Fu));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;"
+      : "=r"(d) : "r"(q), "r"(0x3F803F80u), "r"(0xC308C308u));   // x 1 - 136
+  return d;
+}
+
+// Grouped: the byte's two levels times their f32 scales (slo the low
+// nibble's, shi the high one's), rounded to bf16.
+__device__ __forceinline__ unsigned byte_levels_scaled(unsigned b, float slo, float shi) {
+  return pack_bf2(level_f(b, 0x0Fu) * slo, level_f(b >> 4, 0x0Fu) * shi);
+}
+
 // Fragments (PTX ISA, wgmma m64nNk16): warp u of a warpgroup holds A rows
 // 16 u + g and 16 u + g + 8 (lane = 4 g + t); accumulator register 4 n + e
 // (e < 2) is A row 16 u + g, B column (activation row) 8 n + 2 t + e, and
 // 4 n + 2 + e the A row 8 below.
 //
-// Grid: (column tiles of BC bytes, S K-slices of `span` input rows, row
-// tiles of BN), launched as clusters of (1, S, 1).
-template <bool GROUPED>
+// Grid: (column tiles of COLS output columns, S K-slices of `span` input
+// rows, row tiles of BN), launched as clusters of (1, S, 1). x is x' for
+// K4 (`rows_kernel`), the scratch copy for a call with a norm.
+template <int LAYOUT, bool GROUPED>
 __global__ void __launch_bounds__(THREADS, 1)
 gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
                const __grid_constant__ CUtensorMap tw, const float* __restrict__ scale,
-               void* __restrict__ out, int M, int K, int N, int G, int out_f32, int span) {
+               const __nv_bfloat16* __restrict__ res, void* __restrict__ out, int M,
+               int K, int N, int G, int out_f32, int span) {
   constexpr int XB = X_BYTES;
+  constexpr bool ROWS = LAYOUT != C4;                 // row-packed: I4, K4
   cg::cluster_group cluster = cg::this_cluster();
   const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int nh = N / 2;
-  const int col0 = blockIdx.x * BC;                   // first byte column
+  const int col0 = blockIdx.x * (ROWS ? COLS : BC);   // first byte column
   const int k_begin = blockIdx.y * span;
   const int steps = (min(K, k_begin + span) - k_begin + BK - 1) / BK;
   const int m0 = blockIdx.z * BN;
@@ -334,7 +395,8 @@ gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
   __syncthreads();
 
   if (warp == 4 * WGS) {
-    // the producer: stage j holds input rows k_begin + 64 j ...
+    // the producer: stage j holds input rows k_begin + 64 j ... (byte rows
+    // half that for I4 / K4)
     if (lane == 0) {
       for (int j = 0; j < steps; ++j) {
         const int s = j % STAGES;
@@ -343,19 +405,26 @@ gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
         mbar_expect_tx(full, XB + W_BYTES);
         const int k = k_begin + j * BK;
         tma_load(x_s + s * XB, &tx, full, k, m0);
-        tma_load(w_s + s * W_BYTES, &tw, full, col0, k);
+        tma_load(w_s + s * W_BYTES, &tw, full, col0, ROWS ? k / 2 : k);
       }
     }
   } else {
     const int wg = warp >> 2, u = warp & 3;
     const int g = lane >> 2, t = lane & 3;
-    const int cl = 32 * wg + 8 * u + g;               // byte column in the tile
+    // C4: byte column cl of the tile, output columns c and nh + c. I4 / K4:
+    // output (= byte) columns cl and cl + 8 of the tile, c and c + 8
+    const int cl = ROWS ? 64 * wg + 16 * u + g : 32 * wg + 8 * u + g;
     const int c = col0 + cl;
-    // byte (row 2t, column cl) of a W stage under the 64-byte swizzle: the
-    // 16-byte chunk of a row is XORed with bits 7-8 of its offset, which
-    // are t for each of the rows 2t, 2t + 1, 2t + 8, 2t + 9 of a k-step
-    const int w_off = 2 * t * BK + ((((cl >> 4) ^ t) << 4) | (cl & 15));
-    const unsigned char* wsm = gbase + STAGES * XB + w_off;
+    // the bytes of a k-step of 16 this thread reads, in a W stage:
+    //  C4 (64-byte swizzle: the 16-byte chunk of a row is XORed with bits
+    //  7-8 of its offset, t for each of the rows 2t, 2t + 1, 2t + 8,
+    //  2t + 9): byte (row 2t, column cl), then + BK, + 8 BK, + 9 BK;
+    //  I4 / K4 (128-byte swizzle: the chunk XORed with the row's index mod
+    //  8): byte rows t (w_off) and t + 4 (w_off4), columns cl and cl + 8 (+ 8)
+    const int w_off = ROWS ? t * COLS + (((cl >> 4) ^ t) << 4) + g
+                           : 2 * t * BK + ((((cl >> 4) ^ t) << 4) | (cl & 15));
+    const int w_off4 = t * COLS + 4 * COLS + (((cl >> 4) ^ (t + 4)) << 4) + g;
+    const unsigned char* wsm = gbase + STAGES * XB;
 
     float acc[BN / 2];
 #pragma unroll
@@ -364,14 +433,31 @@ gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
     for (int j = 0; j < steps; ++j) {
       const int s = j % STAGES;
       const int k0 = k_begin + j * BK;
-      float slo[4] = {0.f, 0.f, 0.f, 0.f}, shi[4] = {0.f, 0.f, 0.f, 0.f};
+      // grouped scales of the stage (a k-step of 16 lies in one group: the
+      // plan takes K / G % 16 == 0):
+      //  C4: sa[kk] column c (low nibbles), sb[kk] column nh + c / 16;
+      //  I4: sa[kk] column c, sb[kk] column c + 8, both nibbles;
+      //  K4: byte rows k0 / 2 + 16 p (two k-steps each): sa[2p + i] the low
+      //  nibbles' (group r / gs) and sb[2p + i] the high nibbles' (G/2 +
+      //  r / gs) scale of column c + 8 i
+      float sa[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f};
       if constexpr (GROUPED) {
-        // a k-step of 16 lies in one group (the plan: K / G % 16 == 0)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          const int gi = min((k0 + 16 * kk) / gs, G - 1);
-          slo[kk] = c < nh ? __ldg(scale + (size_t)gi * N + c) : 0.f;
-          shi[kk] = nh + c < N ? __ldg(scale + (size_t)gi * N + nh + c) * 0.0625f : 0.f;
+          if constexpr (LAYOUT == C4) {
+            const int gi = min((k0 + 16 * kk) / gs, G - 1);
+            sa[kk] = c < nh ? __ldg(scale + (size_t)gi * N + c) : 0.f;
+            sb[kk] = nh + c < N ? __ldg(scale + (size_t)gi * N + nh + c) * 0.0625f : 0.f;
+          } else if constexpr (LAYOUT == I4) {
+            const int gi = min((k0 + 16 * kk) / gs, G - 1);
+            sa[kk] = c < N ? __ldg(scale + (size_t)gi * N + c) : 0.f;
+            sb[kk] = c + 8 < N ? __ldg(scale + (size_t)gi * N + c + 8) : 0.f;
+          } else {
+            const int p = kk >> 1, cc = c + 8 * (kk & 1);
+            const int gi = min((k0 / 2 + 16 * p) / gs, G / 2 - 1);
+            sa[kk] = cc < N ? __ldg(scale + (size_t)gi * N + cc) : 0.f;
+            sb[kk] = cc < N ? __ldg(scale + (size_t)(G / 2 + gi) * N + cc) : 0.f;
+          }
         }
       }
       mbar_wait(bars + 8 * s, (j / STAGES) & 1);
@@ -379,8 +465,34 @@ gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
       const unsigned char* wp = wsm + s * W_BYTES;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const unsigned char* q = wp + kk * 16 * BK;
-        unpack<GROUPED>(q[0], q[BK], q[8 * BK], q[9 * BK], slo[kk], shi[kk], a[kk]);
+        if constexpr (ROWS) {
+          // A registers: (row g, k 2t, 2t + 1) byte row t column cl, (row
+          // g + 8) column cl + 8, then byte row t + 4: k 2t + 8, 2t + 9
+          const unsigned char* q = wp + kk * 8 * COLS;
+          const unsigned b0 = q[w_off], b1 = q[w_off + 8];
+          const unsigned b2 = q[w_off4], b3 = q[w_off4 + 8];
+          if constexpr (GROUPED) {
+            // the low (l) and high (h) nibbles' scales of columns c (0) and
+            // c + 8 (1); I4: both nibbles of a byte take its column's
+            float l0 = sa[kk], h0 = sa[kk], l1 = sb[kk], h1 = sb[kk];
+            if constexpr (LAYOUT == K4) {
+              const int p = 2 * (kk >> 1);
+              l0 = sa[p], l1 = sa[p + 1], h0 = sb[p], h1 = sb[p + 1];
+            }
+            a[kk][0] = byte_levels_scaled(b0, l0, h0);
+            a[kk][1] = byte_levels_scaled(b1, l1, h1);
+            a[kk][2] = byte_levels_scaled(b2, l0, h0);
+            a[kk][3] = byte_levels_scaled(b3, l1, h1);
+          } else {
+            a[kk][0] = byte_levels(b0);
+            a[kk][1] = byte_levels(b1);
+            a[kk][2] = byte_levels(b2);
+            a[kk][3] = byte_levels(b3);
+          }
+        } else {
+          const unsigned char* q = wp + w_off + kk * 16 * BK;
+          unpack<GROUPED>(q[0], q[BK], q[8 * BK], q[9 * BK], sa[kk], sb[kk], a[kk]);
+        }
       }
       fence_regs(a);
       wgmma_fence();
@@ -393,30 +505,38 @@ gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
       mbar_arrive(bars + 8 * (STAGES + s));             // the stage is free
     }
 
-    // the block's partial tile: row = activation row, column cl the low
-    // nibbles' output column, BC + cl the high nibbles'
+    // the block's partial tile: row = activation row; column: C4 cl the low
+    // nibbles' output column, BC + cl the high nibbles'; I4 / K4 cl and
+    // cl + 8
     consumers_sync();                                   // the ring is drained
+    constexpr int second = ROWS ? 8 : BC;
 #pragma unroll
     for (int n = 0; n < BN / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float* dst = part + (8 * n + 2 * t + e) * PITCH + cl;
         dst[0] = acc[4 * n + e];
-        dst[BC] = acc[4 * n + 2 + e];
+        dst[second] = acc[4 * n + 2 + e];
       }
   }
 
   // across the cluster: rank r finishes activation rows r, r + S, ... of the
-  // tile, adding the ranks' partials in rank order
+  // tile, adding the ranks' partials in rank order, then the scale (per
+  // column), the residual in f32 and one rounding
   __syncwarp();                       // the producer warp's lanes meet again
   cluster.sync();
   const int rows = (BN - rank + S - 1) / S;
-  for (int i = threadIdx.x; i < rows * 2 * BC; i += THREADS) {
-    const int r = rank + S * (i / (2 * BC)), jc = i % (2 * BC);
-    const int row = m0 + r, bcol = col0 + jc % BC;
-    const bool hi = jc >= BC;
-    if (row >= M || bcol >= (hi ? N - nh : nh)) continue;
-    const int col = hi ? nh + bcol : bcol;
+  for (int i = threadIdx.x; i < rows * COLS; i += THREADS) {
+    const int r = rank + S * (i / COLS), jc = i % COLS;
+    const int row = m0 + r;
+    int col = col0 + jc;
+    if constexpr (!ROWS) {
+      const int bcol = col0 + jc % BC;
+      const bool hi = jc >= BC;
+      if (bcol >= (hi ? N - nh : nh)) continue;
+      col = hi ? nh + bcol : bcol;
+    }
+    if (row >= M || col >= N) continue;
     float pv[MAX_SPLITS];
 #pragma unroll
     for (int q = 0; q < MAX_SPLITS; ++q)
@@ -426,12 +546,50 @@ gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
     for (int q = 0; q < MAX_SPLITS; ++q)
       if (q < S) v += pv[q];
     if (!GROUPED) v *= __ldg(scale + col);
+    if (res != nullptr) v += __bfloat162float(res[(size_t)row * N + col]);
     if (out_f32)
       reinterpret_cast<float*>(out)[(size_t)row * N + col] = v;
     else
       reinterpret_cast<__nv_bfloat16*>(out)[(size_t)row * N + col] = __float2bfloat16(v);
   }
   cluster.sync();                     // no block leaves while its tile is read
+}
+
+// The activations a row-packed call's tile kernel reads, one block a row:
+// with a norm weight the row RMS-normalised (f32 sum of squares in a fixed
+// order, rsqrt(mean + eps)), times the weight and rounded to bf16, as the
+// twin rounds it (`ops/norms.py`); for K4 in the k order x'[2r] = x[r],
+// x'[2r + 1] = x[K/2 + r] (the byte's low and high rows), with or without
+// a norm.
+template <int LAYOUT>
+__global__ void __launch_bounds__(ua2::THREADS)
+rows_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ nw,
+            __nv_bfloat16* __restrict__ xn, int K, float eps) {
+  __shared__ float red[ua2::WARPS];
+  const __nv_bfloat16* src = x + (size_t)blockIdx.x * K;
+  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(xn + (size_t)blockIdx.x * K);
+  float r = 1.f;
+  if (nw != nullptr) {
+    float ss = 0.f;
+    for (int k = threadIdx.x; k < K; k += ua2::THREADS) {
+      const float v = __bfloat162float(src[k]);
+      ss += v * v;
+    }
+    r = rsqrtf(ua2::block_sum(ss, red) / (float)K + eps);
+  }
+  const int half = K / 2;
+  for (int i = threadIdx.x; i < half; i += ua2::THREADS) {
+    const int ka = LAYOUT == K4 ? i : 2 * i, kb = LAYOUT == K4 ? half + i : 2 * i + 1;
+    __nv_bfloat162 o;
+    if (nw == nullptr) {
+      o.x = src[ka];
+      o.y = src[kb];
+    } else {
+      o.x = __float2bfloat16(__bfloat162float(src[ka]) * r * __bfloat162float(nw[ka]));
+      o.y = __float2bfloat16(__bfloat162float(src[kb]) * r * __bfloat162float(nw[kb]));
+    }
+    dst[i] = o;
+  }
 }
 
 // cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
@@ -480,43 +638,65 @@ inline bool map2d(CUtensorMap* map, const void* p, CUtensorMapDataType type, int
 
 // True when (splits, span) is a launch this kernel takes for the shape:
 // what `quant.tc_plan` returns for it, and what the C entry points check.
-inline bool plan_ok(int M, int K, int N, int ldw, int G, int splits, int span) {
+inline bool plan_ok(int layout, int M, int K, int N, int ldw, int G, int splits,
+                    int span) {
   if (splits < 1 || splits > MAX_SPLITS || span < BK || span % BK) return false;
   if ((long long)splits * span < K || (long long)(splits - 1) * span >= K) return false;
-  if (M < 1 || N < 1 || K % 8 || ldw % 16 || ldw < N - N / 2) return false;
-  if (G > 0 && (K % G || (K / G) % 16)) return false;
+  if (M < 1 || N < 1 || K % 8 || ldw % 16 || ldw < (layout == C4 ? N - N / 2 : N))
+    return false;
+  if (G > 0 && (K % G || (K / G) % 16 || (layout == K4 && G % 2))) return false;
   return true;
 }
 
-// The C4 launch: x (M, K) bf16 and w (K, ldw) int8, both 16-byte aligned.
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for a plan the
-// kernel does not take or a tensor map cuTensorMapEncodeTiled refuses.
-template <bool GROUPED>
-int launch_c4(const void* x, const void* w, const void* scale, void* out, int M, int K,
-              int N, int ldw, int G, int out_f32, int splits, int span,
-              cudaStream_t stream) {
-  if (GROUPED != (G > 0) || !plan_ok(M, K, N, ldw, G, splits, span) ||
-      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+// The launch: x (M, K) bf16 and w (K, ldw) (C4) or (K/2, ldw) (I4, K4)
+// int8, both 16-byte aligned; residual (M, N) bf16 or NULL; for K4 and for
+// a call with a norm weight (I4, K4), xn, (M, K) bf16 and 16-byte aligned,
+// takes the activations `rows_kernel` writes (C4 folds neither). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a plan or an operand
+// the kernel does not take or a tensor map cuTensorMapEncodeTiled refuses.
+template <int LAYOUT, bool GROUPED>
+int launch(const void* x, const void* w, const void* scale, const void* nw,
+           const void* res, void* out, void* xn, int M, int K, int N, int ldw, int G,
+           float eps, int out_f32, int splits, int span, cudaStream_t stream) {
+  constexpr bool ROWS = LAYOUT != C4;
+  const bool staged = ROWS && (nw != nullptr || LAYOUT == K4);
+  if (GROUPED != (G > 0) || !plan_ok(LAYOUT, M, K, N, ldw, G, splits, span) ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
+      (!ROWS && (nw != nullptr || res != nullptr)) ||
+      (staged && (xn == nullptr || reinterpret_cast<uintptr_t>(xn) % 16)))
     return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if constexpr (ROWS) {
+    if (staged) {
+      rows_kernel<LAYOUT><<<M, ua2::THREADS, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(nw),
+          static_cast<__nv_bfloat16*>(xn), K, eps);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+    }
+  }
   CUtensorMap tx, tw;
-  if (!map2d(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, M, K, K * 2, BN, BK,
-             CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !map2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, ldw, ldw, BK, BC,
-             CU_TENSOR_MAP_SWIZZLE_64B))
-    return (int)cudaErrorInvalidValue;
-  auto kernel = gemv_tc_kernel<GROUPED>;
+  const bool mapped =
+      map2d(&tx, staged ? xn : x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, M, K, K * 2, BN, BK,
+            CU_TENSOR_MAP_SWIZZLE_128B) &&
+      (ROWS ? map2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, K / 2, ldw, ldw, BK / 2, COLS,
+                    CU_TENSOR_MAP_SWIZZLE_128B)
+            : map2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, ldw, ldw, BK, BC,
+                    CU_TENSOR_MAP_SWIZZLE_64B));
+  if (!mapped) return (int)cudaErrorInvalidValue;
+  auto kernel = gemv_tc_kernel<LAYOUT, GROUPED>;
   static bool ready[64] = {};     // the shared-memory cap, raised once a device
   int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev >= 64 || !ready[dev]) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e != cudaSuccess) return (int)e;
     if (dev < 64) ready[dev] = true;
   }
-  const int width = N - N / 2;                         // byte columns in use
+  const int tiles = ROWS ? (N + COLS - 1) / COLS : (N - N / 2 + BC - 1) / BC;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((width + BC - 1) / BC, splits, (M + BN - 1) / BN);
+  cfg.gridDim = dim3(tiles, splits, (M + BN - 1) / BN);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = SMEM;
   cfg.stream = stream;
@@ -527,8 +707,9 @@ int launch_c4(const void* x, const void* w, const void* scale, void* out, int M,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, tx, tw, static_cast<const float*>(scale), out, M,
-                         K, N, G, out_f32, span);
+  e = cudaLaunchKernelEx(&cfg, kernel, tx, tw, static_cast<const float*>(scale),
+                         static_cast<const __nv_bfloat16*>(res), out, M, K, N, G,
+                         out_f32, span);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -21,7 +21,7 @@
 //    gemv_int4_tc.cuh (a prefill of more than 128 rows: bound by
 //    operations);
 //  * at up to 16 rows, at shapes the tile kernel does not take, and for a
-//    call with a norm or a residual (the tile kernel folds neither), the
+//    call with a norm or a residual (its C4 instance folds neither), the
 //    tiled template of gemv_common.cuh (bound by weight bytes at M <= 2);
 //    `ua2_gemv_int4c_tiled` launches it at any M (the yardstick).
 #include "gemv_int4_tc.cuh"
@@ -34,8 +34,8 @@ extern "C" int ua2_gemv_int4c(const void* x, const void* w, const void* scale,
   if (splits == 0 || norm_w != nullptr || residual != nullptr)
     return ua2::launch_gemv<ua2::C4, false>(x, w, scale, norm_w, residual, out, M, K, N,
                                             ldw, G, eps, out_f32, st);
-  return ua2::tc::launch_c4<false>(x, w, scale, out, M, K, N, ldw, G, out_f32, splits,
-                                    span, st);
+  return ua2::tc::launch<ua2::C4, false>(x, w, scale, nullptr, nullptr, out, nullptr, M, K,
+                                        N, ldw, G, eps, out_f32, splits, span, st);
 }
 
 extern "C" int ua2_gemv_int4c_tiled(const void* x, const void* w, const void* scale,
@@ -45,4 +45,27 @@ extern "C" int ua2_gemv_int4c_tiled(const void* x, const void* w, const void* sc
   return ua2::launch_gemv<ua2::C4, false>(x, w, scale, norm_w, residual, out, M, K, N,
                                           ldw, G, eps, out_f32,
                                           static_cast<cudaStream_t>(stream));
+}
+
+// The clusters of `splits` blocks of the tile kernel that the card holds at
+// once (cudaOccupancyMaxActiveClusters), into *clusters: what the plan's
+// one-wave rule (`quant.tc_wave`) approximates from the SM count. Every
+// instance of the kernel takes the same threads and shared memory.
+extern "C" int ua2_tc_max_clusters(int splits, int* clusters) {
+  auto kernel = ua2::tc::gemv_tc_kernel<ua2::C4, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ua2::tc::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, splits, 1);
+  cfg.blockDim = dim3(ua2::tc::THREADS);
+  cfg.dynamicSmemBytes = ua2::tc::SMEM;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }

@@ -29,8 +29,8 @@ extern "C" int ua2_gemv_int4cg(const void* x, const void* w, const void* scale,
   if (splits == 0 || norm_w != nullptr || residual != nullptr)
     return ua2::launch_gemv<ua2::C4, true>(x, w, scale, norm_w, residual, out, M, K, N,
                                            ldw, G, eps, out_f32, st);
-  return ua2::tc::launch_c4<true>(x, w, scale, out, M, K, N, ldw, G, out_f32, splits,
-                                   span, st);
+  return ua2::tc::launch<ua2::C4, true>(x, w, scale, nullptr, nullptr, out, nullptr, M, K,
+                                        N, ldw, G, eps, out_f32, splits, span, st);
 }
 
 extern "C" int ua2_gemv_int4cg_tiled(const void* x, const void* w, const void* scale,

@@ -40,21 +40,27 @@ _L = ctypes.c_longlong
 _GEMV = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]
 # the same with the host's plan before the stream: splits (0 = the tiled
 # instance), mt, span (`quant.gemv_plan`); for the column-packed forms
-# splits (0 = the tiled instance), span (`quant.tc_plan`)
+# splits (0 = the tiled instance), span (`quant.tc_plan`); rows 1 and 6
+# take either plan (mt 16: the split-K kernel, mt = the tile kernel's BN:
+# `quant.tc_plan`) and the tile kernel's scratch for x (or NULL)
 _GEMV_PLAN = _GEMV[:-1] + [_I, _I, _I, _P]
 _GEMV_TC = _GEMV[:-1] + [_I, _I, _P]
+_GEMV_ROWS = _GEMV[:-1] + [_I, _I, _I, _P, _P]
 _SIGNATURES = {
-    "ua2_gemv_int4i": _GEMV_PLAN,
+    "ua2_gemv_int4i": _GEMV_ROWS,
     "ua2_gemv_int4i_tiled": _GEMV,
     "ua2_gemv_int8": _GEMV,
     "ua2_gemv_int4": _GEMV_PLAN,
     "ua2_gemv_int4_tiled": _GEMV,
-    "ua2_gemv_int4g": _GEMV_PLAN,
+    "ua2_gemv_int4g": _GEMV_ROWS,
     "ua2_gemv_int4g_tiled": _GEMV,
     "ua2_gemv_int4c": _GEMV_TC,
     "ua2_gemv_int4c_tiled": _GEMV,
     "ua2_gemv_int4cg": _GEMV_TC,
     "ua2_gemv_int4cg_tiled": _GEMV,
+    # splits, int* out: the tile kernel's clusters of `splits` blocks the
+    # card holds at once
+    "ua2_tc_max_clusters": [_I, _P],
     # x, w, scale, norm_w, cos, sin, q, k, v, B, K, n_head, n_groups,
     # head_size, layout, G, eps, stream
     "ua2_qkv_rope": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -191,6 +197,16 @@ def reset_count(fn) -> None:
     fn.forms = {}
     if fn not in _COUNTED:
         _COUNTED.append(fn)
+
+
+class Counter:
+    """The count of a kernel that several wrappers launch, kept beside the
+    wrappers' own counts (by the launching wrapper's form) and registered
+    as they are, so that captured graphs and `counts_since` see it."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        reset_count(self)
 
 
 def counts() -> dict:

@@ -16,12 +16,14 @@ Six kernels of the JAX package live here, as CUDA C++ for ``sm_90a``
 
 * `int4i_matmul` replaces `_pallas_int4i_matmul` (row-interleaved int4,
   per-channel or grouped scales; at decode the split-K cluster kernel of
-  ``csrc/gemv_int4_splitk.cuh``, planned by `gemv_plan`);
+  ``csrc/gemv_int4_splitk.cuh``, planned by `gemv_plan`, above 16 rows the
+  tensor-core tile kernel of ``csrc/gemv_int4_tc.cuh``, planned by
+  `tc_plan`);
 * `int8_matmul` replaces `_pallas_int8_matmul` (per-channel int8);
 * `int4_matmul` replaces `_pallas_int4_matmul` (K-split int4; at decode
   the split-K cluster kernel too);
 * `int4g_matmul` replaces `_pallas_int4g_matmul` (K-split, grouped; at
-  decode the split-K cluster kernel too);
+  decode the split-K cluster kernel, above 16 rows the tile kernel too);
 * `int4c_matmul` replaces `_pallas_int4c_matmul` (column-packed int4;
   above 16 rows the tensor-core tile kernel of ``csrc/gemv_int4_tc.cuh``,
   planned by `tc_plan`);
@@ -39,7 +41,8 @@ output dtype. With grouped scales the f32 scale is multiplied into the
 weight, the product rounded to ``x.dtype`` and then dotted in f32: the
 twin's arithmetic up to the order of the sum. The column-packed kernels
 fold neither the norm nor the residual (`matmul` applies both around
-them, as the JAX package does).
+them, as the JAX package does). `gemv_tc` counts the tile kernel's
+launches by form, beside the wrappers' own counts.
 """
 
 from __future__ import annotations
@@ -546,22 +549,48 @@ def splitk_slices(k: int, g: int, layout: int):
 
 
 # The blocks a wave of the tile kernel's clusters can hold, an SM: clusters
-# are placed whole inside a GPC, so fewer than one block an SM run at once.
-# Chosen by `probes/tc_splits_sweep.py` on the H100 (132 SMs): the fastest
-# slice count at each of its eight cases is the most with <= 96 blocks.
+# are placed whole inside a GPC, so clusters of three or more slices fill
+# fewer than one block an SM (`TC_BLOCKS_PER_SM`), clusters of one or two
+# every SM (`TC_PAIR_BLOCKS_PER_SM`). Chosen by `probes/tc_splits_sweep.py`
+# on the H100 (132 SMs): at each of its 41 cases the fastest slice count
+# with its clusters in one wave is the most with <= 96 blocks, or, in
+# clusters of two, <= 132 (64 column tiles x 2 read 1.6-1.7x faster than
+# 64 x 1, where 24 x 5 = 120 blocks read 1.6x slower than 24 x 4). The
+# card's own count, cudaOccupancyMaxActiveClusters, is 132, 66, 39, 30, 22,
+# 17, 15 and 15 clusters of 1-8 blocks there: at every S at least what
+# this rule allows, so a plan never spills into a second wave.
 TC_BLOCKS_PER_SM = 0.75
+TC_PAIR_BLOCKS_PER_SM = 1.0
+
+
+def tc_wave(splits: int, sms: int) -> int:
+    """The blocks one wave of the tile kernel's clusters of ``splits``
+    blocks holds on a card of ``sms`` SMs (`TC_BLOCKS_PER_SM`,
+    `TC_PAIR_BLOCKS_PER_SM`)."""
+    rate = TC_PAIR_BLOCKS_PER_SM if splits <= 2 else TC_BLOCKS_PER_SM
+    return int(rate * sms)
 
 
 class TcLayout(NamedTuple):
     """The tensor-core tile kernel's constants (csrc/gemv_int4_tc.cuh):
     ``bk`` input rows a stage of its ring, ``bn`` activation rows a block
-    (wgmma's N), ``bc`` byte columns a block (twice as many output
-    columns), at most ``max_splits`` K-slices a cluster."""
+    (wgmma's N), ``bc`` byte columns a block of the column-packed layout
+    (twice as many output columns, the block's width in every layout), at
+    most ``max_splits`` K-slices a cluster."""
 
     bk: int
     bn: int
     bc: int
     max_splits: int
+
+    def col_tiles(self, n: int, layout: int = LAYOUT_C4) -> int:
+        """Column tiles of an ``n``-wide output: the column-packed layout
+        covers columns c and N/2 + c with byte column c (``bc`` byte
+        columns a block), the row-packed ones (`LAYOUT_I4`, `LAYOUT_K4`)
+        one output column a byte column (2 ``bc`` a block)."""
+        if layout == LAYOUT_C4:
+            return -(-(n - n // 2) // self.bc)
+        return -(-n // (2 * self.bc))
 
 
 @functools.lru_cache(maxsize=None)
@@ -574,61 +603,76 @@ def tc_layout() -> TcLayout:
 
 
 class TcPlan(NamedTuple):
-    """How one column-packed int4 GEMV is launched: ``splits`` K-slices of
-    ``span`` input rows, one cluster a (column, row) tile of the tile
-    kernel; ``splits`` = 0: the tiled kernel of `gemv_common.cuh`."""
+    """How one int4 GEMV above `SPLITK_MAX_M` rows is launched: ``splits``
+    K-slices of ``span`` input rows, one cluster a (column, row) tile of
+    the tile kernel; ``splits`` = 0: the tiled kernel of
+    `gemv_common.cuh`."""
 
     splits: int
     span: int
 
-    def grid(self, m: int, n: int) -> Tuple[int, int, int]:
-        """(column tiles, K-slices, row tiles) of an (m, n) output, for a
-        plan of the tile kernel (``splits`` > 0)."""
+    def grid(self, m: int, n: int,
+             layout: int = LAYOUT_C4) -> Tuple[int, int, int]:
+        """(column tiles, K-slices, row tiles) of an (m, n) output in
+        ``layout``, for a plan of the tile kernel (``splits`` > 0)."""
         lay = tc_layout()
-        return (-(-(n - n // 2) // lay.bc), self.splits, -(-m // lay.bn))
+        return (lay.col_tiles(n, layout), self.splits, -(-m // lay.bn))
 
-    def blocks(self, m: int, n: int) -> int:
-        return math.prod(self.grid(m, n))
+    def blocks(self, m: int, n: int, layout: int = LAYOUT_C4) -> int:
+        return math.prod(self.grid(m, n, layout))
 
 
 @functools.lru_cache(maxsize=None)
-def tc_plan(m: int, k: int, n: int, g: int, sms: int) -> TcPlan:
-    """The launch of a column-packed int4 GEMV (`int4c_matmul`,
-    `int4cg_matmul`) of ``m`` rows, contraction width ``k``, ``n`` output
-    columns and ``g`` scale groups (0: per channel) on a card of ``sms``
-    SMs: a function of the shape and the SM count only.
+def tc_plan(m: int, k: int, n: int, g: int, sms: int,
+            layout: int = LAYOUT_C4) -> TcPlan:
+    """The launch of an int4 GEMV above the decode rows (`int4c_matmul`,
+    `int4cg_matmul`; `int4i_matmul` and `int4g_matmul` above
+    `SPLITK_MAX_M` rows) of ``m`` rows, contraction width ``k``, ``n``
+    output columns, ``g`` scale groups (0: per channel) and weight layout
+    ``layout`` (`LAYOUT_C4`, `LAYOUT_I4` or `LAYOUT_K4`) on a card of
+    ``sms`` SMs: a function of the shape and the SM count only.
 
     The tiled kernel (``splits`` = 0) takes up to `SPLITK_MAX_M` rows, and
     the shapes the tile kernel does not: K not a multiple of 8 (its TMA
     boxes need 16-byte rows) or, grouped, a group of K/G rows that is not a
-    whole number of k-steps of 16. (The C entry points also send a call
-    with a norm or a residual to it; the wrappers pass neither.) Above that
-    the tile kernel, which masks the ragged edges itself (rows past M and K
-    read as zeros, columns past N are not written), over S K-slices: the
-    most that keep its clusters in one wave on the card (column tiles x row
-    tiles x S <= `TC_BLOCKS_PER_SM` x ``sms``), at least 1 and at most
-    ``max_splits``. Every
-    slice but the last is a whole number of units (`bk` rows, grouped the
-    least common multiple of `bk` and K/G, so that scale groups stay
-    whole), and none is empty. The S partial tiles of a tile are added in
-    rank order, so the sum's order is fixed by the plan.
+    whole number of k-steps of 16. (The column-packed C entry points also
+    send a call with a norm or a residual to it; their wrappers pass
+    neither.) Above that the tile kernel, which masks the ragged edges
+    itself (rows past M and K read as zeros, columns past N are not
+    written), over S K-slices: the most that keep its clusters in one wave
+    on the card (column tiles x row tiles x S <= `tc_wave` (S, ``sms``)),
+    at least 1 and at most ``max_splits``. Every slice but the
+    last is a whole number of units (`bk` rows; grouped, the least common
+    multiple of `bk` and K/G, so that scale groups stay whole, and for the
+    K-split layout of `bk` and 2 K/G: its slice of the reordered x covers
+    span / 2 rows of each K half, whole groups of both), and none is
+    empty. The S partial tiles of a tile are added in rank order, so the
+    sum's order is fixed by the plan.
 
-    On 132 SMs, per channel and grouped at K/G = 128: (255, 8192 -> 3072)
-    24 tiles x 4 slices of 2048 rows = 96 blocks; (510, 8192 -> 3072) 48 x
-    2 slices of 4096 = 96; (255, 8192 -> 2048) 16 x 6 slices of 1408 = 96;
-    (510, 8192 -> 2048) 32 x 3 of 2752 (grouped 2816) = 96. The rule
-    against every S from 1 to 8 at those shapes:
+    On 132 SMs, per channel and grouped at K/G = 128: column-packed (255,
+    8192 -> 3072) 24 tiles x 4 slices of 2048 rows = 96 blocks; (510, 8192
+    -> 3072) 48 x 2 slices of 4096 = 96; (255, 8192 -> 2048) 16 x 6 slices
+    of 1408 = 96; (510, 8192 -> 2048) 32 x 3 of 2752 (grouped 2816) = 96.
+    Row-packed (128 output columns a tile): (255, 3072 -> 5120) 40 x 2
+    slices of 1536 = 80; (255, 3072 -> 3072) 24 x 4 of 768 = 96; (255,
+    3072 -> 8192) 64 x 2 of 1536 = 128; (255, 8192 -> 3072) 24 x 4 of 2048
+    = 96; (510, 3072 -> 8192) 128 x 1 = 128.
+    The rule against every S from 1 to 8 at those shapes:
     `probes/tc_splits_sweep.py`."""
     if m <= SPLITK_MAX_M or k % 8 or (g and (k // g) % 16):
         return TcPlan(0, k)
     lay = tc_layout()
-    tiles = -(-(n - n // 2) // lay.bc) * -(-m // lay.bn)
-    unit = math.lcm(lay.bk, k // g) if g else lay.bk
+    tiles = lay.col_tiles(n, layout) * -(-m // lay.bn)
+    group = (2 * k // g if layout == LAYOUT_K4 else k // g) if g else 0
+    unit = math.lcm(lay.bk, group) if g else lay.bk
     units = -(-k // unit)
-    s = max(1, min(lay.max_splits, units,
-                   int(TC_BLOCKS_PER_SM * sms) // tiles))
+    s = max([c for c in range(1, min(lay.max_splits, units) + 1)
+             if tiles * c <= tc_wave(c, sms)], default=1)
     span = -(-units // s) * unit
     return TcPlan(-(-k // span), span)
+
+
+gemv_tc = _cuda.Counter("gemv_tc")     # the tile kernel's launches by form
 
 
 @functools.lru_cache(maxsize=None)
@@ -638,6 +682,8 @@ def _sm_count(device: torch.device) -> int:
 
 def _launch_gemv(fn_name, layout, x, values, scale, out_dtype, pre_norm,
                  residual, planner=None):
+    """One launch of the C entry point ``fn_name``; returns the output and
+    whether the plan named the tile kernel."""
     dev = x.device
     if x.ndim != 2 or x.dtype != torch.bfloat16:
         raise ValueError(f"{fn_name}: x must be 2-D bf16, got "
@@ -654,18 +700,29 @@ def _launch_gemv(fn_name, layout, x, values, scale, out_dtype, pre_norm,
         raise ValueError(f"{fn_name}: out_dtype {out_dtype} not supported")
     out = torch.empty((m, n), dtype=out_dtype or torch.bfloat16, device=dev)
     if m == 0 or n == 0:
-        return out
-    plan = ()
-    if planner == "splitk":
+        return out, False
+    plan, tile = (), False
+    if planner == "tc" or (planner == "rows" and m > SPLITK_MAX_M):
+        p = tc_plan(m, k, n, g, _sm_count(dev), layout)
+        tile = p.splits > 0
+        if tile and (values.data_ptr() % 16 or x.data_ptr() % 16):
+            raise ValueError(f"{fn_name}: x and values must be 16-byte "
+                             f"aligned")
+        plan = (p.splits, p.span) if planner == "tc" else (
+            p.splits, tc_layout().bn, p.span)
+    elif planner in ("splitk", "rows"):
         if values.data_ptr() % 16:
             raise ValueError(f"{fn_name}: values must be 16-byte aligned")
         p = gemv_plan(m, k, n, g, layout, _sm_count(dev))
         plan = (p.splits, p.mt, p.span)
-    elif planner == "tc":
-        plan = tuple(tc_plan(m, k, n, g, _sm_count(dev)))
-        if plan[0] and (values.data_ptr() % 16 or x.data_ptr() % 16):
-            raise ValueError(f"{fn_name}: x and values must be 16-byte "
-                             f"aligned")
+    if planner == "rows":
+        # the tile kernel reads x through this scratch copy (normalised,
+        # and for the K-split layout reordered) when it folds a norm or
+        # runs the K-split layout
+        staged = tile and (norm_w is not None or layout == LAYOUT_K4)
+        xn = torch.empty((m, k), dtype=torch.bfloat16, device=dev) \
+            if staged else None
+        plan += (_cuda.ptr(xn),)
     lib = _cuda.lib()
     err = getattr(lib, fn_name)(
         _cuda.ptr(x), _cuda.ptr(values), _cuda.ptr(scale), _cuda.ptr(norm_w),
@@ -673,7 +730,7 @@ def _launch_gemv(fn_name, layout, x, values, scale, out_dtype, pre_norm,
         float(eps), int(out.dtype == torch.float32), *plan,
         _cuda.stream_of(x))
     _cuda.check(err, fn_name)
-    return out
+    return out, tile
 
 
 def _gemv(wrapper, c_name, cls, x, values, scale, out_dtype, pre_norm=None,
@@ -681,8 +738,10 @@ def _gemv(wrapper, c_name, cls, x, values, scale, out_dtype, pre_norm=None,
     """The body of every GEMV wrapper: validate ``values`` / ``scale`` as a
     container of type ``cls``, then the plain twin for a CPU tensor, else
     one launch of the C entry point ``c_name`` (given `gemv_plan`'s plan
-    when ``planner`` is "splitk", `tc_plan`'s when it is "tc"), counted on
-    ``wrapper``."""
+    when ``planner`` is "splitk", `tc_plan`'s when it is "tc", the first
+    up to `SPLITK_MAX_M` rows and the second above when it is "rows"),
+    counted on ``wrapper`` and, when the plan named the tile kernel, on
+    `gemv_tc` under the wrapper's form."""
     name = wrapper.__name__
     if (scale.ndim == 2) != (cls in GROUPED):
         raise ValueError(
@@ -693,9 +752,11 @@ def _gemv(wrapper, c_name, cls, x, values, scale, out_dtype, pre_norm=None,
         check_weight(name, LAYOUTS[cls], values, scale, x.shape[-1], x.device)
         return matmul_plain(x, cls(values, scale), out_dtype=out_dtype,
                             pre_norm=pre_norm, residual=residual)
-    out = _launch_gemv(c_name, LAYOUTS[cls], x, values, scale, out_dtype,
-                       pre_norm, residual, planner)
+    out, tile = _launch_gemv(c_name, LAYOUTS[cls], x, values, scale,
+                             out_dtype, pre_norm, residual, planner)
     _cuda.count(wrapper, form)
+    if tile:
+        _cuda.count(gemv_tc, form or name.removesuffix("_matmul"))
     return out
 
 
@@ -704,23 +765,24 @@ def int4i_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
     """x (M, K) bf16 @ row-interleaved int4 (K/2, N_pad) * scale ((N,), or
     grouped (G, N)) [+ residual (M, N)] -> (M, N), with an optional RMSNorm
     prologue ``pre_norm=(weight, eps)``. CUDA kernel ``ua2_gemv_int4i``
-    (replaces `_pallas_int4i_matmul`, uniaudio2_tpu/ops/quant.py:948): the
-    split-K or the tiled kernel as `gemv_plan` says, one launch; the plain
-    twin for CPU tensors. ``.forms`` counts the launches of the "int4i"
-    (per-channel) and "int4ig" (grouped) forms."""
+    (replaces `_pallas_int4i_matmul`, uniaudio2_tpu/ops/quant.py:948): up
+    to `SPLITK_MAX_M` rows the split-K kernel as `gemv_plan` says, above
+    them the tensor-core tile kernel (a norm: its row kernel first) or, at
+    shapes it does not take, the tiled kernel, as `tc_plan` says; the
+    plain twin for CPU tensors. ``.forms`` counts the launches of the
+    "int4i" (per-channel) and "int4ig" (grouped) forms."""
     grouped = scale.ndim == 2
     return _gemv(int4i_matmul, "ua2_gemv_int4i",
                  QuantizedLinearI4G if grouped else QuantizedLinearI4, x,
                  values, scale, out_dtype, pre_norm, residual,
-                 form="int4ig" if grouped else "int4i", planner="splitk")
+                 form="int4ig" if grouped else "int4i", planner="rows")
 
 
 def int4i_matmul_tiled(x, values, scale, *, out_dtype=None, pre_norm=None,
                        residual=None):
     """`int4i_matmul` through the tiled kernel at any M
-    (``ua2_gemv_int4i_tiled``: the prefill's kernel, which `int4i_matmul`
-    launches above `SPLITK_MAX_M` rows), counted on its own. No serving
-    path calls it: it is the yardstick the split-K kernel is timed against
+    (``ua2_gemv_int4i_tiled``), counted on its own. No serving path calls
+    it: it is the yardstick the split-K and tile kernels are timed against
     and the kernel row 11 is bit-checked against."""
     grouped = scale.ndim == 2
     return _gemv(int4i_matmul_tiled, "ua2_gemv_int4i_tiled",
@@ -765,10 +827,12 @@ def int4g_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
     """`int4_matmul` with a grouped scale (G, N): rows of the low nibbles
     take groups [0, G/2), rows of the high nibbles [G/2, G). CUDA kernel
     ``ua2_gemv_int4g`` (replaces `_pallas_int4g_matmul`,
-    uniaudio2_tpu/ops/quant.py:712): the split-K or the tiled kernel as
-    `gemv_plan` says, one launch; the plain twin for CPU tensors."""
+    uniaudio2_tpu/ops/quant.py:712): the split-K kernel up to
+    `SPLITK_MAX_M` rows, the tensor-core tile kernel above them (after its
+    row kernel, which reorders x and folds the norm), or the tiled kernel
+    where `tc_plan` says; the plain twin for CPU tensors."""
     return _gemv(int4g_matmul, "ua2_gemv_int4g", QuantizedLinear4G, x, values,
-                 scale, out_dtype, pre_norm, residual, planner="splitk")
+                 scale, out_dtype, pre_norm, residual, planner="rows")
 
 
 def int4g_matmul_tiled(x, values, scale, *, out_dtype=None, pre_norm=None,

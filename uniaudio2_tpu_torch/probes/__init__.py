@@ -7,7 +7,8 @@ shape and the DiT's kernel, against the production einsum path and SDPA),
 `sweep_gemv_blocks` (row 5's K-split GEMV in twelve tile forms, at M = 1,
 8 and 16); and, with no TPU counterpart, `gemv_splitk_sweep` (rows 1 and
 6's split-K GEMV at every legal number of K-slices, against the host's
-plan). Each prints the card's name and power limit beside its numbers."""
+plan) and `tc_splits_sweep` (the tensor-core tile kernel of rows 1, 6, 7
+and 8 likewise). Each prints the card's name and power limit beside its numbers."""
 
 import statistics
 import subprocess
@@ -32,7 +33,15 @@ def bound_us(n_bytes: int, flops: int) -> float:
 
 class FlushedTimer:
     """Median CUDA-event time (ms) of single launches, the 50 MB L2 flushed
-    (a 256 MiB buffer zeroed) before each, as a decode step finds it."""
+    (a 256 MiB buffer zeroed) before each, as a decode step finds it.
+
+    After the flush the card spins for `SPIN_CYCLES` (``torch.cuda._sleep``,
+    ~0.25 ms at the H100's 1.98 GHz) before the start event, so the host
+    has queued the timed launch, wrapper and all, before the card reaches
+    the start event: the host's launch cost stays out of the timed window
+    as long as it takes less than the flush and the spin."""
+
+    SPIN_CYCLES = 500_000
 
     def __init__(self, device):
         import torch
@@ -47,6 +56,7 @@ class FlushedTimer:
         pairs = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
