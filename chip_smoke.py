@@ -11,9 +11,10 @@ caught):
 2. build every CUDA kernel from ``uniaudio2_tpu_torch/csrc`` with nvcc
    (sm_90a) and print the build seconds, each kernel's registers and
    spills, and a line for each of the four bf16 and two float32 flash
-   kernels and of the five tensor-core tile kernels (rows 7 and 8,
-   column-packed; row 1, interleaved, per channel and grouped; row 6,
-   K-split grouped);
+   kernels and of the six tensor-core tile kernels (rows 7 and 8,
+   column-packed; row 1, interleaved, per channel and grouped; rows 5 and
+   6, K-split per channel and grouped) and the split-K kernel's instances
+   (rows 1, 5 and 6, and the fused SwiGLU's passes);
 3. each kernel, in every weight form it has, against its plain PyTorch
    twin at the serving path's shapes (bf16 activations, M = 1, 2 — the CFG
    pair —, 63 — the prefill bucket 64 — and, for the GEMVs, 255 — bucket
@@ -21,7 +22,7 @@ caught):
    the split-K kernel of the host's plan: at each of their decode shapes
    the plan, the time of the tiled instance and of
    ``torch._weight_int4pack_mm`` in the same run and the share of the byte
-   bound are printed; rows 1 and 6 also at M = 510 and, above 16 rows,
+   bound are printed; rows 1, 5 and 6 also at M = 510 and, above 16 rows,
    at the served QKV call with its norm and the unfused MLP's shapes,
    where they run the tensor-core tile kernel: the plan, the tile kernel,
    its tiled instance and the library in the same run, the share of the
@@ -31,7 +32,12 @@ caught):
    they run the tensor-core tile kernel, the plan (`quant.tc_plan`), the
    tile kernel, its tiled instance and ``torch._weight_int4pack_mm`` in
    the same run, the share of the bound, and at how many cases the tile
-   kernel beats the tiled instance; the flash attention kernel at (B, H, hd) =
+   kernel beats the tiled instance; the fused SwiGLU in its five served
+   forms at both widths, with the norm and the residual, at M = 1, 2, 8
+   and 16 (two split-K passes, each beside the first design's two tiled
+   passes, `fused_swiglu_tiled`, with the plan and the share of the bound)
+   and 63 and 126 (the bucket-64 prefill, where the tiled passes serve);
+   the flash attention kernel at (B, H, hd) =
    (2, 24, 64) and the
    codec windows' T = 186, 374 and 750, plus T = 130 and B = 1 for the
    tails, in bf16 and (the float32 kernel) in float32; its causal GQA form at the backbone prefill's (1, 24, 8, T, 128)
@@ -67,9 +73,12 @@ caught):
    runs rows 7 and 8 alone; a 512-slot cache, where "auto" picks the int8
    KV cache and block-128 reads); frames/s, memory, the launch count of
    every kernel form and of the tile kernel against the count the tree
-   implies, and the bucket-256 prefill's host-clock seconds (255 and 510
-   rows, synchronised, the median of three after a warm-up) of phase 4's
-   interleaved int4all tree, C, D and E, with a summary line.
+   implies, the bucket-64 prefill's host-clock seconds (63 and 126 rows:
+   the fused MLP's tiled passes) of every configuration and the bucket-256
+   prefill's (255 and 510 rows) of phase 4's interleaved int4all tree, C,
+   D and E (synchronised, the median of three after a warm-up, then one
+   profiled run: busy share and device ms by kernel kind), with summary
+   lines.
    Then the prefill and first frame: C against the CPU twins (phase 5's
    bounds); D against the interleaved int4all run and E against C, on the
    card, on the TTS prompt at buckets 64 and 256 and on the ASR prompt
@@ -123,7 +132,7 @@ caught):
    frames run (warm-up frames and replays included); frames/s and
    row-frames/s both ways, capture seconds, the graph pool's bytes, and
    one profiled window of 16 TTS frames each way with its device busy
-   share. Two planted faults (the feedback copy into the static input
+   share and its device ms and calls a frame by kernel family. Two planted faults (the feedback copy into the static input
    left out; the frame counter not advanced, so every frame writes slot
    0) must change the tokens;
 6. the codec at full `CodecConfig()` width (DiT 32 x 24 x 64, ScalarAE
@@ -195,6 +204,7 @@ attention, GEMMs, convolutions, the rest) and the top kernels.
 runs phases 1-2, then phase 7a's train step (after a warm-up step) under
 torch.profiler, and prints the device time by kernel class and the top
 kernels.
+
 """
 
 from __future__ import annotations
@@ -319,7 +329,7 @@ def phase_build():
            else "already built from these sources")
     print(f"[2] {Path(lib).name} ready in {time.perf_counter() - t0:.2f} s "
           f"({how})", flush=True)
-    kernel, flash, flash32, tile = "", {}, {}, {}
+    kernel, flash, flash32, tile, splitk = "", {}, {}, {}, {}
     for line in _cuda.build_info["log"].splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
@@ -328,7 +338,8 @@ def phase_build():
         for forms, pattern in (
                 (flash, r"flash_attn_kernelILi(\d+)ELb(\d)ELi(\d)E"),
                 (flash32, r"flash_f32_kernelILi(\d+)EE"),
-                (tile, r"gemv_tc_kernelILi(\d)ELb(\d)E")):
+                (tile, r"gemv_tc_kernelILi(\d)ELb(\d)E"),
+                (splitk, r"gemv_splitk_kernelILi(\d)ELb(\d)ELi(\d)E")):
             form = re.search(pattern, kernel)
             got = form and re.search(
                 r"Used (\d+) registers|(\d+) bytes spill stores", line)
@@ -344,16 +355,24 @@ def phase_build():
         print(f"[2] flash_f32_kernel<HD {hd}>: "
               f"{got.get('registers')} registers, {got.get('spill stores')} "
               f"bytes of spill stores", flush=True)
-    names = {"1": "I4", "2": "K4", "3": "C4"}
+    names = {"0": "INT8", "1": "I4", "2": "K4", "3": "C4"}
     for (layout, grouped), got in sorted(tile.items()):
         print(f"[2] gemv_tc_kernel<layout {names[layout]}, grouped {grouped}>: "
               f"{got.get('registers')} registers, {got.get('spill stores')} "
               f"bytes of spill stores", flush=True)
-    if _cuda.build_info["log"] and (len(flash), len(flash32), len(tile)) != (
-            4, 2, 5):
+    modes = {"0": "GEMV", "1": "SwiGLU pass 1", "2": "SwiGLU pass 2"}
+    for (layout, grouped, mode), got in sorted(splitk.items()):
+        print(f"[2] gemv_splitk_kernel<layout {names[layout]}, grouped "
+              f"{grouped}, {modes[mode]}>: {got.get('registers')} registers, "
+              f"{got.get('spill stores', 0)} bytes of spill stores", flush=True)
+    if _cuda.build_info["log"] and (len(flash), len(flash32), len(tile),
+                                    len(splitk)) != (4, 2, 6, 14):
         fail(f"ptxas reported {len(flash)} of the 4 bf16 flash kernels, "
-             f"{len(flash32)} of the 2 float32 ones and {len(tile)} of the 5 "
-             f"tile kernels (C4 and I4 per channel and grouped, K4 grouped)")
+             f"{len(flash32)} of the 2 float32 ones, {len(tile)} of the 6 "
+             f"tile kernels (C4, I4 and K4 per channel and grouped) and "
+             f"{len(splitk)} of the 14 split-K kernels (the GEMV: I4 and K4 "
+             f"per channel and grouped; the fused SwiGLU's pass 1: those and "
+             f"INT8; its pass 2: I4 and C4 per channel and grouped, INT8)")
 
 
 def nbytes(*tensors) -> int:
@@ -557,14 +576,14 @@ def phase_kernels(torch, dev):
     # it rows 1 and 6 (int4i, int4ig, int4g) run the tensor-core tile
     # kernel, held and timed the same way, also at M = 510, at the served
     # QKV call with its norm and at the unfused MLP's shapes (gate / up and,
-    # interleaved, the down-projection: alone above 128 rows); row 5 (int4)
-    # its tiled instance, timed beside the library call.
+    # interleaved, the down-projection: alone above 128 rows); so does row 5
+    # (int4, configuration D's prefills).
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tiled = {"int4i": quant.int4i_matmul_tiled,
              "int4ig": quant.int4i_matmul_tiled,
              "int4": quant.int4_matmul_tiled,
              "int4g": quant.int4g_matmul_tiled}
-    rows_tc = ("int4i", "int4ig", "int4g")
+    rows_tc = ("int4i", "int4ig", "int4", "int4g")
     shapes = (("attn_proj +res", 3072, 3072, True, False, None),
               ("decoder attn_proj +res", 2048, 2048, True, False, None),
               ("audio_head f32", 2048, 12300, False, False, torch.float32),
@@ -583,7 +602,7 @@ def phase_kernels(torch, dev):
             cases = shapes
             if form in rows_tc and m > quant.SPLITK_MAX_M:
                 # the K-split trees' down-projection is column-packed (row 8)
-                cases += prefill[:2] if form == "int4g" else prefill
+                cases += prefill[:2] if form in ("int4", "int4g") else prefill
             for label, k, n, res, norm, out_dtype in cases:
                 if form == "int8" and label in ("decoder attn_proj +res",
                                                 "projection"):
@@ -633,7 +652,7 @@ def phase_kernels(torch, dev):
               if ms >= tiled_ms]
     beats = [key for key, (ms, _, lib_ms) in rows_tc_times.items()
              if ms < lib_ms]
-    print(f"[3] rows 1 and 6: tile kernel faster than the tiled instance at "
+    print(f"[3] rows 1, 5 and 6: tile kernel faster than the tiled instance at "
           f"{len(rows_tc_times) - len(slower)} of {len(rows_tc_times)} cases "
           f"above {quant.SPLITK_MAX_M} rows; not at {slower}; faster than the "
           f"library at {len(beats)} of them; not at "
@@ -677,11 +696,17 @@ def phase_kernels(torch, dev):
           f"{len(tc_times) - len(slower)} of {len(tc_times)} column-packed "
           f"cases above {quant.SPLITK_MAX_M} rows; not at {slower}; faster "
           f"than the library at {len(beats)} of them", flush=True)
-    # the fused SwiGLU half-block in the forms the serving trees hold; row:
-    # the backbone's at M = 1
+    # the fused SwiGLU half-block in the forms the serving trees hold, with
+    # the norm and the residual, at the frame loop's M (1, 2, 8, 16: two
+    # split-K passes, each case beside the first design's two tiled passes,
+    # `fused_swiglu_tiled`, its bits held to the twin too, with the plan)
+    # and the bucket-64 prefill's (63 and the CFG pair's 126: the tiled
+    # passes, which serve there). Row: the backbone's at M = 1.
+    swiglu_times = {}
     for up, down in (("int4i", "int4i"), ("int8", "int8"), ("int4", "int4c"),
                      ("int4g", "int4cg"), ("int4ig", "int4ig")):
-        for m in (1, 2, 63):
+        form = f"{up}+{down}"
+        for m in (1, 2, 8, 16, 63, 126):
             for label, k, i in (("backbone", 3072, 8192),
                                 ("decoder", 2048, 8192)):
                 w1, w2 = (make_weight(torch, gen, dev, up, k, i)
@@ -692,10 +717,41 @@ def phase_kernels(torch, dev):
                 case = (nbytes(x, kw["norm_w"], kw["residual"])
                         + sum(weight_bytes(w) for w in (w1, w2, w3))
                         + 2 * m * k, 6 * m * k * i)
-                check(swiglu_row(f"{up}+{down}"), f"{label} {k}->{i}->{k} M={m}",
-                      lambda: fused_mlp.fused_swiglu(x, w1, w2, w3, **kw),
-                      lambda: fused_mlp.fused_swiglu_plain(x, w1, w2, w3, **kw),
-                      case, row=m == 1 and label == "backbone")
+                run = lambda: fused_mlp.fused_swiglu(x, w1, w2, w3, **kw)
+                plain = lambda: fused_mlp.fused_swiglu_plain(x, w1, w2, w3, **kw)
+                tiled = lambda: fused_mlp.fused_swiglu_tiled(x, w1, w2, w3, **kw)
+                ms, _ = check(swiglu_row(form), f"{label} {k}->{i}->{k} M={m}",
+                              run, plain, case, row=m == 1 and label == "backbone")
+                ms = min(ms, timer(run))
+                bound_ms, by = bound(*case)
+                if m > quant.SPLITK_MAX_M:
+                    print(f"[3] fused_swiglu {form} {label} M={m}: the tiled "
+                          f"passes serve, {ms:.4f} ms; bound {bound_ms:.4f} ms "
+                          f"({by}), {bound_ms / ms:.1%} of it", flush=True)
+                    continue
+                ref = plain().float()
+                err = (tiled().float() - ref).abs().max().item()
+                if err > RTOL * ref.abs().max().item():
+                    fail(f"fused_swiglu_tiled {form} {label} M={m}: "
+                         f"max_abs_err {err:.4g}")
+                tiled_ms = min(timer(tiled), timer(tiled))
+                g12, g3 = (w.scale.shape[0] if w.scale.ndim == 2 else 0
+                           for w in (w1, w3))
+                shape = (m, k, i, k, g12, quant.LAYOUTS[type(w1)], g3,
+                         quant.LAYOUTS[type(w3)], sms)
+                plan = fused_mlp.swiglu_plan(*shape)
+                swiglu_times[(form, label, m)] = (ms, tiled_ms)
+                print(f"[3] fused_swiglu {form} {label} M={m}: plan split-K "
+                      f"S={plan.up.splits} span={plan.up.span} | "
+                      f"S={plan.down.splits} span={plan.down.span}: {ms:.4f} "
+                      f"ms, two tiled passes {tiled_ms:.4f} ms "
+                      f"(x{tiled_ms / ms:.2f}); bound {bound_ms:.4f} ms ({by}), "
+                      f"{bound_ms / ms:.1%} of it", flush=True)
+    slower = [key for key, (ms, tiled_ms) in swiglu_times.items()
+              if ms >= tiled_ms]
+    print(f"[3] fused_swiglu (split-K passes) faster than the two tiled "
+          f"passes at {len(swiglu_times) - len(slower)} of "
+          f"{len(swiglu_times)} cases; not at {slower}", flush=True)
     n = 128256
     w = quant.quantize(torch.randn((3072, n), generator=gen, device=dev) * 0.02)
     w_lib = w.values[:, :n].T.contiguous()     # (N, K) int8 for the library
@@ -1086,9 +1142,9 @@ def expected_launches(cfg, params, mode: str, frames: int, prefill_rows: int):
 
 
 # The weight forms whose GEMV runs the tensor-core tile kernel above
-# quant.SPLITK_MAX_M rows (rows 1, 6, 7 and 8), as `quant.gemv_tc` counts
+# quant.SPLITK_MAX_M rows (rows 1, 5, 6, 7 and 8), as `quant.gemv_tc` counts
 # them.
-TILE_FORMS = ("int4i", "int4ig", "int4g", "int4c", "int4cg")
+TILE_FORMS = ("int4i", "int4ig", "int4", "int4g", "int4c", "int4cg")
 
 
 def expected_tile(params, prefill_rows: int):
@@ -1439,6 +1495,7 @@ def serve_format(torch, cfg, params, label, ksplit):
         if name.endswith("256") and (policy["kv_dtype"] != torch.int8
                                      or policy["attn_block"] != 128):
             fail(f"{label} {name}: auto picked {policy}, not int8 and block 128")
+    bucket64_prefills(torch, cfg, params, label, eng)
     if ksplit:
         prefill_seconds(torch, cfg, params, long_eng, label,
                         (("tts bucket 256", lg, lm, None, None),
@@ -1461,6 +1518,21 @@ def bucket256_prefills(torch, cfg, params, label):
     prefill_seconds(torch, cfg, params, eng, label,
                     (("tts bucket 256", lg, lm, None, None),
                      ("tts_cfg bucket 256", lg, lm, lng, lnm)))
+
+
+def bucket64_prefills(torch, cfg, params, label, eng=None):
+    """`prefill_seconds` of bench's TTS prompt alone and as a CFG pair (63
+    and 126 prefill rows: the fused MLP's tiled passes) through a bucket-64
+    engine over ``params``."""
+    from uniaudio2_tpu_torch.engine.decode import DecodeEngine
+
+    if eng is None:
+        eng = DecodeEngine(params, cfg, max_frames=FORMAT_FRAMES,
+                           buckets=(64,))
+    (g, m), (ng, nm), _ = prompts(cfg)
+    prefill_seconds(torch, cfg, params, eng, label,
+                    (("tts bucket 64", g, m, None, None),
+                     ("tts_cfg bucket 64", g, m, ng, nm)))
 
 
 def prefill_seconds(torch, cfg, params, eng, label, requests):
@@ -1502,9 +1574,11 @@ def prefill_seconds(torch, cfg, params, eng, label, requests):
         by = {}
         for e in p.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                kind = ("tile GEMV" if "gemv_tc_kernel" in e.name
+                kind = ("tile kernel" if "gemv_tc_kernel" in e.name
                         or "rows_kernel" in e.name else
-                        "tiled GEMV" if "gemv_kernel" in e.name else "other")
+                        "tiled GEMV" if "gemv_kernel" in e.name else
+                        "tiled SwiGLU pass 1" if "swiglu_up_kernel" in e.name
+                        else "other")
                 n, ms = by.get(kind, (0, 0.0))
                 by[kind] = (n + 1, ms + e.device_time / 1e3)
         busy = sum(ms for _, ms in by.values())
@@ -1616,6 +1690,7 @@ def phase_formats(torch, dev, cfg, base, int4all, sound64):
                           **first_frames(torch, cfg, dev, int4all,
                                          FORMAT_PROBES[1:])}}
     verdicts = {}
+    bucket64_prefills(torch, cfg, int4all, "int4all (phase 4's tree)")
     bucket256_prefills(torch, cfg, int4all, "int4all (phase 4's tree)")
     for label, (_, _, interleave, need) in FORMATS.items():
         letter = label[0]
@@ -1659,10 +1734,12 @@ def phase_formats(torch, dev, cfg, base, int4all, sound64):
                                             ref, ""))
         del params
         torch.cuda.empty_cache()
-    print("[8] bucket-256 prefill seconds (255 / 510 rows): " + "; ".join(
-        f"{label} {PREFILL_SECONDS[(label, 'tts bucket 256')]:.4f} / "
-        f"{PREFILL_SECONDS[(label, 'tts_cfg bucket 256')]:.4f}"
-        for label in dict.fromkeys(k[0] for k in PREFILL_SECONDS)), flush=True)
+    for bucket, rows in ((64, "63 / 126"), (256, "255 / 510")):
+        print(f"[8] bucket-{bucket} prefill seconds ({rows} rows): " + "; ".join(
+            f"{label} {PREFILL_SECONDS[(label, f'tts bucket {bucket}')]:.4f} / "
+            f"{PREFILL_SECONDS[(label, f'tts_cfg bucket {bucket}')]:.4f}"
+            for label in dict.fromkeys(k[0] for k in PREFILL_SECONDS)
+            if (label, f"tts bucket {bucket}") in PREFILL_SECONDS), flush=True)
     # the same layout comparisons on the trees of a second seed
     base1, int4all1 = int4all_tree(torch, dev, cfg, SECOND_SEED)
     tag = f"seed {SECOND_SEED}: "
@@ -2336,13 +2413,12 @@ GRAPH_FAULT_FRAMES = 16
 # cache (int8 KV, block-128 levels) for a bucket-64 and a bucket-256
 # prompt, so one program serves both and the second needs new levels.
 SAMPLED_FRAMES = 200
-# The kernels a counted wrapper launches, by the traced name's base: a
-# GEMV wrapper one `gemv_kernel` (rows 1, 5 and 6 up to quant.SPLITK_MAX_M
-# rows one `gemv_splitk_kernel` instead), `qkv_rope_step` one
-# `qkv_rope_kernel`, `fused_swiglu` one `swiglu_up_kernel` and the down
-# projection's `gemv_kernel`.
-TRACED_FAMILIES = ("gemv_kernel", "gemv_splitk_kernel", "qkv_rope_kernel",
-                   "swiglu_up_kernel")
+# The kernels a counted wrapper launches in a frame (up to
+# quant.SPLITK_MAX_M rows), by the traced name's base: a GEMV wrapper one
+# `gemv_kernel` (rows 1, 5 and 6 one `gemv_splitk_kernel` instead),
+# `qkv_rope_step` one `qkv_rope_kernel`, `fused_swiglu` two
+# `gemv_splitk_kernel` (its two passes).
+TRACED_FAMILIES = ("gemv_kernel", "gemv_splitk_kernel", "qkv_rope_kernel")
 # The counts a replay adds are held to the kernel nodes of the captured
 # graph itself (`CUDAGraph.debug_dump`), not to a profiled trace: in this
 # script's process the trace of a 16-frame window loses some kernel
@@ -2394,7 +2470,7 @@ def busy_window(torch, fn, rows):
     """``fn()`` (frames of ``rows`` activation rows) under torch.profiler
     (the second of two profiled runs): (wall ms, device kernels traced,
     their device ms, the counters' families over that run, the traced
-    families)."""
+    families, `by_family` of the traced kernels)."""
     from uniaudio2_tpu_torch.ops import _cuda
 
     prof = torch.profiler
@@ -2411,7 +2487,24 @@ def busy_window(torch, fn, rows):
     kernels = [e for e in p.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     return (wall, len(kernels), sum(e.device_time for e in kernels) / 1e3,
-            counted, families(e.name for e in kernels))
+            counted, families(e.name for e in kernels), by_family(kernels))
+
+
+def by_family(kernels):
+    """Device ms and calls of traced ``kernels`` by the kernel's name without
+    its namespace, template arguments and parameters, the largest first;
+    the split-K kernel by mode (a GEMV, the fused SwiGLU's pass 1 or 2)."""
+    out = {}
+    for e in kernels:
+        name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "")
+        mode = re.search(r"gemv_splitk_kernel<\d+, \w+, (\d)>", name)
+        name = re.split(r"[<(]", name)[0].split("::")[-1]
+        if mode:
+            name += {"0": " GEMV", "1": " SwiGLU pass 1",
+                     "2": " SwiGLU pass 2"}[mode.group(1)]
+        ms, n = out.get(name, (0.0, 0))
+        out[name] = (ms + e.device_time / 1e3, n + 1)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
 
 
 def debug_graphs(torch):
@@ -2441,7 +2534,8 @@ def graph_nodes(graph):
 
 def counted_families(counted, rows):
     """The kernels of `TRACED_FAMILIES` that the counters' increments
-    ``counted`` say were launched by frames of ``rows`` activation rows."""
+    ``counted`` say were launched by frames of ``rows`` (up to
+    quant.SPLITK_MAX_M) activation rows."""
     from uniaudio2_tpu_torch.ops import fused_mlp, qkv_step, quant
 
     want = dict.fromkeys(TRACED_FAMILIES, 0)
@@ -2451,9 +2545,8 @@ def counted_families(counted, rows):
     for fn, (launches, _) in counted.items():
         if fn is qkv_step.qkv_rope_step:
             want["qkv_rope_kernel"] += launches
-        elif fn is fused_mlp.fused_swiglu:
-            want["swiglu_up_kernel"] += launches
-            want["gemv_kernel"] += launches
+        elif fn is fused_mlp.fused_swiglu and rows <= quant.SPLITK_MAX_M:
+            want["gemv_splitk_kernel"] += 2 * launches
         elif fn in splitk and rows <= quant.SPLITK_MAX_M:
             want["gemv_splitk_kernel"] += launches
         elif fn in gemvs:
@@ -2598,7 +2691,8 @@ def phase_graphs(torch, dev, cfg, params):
         "graph": lambda: fg.run(tok, tmask, first, GRAPH_PROFILE_FRAMES,
                                 seed=0)}
     for label, fn in windows.items():
-        wall, n_kernels, busy, counted, traced = busy_window(torch, fn, 1)
+        wall, n_kernels, busy, counted, traced, split = busy_window(
+            torch, fn, 1)
         share = (f"busy share {busy / wall:.3f}" if n_kernels
                  else "busy share not measured (no kernel traced)")
         print(f"[11] profiled window, {GRAPH_PROFILE_FRAMES} TTS frames "
@@ -2606,6 +2700,11 @@ def phase_graphs(torch, dev, cfg, params):
               f"ms a frame), {n_kernels} device kernels traced, {busy:.1f} ms "
               f"of device time, {share}; hand-written kernels traced "
               f"{traced}, counted {counted}", flush=True)
+        print(f"[11] {label} window by kernel family (device ms a frame, "
+              f"calls a frame, share of device time): " + "; ".join(
+                  f"{name} {ms / GRAPH_PROFILE_FRAMES:.4f} ms "
+                  f"{n / GRAPH_PROFILE_FRAMES:.1f} {ms / busy:.3f}"
+                  for name, (ms, n) in list(split.items())[:14]), flush=True)
     # what a replay counts against the kernel nodes of its graph: TTS and
     # ASR at 512 slots (int8 KV, block-128 levels), two graphs each
     snapshot = _cuda.counts()
@@ -2620,7 +2719,8 @@ def phase_graphs(torch, dev, cfg, params):
             want = counted_families(per_replay, key[1])
             print(f"[11] {key[0]} graph, level {lvl}: kernel nodes {nodes}, "
                   f"a replay counts {want}", flush=True)
-            if nodes != want or not all(nodes.values()):
+            if nodes != want or not nodes["gemv_splitk_kernel"] \
+                    or not nodes["qkv_rope_kernel"]:
                 fail(f"[11] a replay of the {key[0]} graph of level {lvl} "
                      f"counts {want}, its graph holds {nodes}")
     del eng

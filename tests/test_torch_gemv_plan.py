@@ -24,6 +24,15 @@ rounded to bf16) and then the residual. It is held
    channel (the twin rounds scale x level to bf16 and the product before
    the residual), one bf16 ulp, 2^-7 x max|twin|, grouped without a
    residual (the same roundings, another order of the sum).
+
+The fused SwiGLU (row 2, `csrc/fused_swiglu.cu`) runs the same kernel twice
+at decode: pass 1 over the column tiles of W1 and then W2 (the plan of an
+N = 2 I GEMV), pass 2 over W3 in its layout, which adds the int8 and
+column-packed layouts (rows in pairs, steps of 16 rows). Its plan
+(`fused_mlp.swiglu_plan`) must be legal for both passes, and an emulation
+of its sums (pass-1 split sums in f32, the scales, h = bf16(silu(a) * b),
+pass-2 split sums, the residual) is held to JAX's `fused_swiglu` in
+interpret mode and to the twin.
 """
 
 import jax
@@ -33,14 +42,16 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from uniaudio2_tpu.ops import fused_mlp as jfused
 from uniaudio2_tpu.ops import quant as jq
 
-from uniaudio2_tpu_torch.ops import quant
+from uniaudio2_tpu_torch.ops import _cuda, fused_mlp, quant
 from uniaudio2_tpu_torch.ops.norms import rms_norm
-from uniaudio2_tpu_torch.probes import gemv_splitk_sweep
+from uniaudio2_tpu_torch.probes import gemv_splitk_sweep, splitk_ab
 
 SMS = 132                                  # an H100 SXM
 I4, K4 = quant.LAYOUT_I4, quant.LAYOUT_K4
+INT8, C4 = quant.LAYOUT_INT8, quant.LAYOUT_C4
 # (K, N) of the model's decode GEMVs of rows 1, 5 and 6
 DECODE = ((3072, 3072), (2048, 2048), (2048, 12300), (3072, 2048))
 FORMS = {"int4i": (I4, False), "int4ig": (I4, True), "int4": (K4, False),
@@ -60,6 +71,11 @@ def _legal(plan, m, k, n, g, layout):
     assert plan.mt == quant.SPLITK_MAX_M == 16       # the MMA's rows
     assert 1 <= plan.splits <= quant.SPLITK_MAX_SPLITS
     assert plan.splits * plan.span >= rows > (plan.splits - 1) * plan.span
+    if layout in (INT8, C4):               # pairs of rows, whole steps of 16
+        assert plan.span % quant.SPLITK_STEP == 0
+        if g:
+            assert plan.span % ((k // g) // 2) == 0
+        return
     if g:
         gs = k // g                        # input rows a group
         unit = gs // 2 if layout == I4 else gs
@@ -132,28 +148,35 @@ def test_the_sweep_times_the_legal_slice_counts(form):
             assert (plan.splits, plan.span) in slices
 
 
-def _emulate(x, w, plan, pre_norm=None, residual=None):
-    """The split-K kernel's arithmetic, f32 out: slice partials in rank
-    order, then the scale (per channel) and the residual."""
-    k = x.shape[-1]
+def _split_sum(xs, w, plan):
+    """The split-K kernel's sum of f32 activations ``xs`` against ``w``:
+    slice partials in rank order, then the scale (per channel). A slice of
+    (pair) rows [r0, r1) holds input rows [2 r0, 2 r1) (interleaved; int8
+    and column-packed, whose pair r is rows 16 (r / 8) + r % 8 and 8
+    below, in whole steps of 16) or [r0, r1) and K/2 + [r0, r1)
+    (K-split)."""
+    k = xs.shape[-1]
     rows = k // 2
-    layout = quant.LAYOUTS[type(w)]
     grouped = isinstance(w, quant.GROUPED)
-    xs = x if pre_norm is None else rms_norm(x, *pre_norm)
-    xs = xs.float()
     lv = quant.levels(w).float()                       # (K, N) in row order
     if grouped:
         g = w.scale.shape[0]
         lv = (lv.reshape(g, k // g, -1) * w.scale[:, None, :]).reshape(k, -1)
         lv = lv.to(torch.bfloat16).float()
-    total = torch.zeros(x.shape[0], lv.shape[1])
+    total = torch.zeros(xs.shape[0], lv.shape[1])
     for s in range(plan.splits):
         r0, r1 = s * plan.span, min(rows, (s + 1) * plan.span)
-        idx = (torch.arange(2 * r0, 2 * r1) if layout == I4 else
-               torch.cat([torch.arange(r0, r1), torch.arange(rows + r0, rows + r1)]))
+        idx = (torch.cat([torch.arange(r0, r1), torch.arange(rows + r0, rows + r1)])
+               if quant.LAYOUTS[type(w)] == K4 else torch.arange(2 * r0, 2 * r1))
         total = total + xs[:, idx] @ lv[idx]
-    if not grouped:
-        total = total * w.scale
+    return total if grouped else total * w.scale
+
+
+def _emulate(x, w, plan, pre_norm=None, residual=None):
+    """The split-K kernel's arithmetic, f32 out: `_split_sum` of the
+    (normalised) activations, then the residual."""
+    xs = x if pre_norm is None else rms_norm(x, *pre_norm)
+    total = _split_sum(xs.float(), w, plan)
     if residual is not None:
         total = total + residual.float()
     return total
@@ -213,4 +236,191 @@ def test_split_sum_matches_jax_and_the_twin(form, k, n, m, group, folds):
                        residual=residual)
     tol = (2.0 ** -7 if grouped and residual is None else 2e-2) * \
         twin.float().abs().max().item()
+    assert (emu.to(torch.bfloat16).float() - twin.float()).abs().max().item() <= tol
+
+
+# The fused SwiGLU's forms, as the serving trees hold them: gate / up and down
+SWIGLU_FORMS = {"int4i+int4i": ("int4i", "int4i"),
+                "int4ig+int4ig": ("int4ig", "int4ig"),
+                "int4+int4c": ("int4", "int4c"), "int4g+int4cg": ("int4g", "int4cg"),
+                "int8+int8": ("int8", "int8")}
+LAYOUT_OF = {"int4i": I4, "int4ig": I4, "int4": K4, "int4g": K4, "int8": INT8,
+             "int4c": C4, "int4cg": C4}
+# (K, I, N): the backbone's and the decoder's MLPs
+SWIGLU_WIDTHS = ((3072, 8192, 3072), (2048, 8192, 2048))
+
+
+def _swiglu_groups(form, k, i, group=quant.INT4_GROUP):
+    up, down = SWIGLU_FORMS[form]
+    return (k // group if up.endswith("g") else 0,
+            i // group if down.endswith("g") else 0)
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 16])
+@pytest.mark.parametrize("k,i,n", SWIGLU_WIDTHS)
+@pytest.mark.parametrize("form", list(SWIGLU_FORMS))
+def test_swiglu_plan_at_the_decode_shapes(form, k, i, n, m):
+    """Up to 16 rows both passes are split-K plans: pass 1 the plan of an
+    N = 2 I GEMV in gate / up's layout, pass 2 W3's; each legal, each grid
+    at least one block an SM, or the most slices a cluster holds (the
+    decoder's column-packed W3: 16 tiles of 128 outputs x 8)."""
+    up, down = SWIGLU_FORMS[form]
+    g12, g3 = _swiglu_groups(form, k, i)
+    plan = fused_mlp.swiglu_plan(m, k, i, n, g12, LAYOUT_OF[up], g3,
+                                 LAYOUT_OF[down], SMS)
+    assert plan.kind == "splitk"
+    assert plan.up == quant.gemv_plan(m, k, 2 * i, g12, LAYOUT_OF[up], SMS)
+    assert plan.down == quant.gemv_plan(m, i, n, g3, LAYOUT_OF[down], SMS)
+    _legal(plan.up, m, k, 2 * i, g12, LAYOUT_OF[up])
+    _legal(plan.down, m, i, n, g3, LAYOUT_OF[down])
+    width = n - n // 2 if LAYOUT_OF[down] == C4 else n
+    assert plan.up.blocks(m, 2 * i) >= SMS
+    assert (plan.down.blocks(m, width) >= SMS
+            or plan.down.splits == quant.SPLITK_MAX_SPLITS)
+
+
+@pytest.mark.parametrize("m", [1, 16])
+@pytest.mark.parametrize("k,n", [(256, 320), (512, 600), (8192, 3072),
+                                 (768, 130)])
+@pytest.mark.parametrize("layout", [INT8, C4])
+def test_plan_of_the_pair_layouts(layout, k, n, m):
+    """The int8 and column-packed plans, per channel and (column-packed)
+    with groups of 16-128 rows, are legal at the fused SwiGLU's narrow and
+    served down-projection widths."""
+    for g in [0] + ([k // gs for gs in (16, 32, 64, 128) if k % gs == 0]
+                    if layout == C4 else []):
+        _legal(quant.gemv_plan(m, k, n, g, layout, SMS), m, k, n, g, layout)
+
+
+@pytest.mark.parametrize("scratch", [True, False])
+@pytest.mark.parametrize("form", list(FORMS))
+def test_splitk_ab_calls_each_build_with_its_own_arguments(form, scratch,
+                                                         monkeypatch):
+    """`probes/splitk_ab.py` launches another checkout's entry point with
+    the arguments that build takes: the plan, then the tile kernel's
+    scratch pointer (NULL) only where the entry point has one, then the
+    stream."""
+    name = gemv_splitk_sweep.ENTRY[form]
+    sig = _cuda._SIGNATURES[name]
+    calls = []
+
+    class Entry:
+        argtypes = sig if scratch else sig[:-2] + sig[-1:]
+
+        def __call__(self, *args):
+            calls.append(args)
+            return 0
+
+    lib = type("Lib", (), {name: Entry()})()
+    monkeypatch.setattr(splitk_ab._cuda, "stream_of", lambda t: 7)
+    layout, grouped = FORMS[form]
+    w, x, _, _ = _inputs(form, 256, 128, 2, 64, 3)
+    plan = quant.gemv_plan(2, 256, 128, w.scale.shape[0] if grouped else 0,
+                           layout, SMS)
+    splitk_ab.launch(lib, form, w, x, plan, None,
+                     torch.empty((2, 128), dtype=torch.bfloat16))
+    (args,) = calls
+    assert len(args) == len(Entry.argtypes) and args[-1] == 7
+    assert args[13:16] == (plan.splits, plan.mt, plan.span)
+    assert (len(args) == 18) == scratch and (not scratch or args[16] is None)
+
+
+@pytest.mark.parametrize("rows", [2, 4, 8, 16, 32, 64, 128])
+def test_can_fuse_takes_whole_steps_of_w3_groups(rows):
+    """A column-packed grouped W3 is fused only with groups of whole steps
+    of 16 rows, which the split-K pass 2 reads under one scale: smaller
+    groups (which the JAX package fuses) take the unfused GEMVs, and a
+    direct plan for them raises."""
+    rng = np.random.default_rng(rows)
+    k, i, n = 256, 256, 320
+
+    def rand(*shape):
+        return torch.from_numpy((0.02 * rng.standard_normal(shape)).astype(
+            np.float32))
+
+    w1, w2 = quant.quantize4(rand(k, i)), quant.quantize4(rand(k, i))
+    w3 = quant.quantize4_cols_grouped(rand(i, n), rows)
+    x = torch.zeros((1, k), dtype=torch.bfloat16)
+    assert fused_mlp.can_fuse(w1, w2, w3, x) == (rows % 16 == 0)
+    assert fused_mlp.can_fuse(w1, w2, quant.quantize4_cols(rand(i, n)), x)
+    if rows % 16:
+        with pytest.raises(ValueError):
+            fused_mlp.swiglu_plan(1, k, i, n, 0, K4, i // rows, C4, SMS)
+    else:
+        assert fused_mlp.swiglu_plan(1, k, i, n, 0, K4, i // rows, C4,
+                                     SMS).kind == "splitk"
+
+
+def _container(form, w, group):
+    if form == "int8":
+        return quant.quantize(w)
+    if form in ("int4c", "int4cg"):
+        return (quant.quantize4_cols_grouped(w, group) if form == "int4cg"
+                else quant.quantize4_cols(w))
+    c = quant.quantize4_grouped(w, group) if form.endswith("g") else \
+        quant.quantize4(w)
+    return quant.to_interleaved(c) if form in ("int4i", "int4ig") else c
+
+
+def _to_jax(c):
+    return getattr(jq, type(c).__name__)(jnp.asarray(c.values.numpy()),
+                                         jnp.asarray(c.scale.numpy()))
+
+
+def _emulate_swiglu(x, w1, w2, w3, plan, norm_w=None, residual=None):
+    """The two split-K passes' arithmetic, f32 out: pass 1's split sums of
+    the normalised rows (the twin's bf16 rounding) against W1 and W2 with
+    their scales, kept in f32; h = bf16(a / (1 + exp(-a)) * b); pass 2's
+    split sums of h against W3, then the residual."""
+    xs = (x if norm_w is None else rms_norm(x, norm_w, 1e-5)).float()
+    a, b = _split_sum(xs, w1, plan.up), _split_sum(xs, w2, plan.up)
+    h = (a / (1.0 + torch.exp(-a)) * b).to(torch.bfloat16).float()
+    out = _split_sum(h, w3, plan.down)
+    return out if residual is None else out + residual.float()
+
+
+@pytest.mark.parametrize("folds", ["plain", "norm+res"])
+@pytest.mark.parametrize("form", list(SWIGLU_FORMS))
+def test_swiglu_split_sums_match_jax_and_the_twin(form, folds):
+    """The emulation of the two split-K passes against JAX's fused
+    `fused_swiglu` (the Pallas kernel in interpret mode, bf16 in and out,
+    with the same folds) and the port's twin (`fused_swiglu_plain`, the XLA
+    fallback's rounding). Against JAX the f32 sums of a, b and the output
+    run in another order, so a few h may round to the other side (one bf16
+    ulp, 2^-8 x |h|), the normalised rows too (see
+    tests/test_torch_tc_plan.py), and JAX rounds its output to bf16: within
+    2^-7 x max|ref|, one bf16 ulp of the output's range. Against the twin,
+    which rounds a, b and every scaled weight to bf16: 2e-2 x max|twin|,
+    the card's bound for the fused kernel."""
+    up, down = SWIGLU_FORMS[form]
+    k, i, n, m, group = 256, 512, 320, 16 if folds == "plain" else 5, 64
+    rng = np.random.default_rng(len(form) + m)
+
+    def rand(*shape, std=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * std).astype(
+            np.float32))
+
+    w1, w2 = (_container(up, rand(k, i, std=0.02), group) for _ in range(2))
+    w3 = _container(down, rand(i, n, std=0.02), group)
+    x = rand(m, k).to(torch.bfloat16)
+    kw = {}
+    if folds == "norm+res":
+        kw = dict(norm_w=(1.0 + 0.1 * rand(k)).to(torch.bfloat16),
+                  residual=(0.1 * rand(m, n)).to(torch.bfloat16))
+    g12 = w1.scale.shape[0] if w1.scale.ndim == 2 else 0
+    g3 = w3.scale.shape[0] if w3.scale.ndim == 2 else 0
+    plan = fused_mlp.swiglu_plan(m, k, i, n, g12, LAYOUT_OF[up], g3,
+                                 LAYOUT_OF[down], SMS)
+    assert plan.kind == "splitk" and plan.down.splits > 1
+    emu = _emulate_swiglu(x, w1, w2, w3, plan, **kw)
+
+    jkw = {key: _jax(v) for key, v in kw.items()}
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jfused.fused_swiglu(
+            _jax(x), _to_jax(w1), _to_jax(w2), _to_jax(w3), norm_eps=1e-5,
+            **jkw)).astype(np.float32)
+    np.testing.assert_allclose(emu.numpy(), ref, rtol=0,
+                               atol=2.0 ** -7 * np.abs(ref).max())
+    twin = fused_mlp.fused_swiglu_plain(x, w1, w2, w3, **kw)
+    tol = 2e-2 * twin.float().abs().max().item()
     assert (emu.to(torch.bfloat16).float() - twin.float()).abs().max().item() <= tol

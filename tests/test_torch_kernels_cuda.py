@@ -36,13 +36,18 @@ split-K kernel, which sums in another order) and sweep form 0 the tiled
 instance of `gemv_int4.cu` (`int4_matmul_tiled`) its bits.
 Rows 1, 5 and 6 at decode (M <= 16) run the split-K cluster kernel with the
 host's plan (`quant.gemv_plan`): held to their twins with the bounds
-above at the decode shapes and at the prefill's M (rows 1 and 6 the
-tensor-core tile kernel, row 5 the tiled kernel), bit-identical from
-launch to launch, one kernel node in a captured graph. Rows 1 and 6 above
+above at the decode shapes and at the prefill's M (the tensor-core tile
+kernel), bit-identical from
+launch to launch, one kernel node in a captured graph. Rows 1, 5 and 6 above
 16 rows run the tile kernel of `quant.tc_plan` with the norm and the
 residual their served callers fold, one counted launch of it a call (a
 norm, and the K-split layout, add its row kernel), and a planted fault
-(the K-split halves swapped) fails the same check. Row 14's stacked-layer kernel, with the layer index read
+(the K-split halves swapped) fails the same check. The fused SwiGLU (row
+2) runs two split-K passes up to 16 rows and the two tiled passes above,
+in every served form at both widths, with and without the norm and the
+residual: within 2e-2 x max|twin| (the twin rounds a, b and every scaled
+weight to bf16), one counted launch a call, the same bits from call to
+call, two kernel nodes in a captured graph. Row 14's stacked-layer kernel, with the layer index read
 on the device, is held to its twin within one bf16 ulp and to the bits
 of `gemv_int4.cu`'s tiled instance on every layer's slice.
 The lean-update kernel rounds every operation as its twin does, so the two
@@ -444,8 +449,8 @@ SPLITK_SHAPES = {"attn_proj": (3072, 3072, True, False),
 @pytest.mark.parametrize("form", list(SPLITK_FORMS))
 def test_int4_decode_gemv(dev, form, shape, m):
     """Rows 1 (per-channel and grouped), 5 and 6 at their decode shapes (the
-    split-K kernel, M <= 16) and the prefill's M (rows 1 and 6 the tile
-    kernel, row 5 the tiled kernel), as the path calls them and with the
+    split-K kernel, M <= 16) and the prefill's M (the tile kernel), as
+    the path calls them and with the
     other folds (norm, residual, f32 out):
     within the twin's bound, one counted launch a call, the same bits from
     launch to launch."""
@@ -997,6 +1002,7 @@ def test_codec_bf16_dit_still_takes_the_kernel(dev):
 
 ROW_TC_FORMS = {"int4i": (quant.int4i_matmul, quant.int4i_matmul_tiled),
                 "int4ig": (quant.int4i_matmul, quant.int4i_matmul_tiled),
+                "int4": (quant.int4_matmul, quant.int4_matmul_tiled),
                 "int4g": (quant.int4g_matmul, quant.int4g_matmul_tiled)}
 # the prefill's calls of rows 1 and 6: (K, N, norm, residual), the QKV
 # projection with its norm, attn_proj with its residual, gate / up, the
@@ -1033,14 +1039,14 @@ def _row_tc_call(dev, form, w, x, **kw):
 @pytest.mark.parametrize("m", [17, 63, 255, 510])
 @pytest.mark.parametrize("form,shape", [
     (form, shape) for form in ROW_TC_FORMS for shape in ROW_TC_SHAPES
-    if not (form == "int4g" and shape == "mlp_proj")])
+    if not (form in ("int4", "int4g") and shape == "mlp_proj")])
 def test_row_tile_gemv(dev, form, shape, m):
-    """Rows 1 (per channel and grouped) and 6 above 16 rows on the tile
+    """Rows 1 (per channel and grouped), 5 and 6 above 16 rows on the tile
     kernel, with the folds their served callers pass (the QKV norm, the
     attn_proj residual) and all of them on a ragged (512, 601): within the
     twin's bound (one bf16 ulp grouped without a residual); at M = 63 also
-    with f32 output. Row 6's down-projection is row 8's, so it skips
-    mlp_proj."""
+    with f32 output. The K-split trees' down-projection is row 7's or 8's,
+    so rows 5 and 6 skip mlp_proj."""
     g = _gen(dev, 61 + m)
     k, n, norm, res = ROW_TC_SHAPES[shape]
     w = _make(g, dev, form, k, n, group=64 if k == 512 else 128)
@@ -1072,3 +1078,107 @@ def test_row_tile_gemv_rejects_swapped_k_halves(dev):
     bad = _row_tc_call(dev, "int4g", type(w)(swapped, w.scale), x, **kw)
     with pytest.raises(AssertionError):
         _close(bad, ref, RTOL_GROUPED)
+
+
+# The fused SwiGLU's served forms (gate / up + down) and widths (K, I)
+SWIGLU_SERVED = [("int4i", "int4i"), ("int4ig", "int4ig"), ("int4", "int4c"),
+                 ("int4g", "int4cg"), ("int8", "int8")]
+SWIGLU_WIDTHS = {"backbone": (3072, 8192), "decoder": (2048, 8192)}
+
+
+def _swiglu_weights(dev, up, down, k, i, seed):
+    g = _gen(dev, seed)
+    return g, (_make(g, dev, up, k, i), _make(g, dev, up, k, i),
+               _make(g, dev, down, i, k))
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 16, 17, 63, 126, 128])
+@pytest.mark.parametrize("width", list(SWIGLU_WIDTHS))
+@pytest.mark.parametrize("up,down", SWIGLU_SERVED)
+def test_fused_swiglu_served_forms(dev, up, down, width, m):
+    """Every served form at both widths and every M the frame loop and the
+    bucket-64 prefill give it, plain and with the norm and the residual:
+    within 2e-2 x max|twin|, one `fused_swiglu` count a call under its
+    form, none on the GEMV wrappers or the tiled yardstick, the same bits
+    twice."""
+    k, i = SWIGLU_WIDTHS[width]
+    g, (w1, w2, w3) = _swiglu_weights(dev, up, down, k, i, 81 + m)
+    x = _bf16(g, dev, m, k)
+    form = f"{up}+{down}"
+    for kw in ({}, dict(norm_w=_bf16(g, dev, k),
+                        residual=_bf16(g, dev, m, k, std=0.1))):
+        assert fused_mlp.can_fuse(w1, w2, w3, x)
+        watched = (fused_mlp.fused_swiglu, fused_mlp.fused_swiglu_tiled,
+                   quant.int4i_matmul, quant.int4_matmul, quant.int4g_matmul,
+                   quant.int4c_matmul, quant.int4cg_matmul, quant.int8_matmul)
+        before = [fn.launches for fn in watched]
+        f0 = fused_mlp.fused_swiglu.forms.get(form, 0)
+        out = fused_mlp.fused_swiglu(x, w1, w2, w3, **kw)
+        again = fused_mlp.fused_swiglu(x, w1, w2, w3, **kw)
+        torch.cuda.synchronize()
+        assert [fn.launches for fn in watched] == [before[0] + 2] + before[1:]
+        assert fused_mlp.fused_swiglu.forms[form] == f0 + 2
+        assert torch.equal(out, again)
+        _close(out, fused_mlp.fused_swiglu_plain(x, w1, w2, w3, **kw))
+
+
+@pytest.mark.parametrize("m", [1, 63])
+@pytest.mark.parametrize("up,down", SWIGLU_SERVED)
+def test_fused_swiglu_tiled_yardstick(dev, up, down, m):
+    """The first design's tiled passes (`fused_swiglu_tiled`, the yardstick)
+    at decode and prefill M: within 2e-2 x max|twin|, counted on their
+    own."""
+    k, i = SWIGLU_WIDTHS["backbone"]
+    g, (w1, w2, w3) = _swiglu_weights(dev, up, down, k, i, 91 + m)
+    x = _bf16(g, dev, m, k)
+    kw = dict(norm_w=_bf16(g, dev, k), residual=_bf16(g, dev, m, k, std=0.1))
+    before = (fused_mlp.fused_swiglu.launches,
+              fused_mlp.fused_swiglu_tiled.launches)
+    out = fused_mlp.fused_swiglu_tiled(x, w1, w2, w3, **kw)
+    torch.cuda.synchronize()
+    assert (fused_mlp.fused_swiglu.launches,
+            fused_mlp.fused_swiglu_tiled.launches) == (before[0], before[1] + 1)
+    _close(out, fused_mlp.fused_swiglu_plain(x, w1, w2, w3, **kw))
+
+
+@pytest.mark.parametrize("up,down", SWIGLU_SERVED)
+def test_fused_swiglu_is_two_graph_nodes(dev, up, down, tmp_path):
+    """A decode call captured in a CUDA graph is two kernel nodes, both the
+    split-K kernel's, and its replay gives the eager call's bits."""
+    k, i = SWIGLU_WIDTHS["backbone"]
+    g, (w1, w2, w3) = _swiglu_weights(dev, up, down, k, i, 99)
+    x = _bf16(g, dev, 1, k)
+    kw = dict(norm_w=_bf16(g, dev, k), residual=_bf16(g, dev, 1, k, std=0.1))
+    ref = fused_mlp.fused_swiglu(x, w1, w2, w3, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_mlp.fused_swiglu(x, w1, w2, w3, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        out = fused_mlp.fused_swiglu(x, w1, w2, w3, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    dot = tmp_path / "graph.dot"
+    graph.debug_dump(str(dot))
+    kernels = [line for line in dot.read_text().splitlines()
+               if "kernel" in line and ("gemv" in line or "swiglu" in line)]
+    assert len(kernels) == 2 and all("gemv_splitk_kernel" in line
+                                     for line in kernels), kernels
+
+
+def test_fused_swiglu_refuses_small_w3_groups(dev):
+    """A column-packed W3 with groups of 8 rows, which the split-K pass 2
+    does not take (a step of 16 rows must lie in one group): `can_fuse`
+    refuses it, so the model runs the unfused GEMVs, and a direct call
+    raises: no fallback to the tiled passes."""
+    g = _gen(dev, 98)
+    w1, w2 = _make(g, dev, "int4", 512, 1024), _make(g, dev, "int4", 512, 1024)
+    w3 = _make(g, dev, "int4cg", 1024, 512, group=8)
+    x = _bf16(g, dev, 1, 512)
+    assert not fused_mlp.can_fuse(w1, w2, w3, x)
+    with pytest.raises(ValueError):
+        fused_mlp.fused_swiglu(x, w1, w2, w3)

@@ -36,7 +36,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from uniaudio2_tpu.ops import quant as jq
 
-from uniaudio2_tpu_torch.ops import quant
+from uniaudio2_tpu_torch.ops import fused_mlp, quant
 from uniaudio2_tpu_torch.ops.norms import rms_norm
 
 SMS = 132                                  # an H100 SXM
@@ -334,7 +334,10 @@ def _emulate_rows(x, w, plan, xn=None, residual=None):
     return total
 
 
-ROW_FORMS = {"int4i": (I4, False), "int4ig": (I4, True), "int4g": (K4, True)}
+ROW_FORMS = {"int4i": (I4, False), "int4ig": (I4, True), "int4": (K4, False),
+             "int4g": (K4, True)}
+ROW_JAX = {"int4i": jq._pallas_int4i_matmul, "int4ig": jq._pallas_int4i_matmul,
+           "int4": jq._pallas_int4_matmul, "int4g": jq._pallas_int4g_matmul}
 
 
 def _row_inputs(form, k, n, m, group, seed):
@@ -342,6 +345,8 @@ def _row_inputs(form, k, n, m, group, seed):
     w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32) * 0.02)
     if form == "int4g":
         c = quant.quantize4_grouped(w, group)
+    elif form == "int4":
+        c = quant.quantize4(w)
     else:
         c = quant.to_interleaved(quant.quantize4_grouped(w, group)
                                  if form == "int4ig" else quant.quantize4(w))
@@ -366,7 +371,8 @@ def _jax(a):
 @pytest.mark.parametrize("form", list(ROW_FORMS))
 def test_row_split_sum_matches_jax_and_the_twin(form, k, n, m, group, folds):
     """The row-packed emulation against JAX's `_pallas_int4i_matmul` /
-    `_pallas_int4g_matmul` in interpret mode (f32 out, with the same folds)
+    `_pallas_int4_matmul` / `_pallas_int4g_matmul` in interpret mode (f32
+    out, with the same folds)
     and the port's twin (bf16 out: 2e-2 x max|twin|, one bf16 ulp grouped
     without a residual), given the twin's normalised rows, as the row
     kernel rounds them. Against JAX the f32 sums differ in order only:
@@ -383,7 +389,7 @@ def test_row_split_sum_matches_jax_and_the_twin(form, k, n, m, group, folds):
     pre_norm = (nw, 1e-5) if "norm" in folds else None
     residual = res if "res" in folds else None
 
-    jfn = jq._pallas_int4g_matmul if layout == K4 else jq._pallas_int4i_matmul
+    jfn = ROW_JAX[form]
     kw = dict(out_dtype=jnp.float32)
     xn = None
     if pre_norm is not None:
@@ -414,10 +420,12 @@ def test_row_split_sum_matches_jax_and_the_twin(form, k, n, m, group, folds):
 
 def test_row_wrappers_take_the_twin_on_the_cpu():
     """On CPU tensors above 16 rows `int4i_matmul` (per channel and
-    grouped) and `int4g_matmul` return the twin with every fold and count
-    no launch, on the wrapper or on the tile kernel's counter."""
+    grouped), `int4_matmul` and `int4g_matmul` return the twin with every
+    fold and count no launch, on the wrapper or on the tile kernel's
+    counter."""
     cases = [(quant.int4i_matmul, _row_inputs("int4i", 512, 600, 63, 64, 5)),
              (quant.int4i_matmul, _row_inputs("int4ig", 512, 600, 63, 64, 6)),
+             (quant.int4_matmul, _row_inputs("int4", 512, 600, 63, 64, 8)),
              (quant.int4g_matmul, _row_inputs("int4g", 512, 600, 63, 64, 7))]
     for fn, (w, x, nw, res) in cases:
         before = (fn.launches, quant.gemv_tc.launches)
@@ -425,3 +433,47 @@ def test_row_wrappers_take_the_twin_on_the_cpu():
         assert torch.equal(fn(x, w.values, w.scale, **kw),
                            quant.matmul_plain(x, w, **kw))
         assert (fn.launches, quant.gemv_tc.launches) == before
+
+
+# The fused SwiGLU (row 2) above 16 rows, up to the 128 `can_fuse` takes
+# (the bucket-64 prefill: 63 rows, 126 for a CFG pair): the first design's
+# two tiled passes, in every served form.
+SWIGLU_SERVED = {"int4i+int4i": (I4, I4), "int4ig+int4ig": (I4, I4),
+                 "int4+int4c": (K4, quant.LAYOUT_C4),
+                 "int4g+int4cg": (K4, quant.LAYOUT_C4),
+                 "int8+int8": (quant.LAYOUT_INT8, quant.LAYOUT_INT8)}
+
+
+@pytest.mark.parametrize("m", [17, 63, 126, 128])
+@pytest.mark.parametrize("k,i,n", [(3072, 8192, 3072), (2048, 8192, 2048),
+                                   (512, 1024, 600)])
+@pytest.mark.parametrize("form", list(SWIGLU_SERVED))
+def test_swiglu_plan_above_the_decode_rows(form, k, i, n, m):
+    """Above 16 rows `swiglu_plan` sends every form to the tiled passes,
+    with no split-K plan."""
+    up, down = SWIGLU_SERVED[form]
+    g12 = k // 128 if form.split("+")[0].endswith("g") else 0
+    g3 = i // 128 if form.endswith("g") else 0
+    assert fused_mlp.swiglu_plan(m, k, i, n, g12, up, g3, down, SMS) \
+        == fused_mlp.SwigluPlan("tiled", None, None)
+
+
+def test_swiglu_wrappers_take_the_twin_on_the_cpu():
+    """On CPU tensors `fused_swiglu` and its tiled yardstick return the
+    twin at a decode and a prefill M and count no launch."""
+    rng = np.random.default_rng(9)
+    w1, w2 = (quant.to_interleaved(quant.quantize4(torch.from_numpy(
+        (0.02 * rng.standard_normal((256, 512))).astype(np.float32))))
+        for _ in range(2))
+    w3 = quant.to_interleaved(quant.quantize4(torch.from_numpy(
+        (0.02 * rng.standard_normal((512, 256))).astype(np.float32))))
+    nw = torch.ones(256, dtype=torch.bfloat16)
+    for m in (1, 63):
+        x = torch.from_numpy(rng.standard_normal((m, 256)).astype(
+            np.float32)).to(torch.bfloat16)
+        fns = (fused_mlp.fused_swiglu, fused_mlp.fused_swiglu_tiled)
+        before = [fn.launches for fn in fns]
+        ref = fused_mlp.fused_swiglu_plain(x, w1, w2, w3, norm_w=nw, residual=x)
+        for fn in fns:
+            assert torch.equal(fn(x, w1, w2, w3, norm_w=nw, residual=x), ref)
+        assert [fn.launches for fn in fns] == before

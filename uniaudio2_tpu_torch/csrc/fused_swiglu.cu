@@ -9,25 +9,41 @@
 // int8 (I, ldw3), column-packed int4 (I, ldw3 >= N/2) or row-interleaved
 // int4 (I/2, ldw3), the int4 forms per-channel (N,) or grouped (G3, N).
 //
-// Bound: weight bytes (int4: 3*K*I/2, 37.7 MB for the backbone's 3072 ->
-// 8192 -> 3072, 25.2 MB for the decoder's 2048 -> 8192 -> 2048; int8 twice
-// that; grouped scales add 6 %).
+// Bound: weight bytes at decode (int4: 3*K*I/2, 37.7 MB for the backbone's
+// 3072 -> 8192 -> 3072, 11.3 us at 3.35 TB/s; 25.2 MB for the decoder's
+// 2048 -> 8192 -> 2048; int8 twice that; grouped scales add 6 %). At the
+// bucket-64 prefill the 6*M*K*I operations reach it: 9.5 GFLOP (9.7 us at
+// 989 TFLOP/s) at M = 63, 19.0 at the CFG pair's 126, bound by operations.
 //
 // The Pallas kernel walks I in chunks on a sequential grid and carries the
 // W3 product in an f32 scratch accumulator. Blocks on the GPU run in no
-// order, so this is two deterministic passes instead (both are one call of
-// the Python wrapper):
-//   pass 1 (swiglu_up_kernel): blocks own 64 columns of I; each stages the
-//     normed rows once and streams the matching W1 and W2 columns together,
-//     then writes h = bf16(silu(a) * b) with a, b kept in f32 (the Pallas
-//     kernel rounds only h). h is M x I bf16, 16 KB at M = 1.
-//   pass 2: the GEMV of gemv_common.cuh over h in W3's layout, with the s3
-//     scale and the residual folded in the epilogue. Grouped W3 scales are
-//     chunk-local blocks in the Pallas kernel; here they are simply
-//     scale[row / group, column]. The column-packed form writes true output
-//     columns, not the Pallas scratch's [low ++ pad][high ++ pad] order.
-// No split-K and no atomics: the sum order is fixed from run to run.
+// order, so a call is two deterministic passes, one call of the Python
+// wrapper (`fused_mlp.fused_swiglu`, planned by `fused_mlp.swiglu_plan`):
+//  * at decode (M <= quant.SPLITK_MAX_M = 16), `ua2_fused_swiglu`: two
+//    launches of the split-K cluster kernel of gemv_int4_splitk.cuh, in
+//    every weight form. Pass 1 covers 2 I / 64
+//    column tiles, the first I / 64 reading W1 and its scale, the rest W2,
+//    with the RMSNorm prologue, and writes a = n(x) W1 s1 and b = n(x) W2 s2
+//    in f32 to a workspace `ab` (M, 2 I) (64 KB at M = 1). Pass 2 runs over
+//    W3 (I4, C4 or INT8), staging bf16(silu(a) * b) of its K-slice where
+//    pass 1 staged bf16(n(x)), and adds the residual in the epilogue;
+//  * above that (the bucket-64 prefill: 63 rows, 126 for a CFG pair),
+//    `ua2_fused_swiglu_tiled`, the first design: two tiled passes
+//    (swiglu_up_kernel: blocks own 64 columns of I, stage the normed rows
+//    once and stream the matching W1 and W2 columns together on the CUDA
+//    cores, then write h = bf16(silu(a) * b) with a, b kept in f32; then
+//    the tiled GEMV of gemv_common.cuh over h with the s3 scale and the
+//    residual folded in the epilogue), also the yardstick at any M.
+// The rounding is the same in both: a and b in f32 (the Pallas kernel
+// rounds only h), h rounded once to bf16; grouped levels are scaled in f32
+// and rounded to bf16 before the product. The column-packed form writes
+// true output columns, not the Pallas scratch's [low ++ pad][high ++ pad]
+// order, and its grouped W3 scales are scale[row / group, column] (chunk-
+// local blocks in the Pallas kernel). The split-K passes' partial sums
+// meet in rank order through distributed shared memory: no atomics, the
+// same bits every run.
 #include "gemv_common.cuh"
+#include "gemv_int4_splitk.cuh"
 
 namespace {
 
@@ -115,10 +131,10 @@ int launch_down(int layout, const void* h, const void* w, const void* scale,
 
 }  // namespace
 
-// layout12 is one of ua2::INT8, I4, K4 and layout3 one of INT8, I4, C4; G12
-// and G3 are the numbers of scale groups of W1 / W2 and of W3 (0 =
-// per-channel).
-extern "C" int ua2_fused_swiglu(const void* x, const void* w1, const void* s1,
+// The two tiled passes. layout12 is one of ua2::INT8, I4, K4 and layout3 one
+// of INT8, I4, C4; G12 and G3 are the numbers of scale groups of W1 / W2 and
+// of W3 (0 = per-channel); h (M, I) bf16 the workspace between the passes.
+extern "C" int ua2_fused_swiglu_tiled(const void* x, const void* w1, const void* s1,
                                 const void* w2, const void* s2, const void* w3,
                                 const void* s3, const void* norm_w,
                                 const void* residual, void* h, void* out, int M,
@@ -149,4 +165,73 @@ extern "C" int ua2_fused_swiglu(const void* x, const void* w1, const void* s1,
   }
   if (e != (int)cudaSuccess) return e;
   return launch_down(layout3, h, w3, s3, residual, out, M, I, N, ldw3, G3, eps, s);
+}
+
+namespace {
+
+// Pass 1 at decode: the split-K kernel over W1 | W2 into ab (M, 2 I) f32.
+int splitk_up(int layout, int G, const ua2::splitk::Args& a, int splits,
+              cudaStream_t s) {
+  namespace sk = ua2::splitk;
+  switch (layout * 2 + (G > 0)) {
+    case ua2::INT8 * 2: return sk::launch_args<ua2::INT8, false, sk::UP>(a, splits, sk::MROWS, s);
+    case ua2::I4 * 2: return sk::launch_args<ua2::I4, false, sk::UP>(a, splits, sk::MROWS, s);
+    case ua2::I4 * 2 + 1: return sk::launch_args<ua2::I4, true, sk::UP>(a, splits, sk::MROWS, s);
+    case ua2::K4 * 2: return sk::launch_args<ua2::K4, false, sk::UP>(a, splits, sk::MROWS, s);
+    case ua2::K4 * 2 + 1: return sk::launch_args<ua2::K4, true, sk::UP>(a, splits, sk::MROWS, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Pass 2 at decode: the split-K kernel over W3, staging h from ab.
+int splitk_down(int layout, int G, const ua2::splitk::Args& a, int splits,
+                cudaStream_t s) {
+  namespace sk = ua2::splitk;
+  switch (layout * 2 + (G > 0)) {
+    case ua2::INT8 * 2: return sk::launch_args<ua2::INT8, false, sk::SWIGLU>(a, splits, sk::MROWS, s);
+    case ua2::I4 * 2: return sk::launch_args<ua2::I4, false, sk::SWIGLU>(a, splits, sk::MROWS, s);
+    case ua2::I4 * 2 + 1: return sk::launch_args<ua2::I4, true, sk::SWIGLU>(a, splits, sk::MROWS, s);
+    case ua2::C4 * 2: return sk::launch_args<ua2::C4, false, sk::SWIGLU>(a, splits, sk::MROWS, s);
+    case ua2::C4 * 2 + 1: return sk::launch_args<ua2::C4, true, sk::SWIGLU>(a, splits, sk::MROWS, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The fused SwiGLU at decode as the host's plan says (`fused_mlp.swiglu_plan`):
+// the two split-K passes, pass 1 `splits1` K-slices of `span1` pair rows of
+// K, pass 2 `splits3` of `span3` of I. W1 and W2 are (K or K/2, I) of one
+// layout and G12 groups, unpadded; W3 (I or I/2, ldw3). ab (M, 2 I) f32 is
+// the workspace between the passes, allocated by the caller.
+extern "C" int ua2_fused_swiglu(const void* x, const void* w1, const void* s1,
+                                const void* w2, const void* s2, const void* w3,
+                                const void* s3, const void* norm_w,
+                                const void* residual, void* ab, void* out, int M,
+                                int K, int I, int N, int ldw3, int layout12, int G12,
+                                int layout3, int G3, float eps, int splits1, int span1,
+                                int splits3, int span3, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ab == nullptr) return (int)cudaErrorInvalidValue;
+  ua2::splitk::Args up = {};
+  up.x = static_cast<const __nv_bfloat16*>(x);
+  up.w = static_cast<const int8_t*>(w1);
+  up.scale = static_cast<const float*>(s1);
+  up.w2 = static_cast<const int8_t*>(w2);
+  up.scale2 = static_cast<const float*>(s2);
+  up.nw = static_cast<const __nv_bfloat16*>(norm_w);
+  up.out = ab;
+  up.M = M, up.K = K, up.N = 2 * I, up.n1 = I, up.ldw = I, up.G = G12;
+  up.out_f32 = 1, up.span = span1, up.eps = eps;
+  int e = splitk_up(layout12, G12, up, splits1, s);
+  if (e != (int)cudaSuccess) return e;
+  ua2::splitk::Args down = {};
+  down.ab = static_cast<const float*>(ab);
+  down.w = static_cast<const int8_t*>(w3);
+  down.scale = static_cast<const float*>(s3);
+  down.res = static_cast<const __nv_bfloat16*>(residual);
+  down.out = out;
+  down.M = M, down.K = I, down.N = N, down.n1 = N, down.ldw = ldw3, down.G = G3;
+  down.span = span3, down.eps = eps;
+  return splitk_down(layout3, G3, down, splits3, s);
 }

@@ -1,6 +1,8 @@
-// Split-K int4 GEMV for the decode rows of the row-interleaved (I4) and
-// K-split (K4) layouts, for sm_90a, on the tensor cores. Included by
-// gemv_int4i.cu, gemv_int4g.cu and gemv_int4.cu only.
+// Split-K GEMV for the decode rows, for sm_90a, on the tensor cores: the
+// row-interleaved (I4) and K-split (K4) int4 layouts of rows 1, 5 and 6,
+// and the two passes of the fused SwiGLU (row 2), which add the int8
+// (INT8) and column-packed int4 (C4) layouts. Included by gemv_int4i.cu,
+// gemv_int4g.cu, gemv_int4.cu and fused_swiglu.cu only.
 //
 //   out (M, N) = [rmsnorm(x)] (M, K) @ unpack(W) (K, N) * scale [+ res]
 //
@@ -24,6 +26,13 @@
 //    columns: a lane loads 8 bytes (8 columns) of rows t and t + 4
 //    (t = lane % 4), so four lanes cover the step's rows of one 8-column
 //    group and a warp reads 4 x 64 contiguous bytes a load;
+//  * the layouts of one level a byte row (INT8, and C4, whose byte holds
+//    output columns c and N/2 + c) take steps of 16 byte rows (k = 16): a
+//    lane loads rows t, t + 4, t + 8 and t + 12, and the host's rows are
+//    "pairs" (row 16 s + j with row 16 s + j + 8, j < 8), K/2 of them, so
+//    that staging, A fragments and plans are those of the int4 layouts.
+//    C4 runs two products a column: the low nibbles (column c) and the
+//    high ones (column N/2 + c), 128 outputs a block;
 //  * unpack without conversions: XOR 0x88888888 makes the nibbles offset
 //    (n + 8); a byte permute pairs a byte of row t with the same column's
 //    byte of row t + 4, and one LOP3 puts two nibbles (the same column,
@@ -33,18 +42,29 @@
 //    over k in another order than the sequential sum. Grouped: the two
 //    nibbles are unpacked to f32 (under 2^23), multiplied by their f32
 //    scales and rounded to bf16 as the Pallas kernel rounds the scaled
-//    tile;
-//  * 8 steps of loads in flight per warp, the next 8 issued before the
-//    current ones are used (registers, double-buffered: a slice of up to
-//    256 byte rows is one batch); the first batch before the prologue, which
-//    sums every row's squares over all of K in one fixed order (the same
-//    bits in every block of a cluster) and stages the slice's activations,
-//    normalised and rounded to bf16, and the slice's scale groups;
+//    tile. INT8: a level needs 8 bits, more than bf16's 7 under one
+//    exponent, so a byte permute puts (b ^ 0x80) = level + 128 under the
+//    f32 exponent of 2^23, one FADD subtracts 2^23 + 128 and one cvt packs
+//    two levels as bf16x2 (exact: |level| <= 127);
+//  * 8 steps of loads in flight per warp (4 for INT8 / C4, which load
+//    twice the rows a step), the next batch loading before the current one
+//    is used (registers, double-buffered); the first batch before the
+//    prologue, which sums every row's squares over all of K in one fixed
+//    order (the same bits in every block of a cluster) and stages the
+//    slice's activations, normalised and rounded to bf16, and the slice's
+//    scale groups;
 //  * the four warps' tiles are added in warp order, then the cluster's
 //    through distributed shared memory: rank r adds every S-th output of
 //    the tile over ranks 0..S-1 in rank order and applies the scale, the
 //    residual and the cast. One launch, no workspace, no atomics, the same
 //    bits on every run.
+// The fused SwiGLU runs this kernel twice (`ua2_fused_swiglu`), each pass
+// its own instance (MODE), so that a trace tells them from the GEMVs: pass
+// 1 (UP) over 2 I / 64 column tiles, the first I / 64 reading W1 (`w`,
+// `scale`) and the rest W2 (`w2`, `scale2`), writing a and b in f32; pass
+// 2 (SWIGLU) over W3, launched after pass 1 has completed, staging
+// bf16(silu(a) * b) of its slice from those f32 sums where the norm mode
+// stages bf16(norm(x)).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -58,16 +78,39 @@ namespace cg = cooperative_groups;
 
 constexpr int THREADS = 128;
 constexpr int NWARPS = THREADS / 32;
-constexpr int TN = 64;                    // output columns of a block
-constexpr int STEP = 8;                   // byte rows of a warp step (k = 16)
+constexpr int TN = 64;                    // byte columns of a block
+constexpr int STEP = 8;                   // (pair) rows of a warp step (k = 16)
 constexpr int R = 8;                      // steps of loads in flight a warp
 constexpr int MROWS = 16;                 // activation rows of a block
 constexpr int RS = TN + 1;                // row stride of the warp partials
 constexpr int MAX_SPLITS = 8;
-constexpr int EP = MROWS * TN / THREADS;  // outputs a thread may finish
 constexpr unsigned OFFSET = 0x88888888u;  // two's complement -> n + 8
 constexpr unsigned MAGIC = 0x4B000000u;   // f32 2^23
 constexpr unsigned MAGIC2 = 0x43004300u;  // bf16x2 (128, 128)
+// Modes of the kernel: a GEMV (rows 1, 5 and 6), the fused SwiGLU's pass 1
+// over W1 | W2, its pass 2 staging h
+constexpr int GEMV = 0, UP = 1, SWIGLU = 2;
+
+// One level a byte row, in steps of 16 rows: INT8 and C4.
+__host__ __device__ constexpr bool wide(int layout) { return layout == INT8 || layout == C4; }
+
+// The operands of one launch. The output is (M, N): columns [0, n1) from
+// `w` / `scale`, [n1, N) from `w2` / `scale2` (a second weight of the same
+// shape and storage, pass 1 of the fused SwiGLU; n1 = N and w2 = NULL
+// otherwise). `ab` (SWIGLU): the (M, 2K) f32 sums a | b of pass 1.
+struct Args {
+  const __nv_bfloat16* x;
+  const float* ab;
+  const int8_t* w;
+  const float* scale;
+  const int8_t* w2;
+  const float* scale2;
+  const __nv_bfloat16* nw;
+  const __nv_bfloat16* res;
+  void* out;
+  int M, K, N, n1, ldw, G, out_f32, span;
+  float eps;
+};
 
 // (a & b) | c in one LOP3, every operand a register.
 __device__ __forceinline__ unsigned and_or(unsigned a, unsigned b, unsigned c) {
@@ -92,6 +135,12 @@ __device__ __forceinline__ float level(unsigned q, int p) {
   return f - (8388608.f + 8.f * (float)(1 << (4 * p)));
 }
 
+// The int8 level of byte j of q (q already XORed with 0x80808080: the byte
+// is level + 128), exact, in f32: 2^23 + (level + 128) - (2^23 + 128).
+__device__ __forceinline__ float level8(unsigned q, int j) {
+  return __uint_as_float(__byte_perm(q, MAGIC, 0x7440 | j)) - 8388736.f;
+}
+
 // (lo, hi) rounded to bf16 (round to nearest even), packed lo first.
 __device__ __forceinline__ unsigned pack_bf2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -107,12 +156,16 @@ __device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsig
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Scale groups a slice of `span` byte rows may touch (bound for smem).
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Scale groups a slice of `span` (pair) rows may touch (bound for smem).
 __host__ __device__ inline int slice_groups(int layout, int K, int G, int span) {
   if (G == 0) return 0;
   const int gs = K / G;                        // input rows a group
-  const int rows = layout == I4 ? 2 * span : span;
-  const int most = layout == I4 ? G : G / 2;
+  const int rows = layout == K4 ? span : 2 * span;
+  const int most = layout == K4 ? G / 2 : G;
   const int n = rows / gs + 2;
   return n < most ? n : most;
 }
@@ -125,77 +178,92 @@ __host__ __device__ inline int staged_rows(int span) { return (span + 31) / 32 *
 // Activation rows staged from row m0 on: 8 (A rows 0-7) or 16.
 __host__ __device__ inline int staged_m(int M, int m0) { return M - m0 > 8 ? 16 : 8; }
 
-// Dynamic shared memory: the block's partial tile, then a region that
-// holds the staged activations and scale tiles during the main loop and
-// the warps' partial tiles after it.
+// Dynamic shared memory: the block's partial tile (two for C4), then a
+// region that holds the staged activations and scale tiles during the main
+// loop and the warps' partial tiles after it.
 __host__ inline int smem_bytes(int layout, int K, int G, int M, int span) {
-  const int part = MROWS * TN * 4;
+  const int na = layout == C4 ? 2 : 1;
+  const int part = na * MROWS * TN * 4;
   const int stage = align16(staged_m(M, 0) * staged_rows(span) * 4) +
                     2 * slice_groups(layout, K, G, span) * TN * 4;
-  const int red = NWARPS * MROWS * RS * 4;
+  const int red = na * NWARPS * MROWS * RS * 4;
   return part + (stage > red ? stage : red);
 }
 
-template <int LAYOUT, bool GROUPED>
-__global__ void __launch_bounds__(THREADS)
-gemv_splitk_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ scale, const __nv_bfloat16* __restrict__ nw,
-                   const __nv_bfloat16* __restrict__ res, void* __restrict__ out,
-                   int M, int K, int N, int ldw, int G, float eps, int out_f32,
-                   int span) {
-  static_assert(LAYOUT == I4 || LAYOUT == K4, "row-packed int4 layouts only");
+template <int LAYOUT, bool GROUPED, int MODE>
+__global__ void __launch_bounds__(THREADS) gemv_splitk_kernel(const Args p) {
+  static_assert(LAYOUT == I4 || LAYOUT == K4 || LAYOUT == INT8 || LAYOUT == C4,
+                "a layout of gemv_common.cuh");
+  static_assert(!(GROUPED && LAYOUT == INT8), "int8 has per-channel scales only");
+  constexpr bool WIDE = wide(LAYOUT);
+  constexpr int LD = WIDE ? 4 : 2;        // loads of a lane a step
+  constexpr int RB = R * 2 / LD;          // steps in flight: the same bytes
+  constexpr int NA = LAYOUT == C4 ? 2 : 1;
+  constexpr int TO = NA * TN;             // outputs of a tile row
+  constexpr int EP = MROWS * TO / THREADS;
   cg::cluster_group cluster = cg::this_cluster();
   const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int rows = K / 2;
-  const int r0 = blockIdx.y * span;
-  const int n_rows = max(min(rows, r0 + span) - r0, 0);
-  const int xw = staged_rows(span);
+  const int M = p.M, K = p.K, N = p.N, ldw = p.ldw, G = p.G;
+  const int rows = K / 2;                            // byte rows, or pairs
+  const int r0 = blockIdx.y * p.span;
+  const int n_rows = max(min(rows, r0 + p.span) - r0, 0);
+  const int xw = staged_rows(p.span);
   const int col0 = blockIdx.x * TN, m0 = blockIdx.z * MROWS;
   const int mt = min(MROWS, M - m0);                 // live activation rows
   const int mr = staged_m(M, m0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int t = lane & 3, gq = lane >> 2;            // MMA thread / group ids
+  // the tile's weight: W2 past column n1 (its columns from 0 again)
+  const bool second = MODE == UP && col0 >= p.n1;
+  const int8_t* const w = second ? p.w2 : p.w;
+  const float* const scale = second ? p.scale2 : p.scale;
+  const int wc0 = second ? col0 - p.n1 : col0;       // the tile's first column in W
+  const int wn = MODE != UP ? N : second ? N - p.n1 : p.n1;   // W's width
+  const int nh = N / 2;                              // C4: the high nibbles' columns
 
   extern __shared__ __align__(16) unsigned char smem[];
-  float* part = reinterpret_cast<float*>(smem);                       // MROWS x TN
-  unsigned char* region = smem + MROWS * TN * 4;
+  float* part = reinterpret_cast<float*>(smem);                       // MROWS x TO
+  unsigned char* region = smem + MROWS * TO * 4;
   unsigned* xs = reinterpret_cast<unsigned*>(region);                 // mr x xw
   float* st = reinterpret_cast<float*>(region + align16(mr * xw * 4));
   float* red = reinterpret_cast<float*>(region);                      // after the loop
 
-  // 1. the first batch of weight loads: step s of this warp is slice rows
-  // [8 s, 8 s + 8); a lane loads rows 8 s + t and 8 s + t + 4, columns
-  // [8 gq, 8 gq + 8) of the tile
+  // 1. the first batch of weight loads: step s of this warp is slice (pair)
+  // rows [8 s, 8 s + 8); a lane loads byte rows 8 s + t and 8 s + t + 4
+  // (WIDE: rows 16 s + t + 4 l, l < 4), columns [8 gq, 8 gq + 8) of the tile
   const int steps = (n_rows + STEP - 1) / STEP;
   const int my_steps = steps > warp ? (steps - warp + NWARPS - 1) / NWARPS : 0;
-  const int8_t* wp = w + (size_t)(r0 + t) * ldw + col0 + 8 * gq;
-  uint2 cur[R][2], nxt[R][2] = {};
-  auto load = [&](uint2 (&buf)[R][2], int batch) {
+  const int8_t* wp = w + (size_t)((WIDE ? 2 * r0 : r0) + t) * ldw + wc0 + 8 * gq;
+  uint2 cur[RB][LD], nxt[RB][LD] = {};
+  auto load = [&](uint2 (&buf)[RB][LD], int batch) {
 #pragma unroll
-    for (int u = 0; u < R; ++u) {
-      const int i = STEP * (warp + NWARPS * (batch * R + u));
-      const uint2 zero = make_uint2(0u, 0u);
-      const bool in = batch * R + u < my_steps;
-      buf[u][0] = in && i + t < n_rows
-          ? __ldg(reinterpret_cast<const uint2*>(wp + (size_t)i * ldw)) : zero;
-      buf[u][1] = in && i + t + 4 < n_rows
-          ? __ldg(reinterpret_cast<const uint2*>(wp + (size_t)(i + 4) * ldw)) : zero;
+    for (int u = 0; u < RB; ++u) {
+      const int i = STEP * (warp + NWARPS * (batch * RB + u));
+      const bool in = batch * RB + u < my_steps;
+#pragma unroll
+      for (int l = 0; l < LD; ++l) {
+        const bool live = in && i + t + 4 * (l & 1) < n_rows;
+        buf[u][l] = live ? __ldg(reinterpret_cast<const uint2*>(
+                               wp + (size_t)((WIDE ? 2 * i : i) + 4 * l) * ldw))
+                         : make_uint2(0u, 0u);
+      }
     }
   };
   load(cur, 0);
 
-  // 2. the slice's activations: byte row i's (low, high) pair, row m at
-  // xs[m * xw + i]; rows past the slice and past M are zero
+  // 2. the slice's activations: (pair) row i's (low, high) pair of k, row m
+  // at xs[m * xw + i]; rows past the slice and past M are zero. SWIGLU:
+  // bf16(silu(a) * b) of pass 1's f32 sums
   float rstd[MROWS];
 #pragma unroll
   for (int m = 0; m < MROWS; ++m) rstd[m] = 1.f;
-  if (nw != nullptr) {
+  if (MODE != SWIGLU && p.nw != nullptr) {
     float ss[MROWS];
 #pragma unroll
     for (int m = 0; m < MROWS; ++m) {
       ss[m] = 0.f;
       if (m < mt) {
-        const __nv_bfloat16* src = x + (size_t)(m0 + m) * K;
+        const __nv_bfloat16* src = p.x + (size_t)(m0 + m) * K;
         for (int k = tid; k < K; k += THREADS) {
           const float v = bf(src[k]);
           ss[m] += v * v;
@@ -215,25 +283,34 @@ gemv_splitk_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
       float s = 0.f;
 #pragma unroll
       for (int q = 0; q < NWARPS; ++q) s += sred[q * MROWS + m];
-      rstd[m] = rsqrtf(s / (float)K + eps);
+      rstd[m] = rsqrtf(s / (float)K + p.eps);
     }
     __syncthreads();                 // sred is xs
   }
   for (int i = tid; i < xw; i += THREADS) {
     const int r = r0 + i;
-    const int ka = LAYOUT == I4 ? 2 * r : r, kb = LAYOUT == I4 ? 2 * r + 1 : rows + r;
+    const int ka = LAYOUT == I4 ? 2 * r : LAYOUT == K4 ? r : 16 * (r >> 3) + (r & 7);
+    const int kb = LAYOUT == I4 ? 2 * r + 1 : LAYOUT == K4 ? rows + r : ka + 8;
 #pragma unroll
     for (int m = 0; m < MROWS; ++m) {
       if (m >= mr) break;
       __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
       if (m < mt && i < n_rows) {
-        const __nv_bfloat16* src = x + (size_t)(m0 + m) * K;
-        if (nw == nullptr) {
-          v.x = src[ka];
-          v.y = src[kb];
+        if constexpr (MODE == SWIGLU) {
+          const float* a = p.ab + (size_t)(m0 + m) * 2 * K;
+          const float* b = a + K;
+          const float aa = a[ka], ab = a[kb];
+          v = __floats2bfloat162_rn(aa / (1.f + expf(-aa)) * b[ka],
+                                    ab / (1.f + expf(-ab)) * b[kb]);
         } else {
-          v.x = __float2bfloat16(bf(src[ka]) * rstd[m] * bf(nw[ka]));
-          v.y = __float2bfloat16(bf(src[kb]) * rstd[m] * bf(nw[kb]));
+          const __nv_bfloat16* src = p.x + (size_t)(m0 + m) * K;
+          if (p.nw == nullptr) {
+            v.x = src[ka];
+            v.y = src[kb];
+          } else {
+            v.x = __float2bfloat16(bf(src[ka]) * rstd[m] * bf(p.nw[ka]));
+            v.y = __float2bfloat16(bf(src[kb]) * rstd[m] * bf(p.nw[kb]));
+          }
         }
       }
       xs[m * xw + i] = *reinterpret_cast<const unsigned*>(&v);
@@ -243,43 +320,55 @@ gemv_splitk_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
   // 3. grouped: the slice's scale tiles. Entry (gi, c) of the low tile is
   // the scale of the byte's low level in tile column c times 16^-q, q the
   // place of that nibble in the unpack below (2 (c % 2)); the high tile
-  // likewise (q = 2 (c % 2) + 1). Local group of byte row r: I4
+  // likewise (q = 2 (c % 2) + 1). Local group of (pair) row r: I4
   // 2r / gs - g0, K4 r / gs - g0 in both halves (the high half's groups
-  // start at G/2).
+  // start at G/2), C4 (16 (r / 8)) / gs - g0 for all four rows of a lane's
+  // step (the host takes groups of whole steps), its high tile from the
+  // high nibbles' columns N/2 + c.
   int g0 = 0, gs = 1;
-  const int ng = GROUPED ? slice_groups(LAYOUT, K, G, span) : 0;
+  const int ng = GROUPED ? slice_groups(LAYOUT, K, G, p.span) : 0;
   if (GROUPED) {
     gs = K / G;
-    g0 = (LAYOUT == I4 ? 2 * r0 : r0) / gs;
-    const int hi0 = LAYOUT == I4 ? g0 : G / 2 + g0;
-    const int top = LAYOUT == I4 ? G : G / 2;
+    g0 = (LAYOUT == K4 ? r0 : 2 * r0) / gs;
+    const int hi0 = LAYOUT == K4 ? G / 2 + g0 : g0;
+    const int top = LAYOUT == K4 ? G / 2 : G;
     for (int e = tid; e < ng * TN; e += THREADS) {
       const int gi = e / TN, c = e % TN;
-      const bool in = col0 + c < N && g0 + gi < top;
-      const float lo = in ? scale[(size_t)(g0 + gi) * N + col0 + c] : 0.f;
-      const float hi = in ? scale[(size_t)(hi0 + gi) * N + col0 + c] : 0.f;
+      const bool gin = g0 + gi < top;
+      float lo, hi;
+      if (LAYOUT == C4) {
+        lo = gin && col0 + c < nh ? scale[(size_t)(g0 + gi) * N + col0 + c] : 0.f;
+        hi = gin && col0 + c < N - nh ? scale[(size_t)(g0 + gi) * N + nh + col0 + c] : 0.f;
+      } else {
+        const bool in = gin && wc0 + c < wn;
+        lo = in ? scale[(size_t)(g0 + gi) * wn + wc0 + c] : 0.f;
+        hi = in ? scale[(size_t)(hi0 + gi) * wn + wc0 + c] : 0.f;
+      }
       st[e] = c % 2 ? lo * (1.f / 256.f) : lo;
       st[ng * TN + e] = c % 2 ? hi * (1.f / 4096.f) : hi * (1.f / 16.f);
     }
   }
   __syncthreads();
 
-  // 4. the slice on the tensor cores, R steps at a time, the next R in
+  // 4. the slice on the tensor cores, RB steps at a time, the next RB in
   // flight. MMA j takes tile columns 8 n + j (n = 0..7, the B fragment's
   // column); its logical k pairs are (low levels of rows t, t + 4) and
-  // (high levels of rows t, t + 4), and the A fragment pairs x alike.
-  float acc[8][4];
+  // (high levels of rows t, t + 4) (WIDE: rows t, t + 4 and rows t + 8,
+  // t + 12), and the A fragment pairs x alike.
+  float acc[NA][8][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int a = 0; a < NA; ++a)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
-  const int batches = (my_steps + R - 1) / R;
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[a][j][q] = 0.f;
+  const int batches = (my_steps + RB - 1) / RB;
   for (int b = 0; b < batches; ++b) {
     if (b + 1 < batches) load(nxt, b + 1);
 #pragma unroll
-    for (int u = 0; u < R; ++u) {
-      if (b * R + u >= my_steps) break;
-      const int i = STEP * (warp + NWARPS * (b * R + u));
+    for (int u = 0; u < RB; ++u) {
+      if (b * RB + u >= my_steps) break;
+      const int i = STEP * (warp + NWARPS * (b * RB + u));
       unsigned a[4];
       {
         const unsigned p0 = xs[gq * xw + i + t], p4 = xs[gq * xw + i + t + 4];
@@ -296,84 +385,135 @@ gemv_splitk_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
       float4 sla[2], sha[2], slb[2], shb[2];    // this lane's 8 columns' scales
       if (GROUPED) {
         const int rt = r0 + i + t;
-        const int ga = min((LAYOUT == I4 ? 2 * rt : rt) / gs - g0, ng - 1);
-        const int gb = min((LAYOUT == I4 ? 2 * (rt + 4) : rt + 4) / gs - g0, ng - 1);
-        const float4* s4 = reinterpret_cast<const float4*>(st);
         const int c4 = 2 * gq;                   // float4 index of column 8 gq
+        const float4* s4 = reinterpret_cast<const float4*>(st);
+        if (LAYOUT == C4) {
+          const int gc = min((2 * (r0 + i)) / gs - g0, ng - 1);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          sla[h] = s4[(ga * TN) / 4 + c4 + h];
-          slb[h] = s4[(gb * TN) / 4 + c4 + h];
-          sha[h] = s4[((ng + ga) * TN) / 4 + c4 + h];
-          shb[h] = s4[((ng + gb) * TN) / 4 + c4 + h];
+          for (int h = 0; h < 2; ++h) {
+            sla[h] = slb[h] = s4[(gc * TN) / 4 + c4 + h];
+            sha[h] = shb[h] = s4[((ng + gc) * TN) / 4 + c4 + h];
+          }
+        } else {
+          const int ga = min((LAYOUT == I4 ? 2 * rt : rt) / gs - g0, ng - 1);
+          const int gb = min((LAYOUT == I4 ? 2 * (rt + 4) : rt + 4) / gs - g0, ng - 1);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            sla[h] = s4[(ga * TN) / 4 + c4 + h];
+            slb[h] = s4[(gb * TN) / 4 + c4 + h];
+            sha[h] = s4[((ng + ga) * TN) / 4 + c4 + h];
+            shb[h] = s4[((ng + gb) * TN) / 4 + c4 + h];
+          }
         }
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {              // word h: columns 4h..4h+3
-        const unsigned wa = (h ? cur[u][0].y : cur[u][0].x) ^ OFFSET;
-        const unsigned wb = (h ? cur[u][1].y : cur[u][1].x) ^ OFFSET;
+        if constexpr (LAYOUT == INT8) {
+          unsigned q[4];
 #pragma unroll
-        for (int pr = 0; pr < 2; ++pr) {         // columns 4h + 2pr, + 1
-          // bytes: row t's two columns, then row t + 4's
-          const unsigned q = __byte_perm(wa, wb, pr ? 0x7632 : 0x5410);
+          for (int l = 0; l < 4; ++l) q[l] = (h ? cur[u][l].y : cur[u][l].x) ^ 0x80808080u;
 #pragma unroll
-          for (int cc = 0; cc < 2; ++cc) {
-            const int j = 4 * h + 2 * pr + cc;
-            unsigned b0, b1;
-            if (GROUPED) {
+          for (int jc = 0; jc < 4; ++jc)
+            mma(acc[0][4 * h + jc], a, pack_bf2(level8(q[0], jc), level8(q[1], jc)),
+                pack_bf2(level8(q[2], jc), level8(q[3], jc)));
+        } else {
+          const unsigned wa = (h ? cur[u][0].y : cur[u][0].x) ^ OFFSET;
+          const unsigned wb = (h ? cur[u][1].y : cur[u][1].x) ^ OFFSET;
+          unsigned wc = 0u, wd = 0u;
+          if constexpr (LAYOUT == C4) {
+            wc = (h ? cur[u][2].y : cur[u][2].x) ^ OFFSET;
+            wd = (h ? cur[u][3].y : cur[u][3].x) ^ OFFSET;
+          }
+#pragma unroll
+          for (int pr = 0; pr < 2; ++pr) {       // columns 4h + 2pr, + 1
+            // bytes: row t's two columns, then row t + 4's (C4: qb rows
+            // t + 8 and t + 12)
+            const unsigned q = __byte_perm(wa, wb, pr ? 0x7632 : 0x5410);
+            const unsigned qb = __byte_perm(wc, wd, pr ? 0x7632 : 0x5410);
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc) {
+              const int j = 4 * h + 2 * pr + cc;
               const int jc = 2 * pr + cc;        // column within word h
-              const float la = jc == 0 ? sla[h].x : jc == 1 ? sla[h].y : jc == 2 ? sla[h].z : sla[h].w;
-              const float lb = jc == 0 ? slb[h].x : jc == 1 ? slb[h].y : jc == 2 ? slb[h].z : slb[h].w;
-              const float ha = jc == 0 ? sha[h].x : jc == 1 ? sha[h].y : jc == 2 ? sha[h].z : sha[h].w;
-              const float hb = jc == 0 ? shb[h].x : jc == 1 ? shb[h].y : jc == 2 ? shb[h].z : shb[h].w;
-              const unsigned q16 = q >> 16;
-              b0 = pack_bf2(level(q, 2 * cc) * la, level(q16, 2 * cc) * lb);
-              b1 = pack_bf2(level(q, 2 * cc + 1) * ha, level(q16, 2 * cc + 1) * hb);
-            } else {
-              b0 = levels2(q >> (8 * cc));
-              b1 = levels2(q >> (8 * cc + 4));
+              if constexpr (LAYOUT == C4) {
+                if constexpr (GROUPED) {
+                  const float sl = lane_of(sla[h], jc), sh = lane_of(sha[h], jc);
+                  mma(acc[0][j], a,
+                      pack_bf2(level(q, 2 * cc) * sl, level(q >> 16, 2 * cc) * sl),
+                      pack_bf2(level(qb, 2 * cc) * sl, level(qb >> 16, 2 * cc) * sl));
+                  mma(acc[1][j], a,
+                      pack_bf2(level(q, 2 * cc + 1) * sh, level(q >> 16, 2 * cc + 1) * sh),
+                      pack_bf2(level(qb, 2 * cc + 1) * sh, level(qb >> 16, 2 * cc + 1) * sh));
+                } else {
+                  mma(acc[0][j], a, levels2(q >> (8 * cc)), levels2(qb >> (8 * cc)));
+                  mma(acc[1][j], a, levels2(q >> (8 * cc + 4)), levels2(qb >> (8 * cc + 4)));
+                }
+              } else {
+                unsigned b0, b1;
+                if constexpr (GROUPED) {
+                  const float la = lane_of(sla[h], jc), lb = lane_of(slb[h], jc);
+                  const float ha = lane_of(sha[h], jc), hb = lane_of(shb[h], jc);
+                  const unsigned q16 = q >> 16;
+                  b0 = pack_bf2(level(q, 2 * cc) * la, level(q16, 2 * cc) * lb);
+                  b1 = pack_bf2(level(q, 2 * cc + 1) * ha, level(q16, 2 * cc + 1) * hb);
+                } else {
+                  b0 = levels2(q >> (8 * cc));
+                  b1 = levels2(q >> (8 * cc + 4));
+                }
+                mma(acc[0][j], a, b0, b1);
+              }
             }
-            mma(acc[j], a, b0, b1);
           }
         }
       }
     }
 #pragma unroll
-    for (int u = 0; u < R; ++u) {
-      cur[u][0] = nxt[u][0];
-      cur[u][1] = nxt[u][1];
-    }
+    for (int u = 0; u < RB; ++u)
+#pragma unroll
+      for (int l = 0; l < LD; ++l) cur[u][l] = nxt[u][l];
   }
 
   // the epilogue's operands (outputs rank, rank + S, ... of the tile),
-  // loaded now so that their latency hides behind the reductions
+  // loaded now so that their latency hides behind the reductions. Entry e:
+  // row e / TO; column e % TO, C4's high nibbles at TN and above
   float ep_scale[EP], ep_res[EP];
+  int ep_col[EP];
 #pragma unroll
   for (int k = 0; k < EP; ++k) {
     const int e = rank + S * (tid + k * THREADS);
-    const int row = m0 + e / TN, c = col0 + e % TN;
-    const bool in = e < mt * TN && c < N;
-    ep_scale[k] = !GROUPED && in ? __ldg(scale + c) : 1.f;
-    ep_res[k] = res != nullptr && in ? bf(res[(size_t)row * N + c]) : 0.f;
+    const int row = m0 + e / TO, jc = e % TO;
+    int col = col0 + jc, scol = wc0 + jc;
+    bool in = e < mt * TO && col < N;
+    if (LAYOUT == C4) {
+      const bool hi = jc >= TN;
+      const int bcol = col0 + jc - (hi ? TN : 0);
+      in = e < mt * TO && bcol < (hi ? N - nh : nh);
+      col = scol = hi ? nh + bcol : bcol;
+    }
+    ep_col[k] = in ? col : -1;
+    ep_scale[k] = !GROUPED && in ? __ldg(scale + scol) : 1.f;
+    ep_res[k] = p.res != nullptr && in ? bf(p.res[(size_t)row * N + col]) : 0.f;
   }
 
   // 5. the block's partial tile: the warps' tiles added in warp order.
-  // acc[j] holds rows gq, gq + 8 and tile columns 16 t + j, 16 t + 8 + j.
+  // acc[a][j] holds rows gq, gq + 8 and tile columns 16 t + j,
+  // 16 t + 8 + j (C4: of the low (a = 0) or high (a = 1) nibbles)
   __syncthreads();                   // the region now holds `red`
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    float* dst = red + (warp * MROWS + gq) * RS + 16 * t + j;
-    dst[0] = acc[j][0];
-    dst[8] = acc[j][1];
-    dst[8 * RS] = acc[j][2];
-    dst[8 * RS + 8] = acc[j][3];
-  }
+  for (int na = 0; na < NA; ++na)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float* dst = red + ((na * NWARPS + warp) * MROWS + gq) * RS + 16 * t + j;
+      dst[0] = acc[na][j][0];
+      dst[8] = acc[na][j][1];
+      dst[8 * RS] = acc[na][j][2];
+      dst[8 * RS + 8] = acc[na][j][3];
+    }
   __syncthreads();
-  for (int e = tid; e < mt * TN; e += THREADS) {
-    const int m = e / TN, c = e % TN;
+  for (int e = tid; e < mt * TO; e += THREADS) {
+    const int m = e / TO, na = (e % TO) / TN, c = e % TN;
     float s = 0.f;
 #pragma unroll
-    for (int q = 0; q < NWARPS; ++q) s += red[(q * MROWS + m) * RS + c];
+    for (int q = 0; q < NWARPS; ++q) s += red[((na * NWARPS + q) * MROWS + m) * RS + c];
     part[e] = s;
   }
 
@@ -383,8 +523,8 @@ gemv_splitk_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
 #pragma unroll
   for (int k = 0; k < EP; ++k) {
     const int e = rank + S * (tid + k * THREADS);
-    const int row = m0 + e / TN, c = col0 + e % TN;
-    if (e >= mt * TN || c >= N) continue;
+    const int row = m0 + e / TO, col = ep_col[k];
+    if (col < 0) continue;
     float pv[MAX_SPLITS];           // every rank's partial read at once
 #pragma unroll
     for (int q = 0; q < MAX_SPLITS; ++q)
@@ -394,39 +534,58 @@ gemv_splitk_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
     for (int q = 0; q < MAX_SPLITS; ++q)
       if (q < S) v += pv[q];
     if (!GROUPED) v *= ep_scale[k];
-    if (res != nullptr) v += ep_res[k];
-    if (out_f32)
-      reinterpret_cast<float*>(out)[(size_t)row * N + c] = v;
+    if (p.res != nullptr) v += ep_res[k];
+    if (p.out_f32)
+      reinterpret_cast<float*>(p.out)[(size_t)row * N + col] = v;
     else
-      reinterpret_cast<__nv_bfloat16*>(out)[(size_t)row * N + c] = __float2bfloat16(v);
+      reinterpret_cast<__nv_bfloat16*>(p.out)[(size_t)row * N + col] = __float2bfloat16(v);
   }
   cluster.sync();                    // no block leaves while others read it
 }
 
-// Host launcher: `splits` K-slices of `span` byte rows each (the last may
-// be shorter, none empty) and `mt` = MROWS activation rows a block; G = 0
-// for per-channel scales. Returns cudaGetLastError() or
-// cudaErrorInvalidValue for a plan or an operand the kernel does not take.
-template <int LAYOUT, bool GROUPED>
-inline int launch(const void* x, const void* w, const void* scale, const void* nw,
-                  const void* res, void* out, int M, int K, int N, int ldw, int G,
-                  float eps, int out_f32, int splits, int mt, int span,
-                  cudaStream_t stream) {
+// True when (splits, span) with `mt` = MROWS rows a block is a launch this
+// kernel takes for a K of `rows` = K / 2 (pair) rows: `splits` K-slices of
+// `span` rows each (the last may be shorter, none empty; WIDE: whole steps
+// of 16 rows).
+inline bool plan_ok(int layout, int K, int splits, int mt, int span) {
   const int rows = K / 2;
-  const bool plan_ok = splits >= 1 && splits <= MAX_SPLITS && span >= 1 && mt == MROWS &&
-                       (long long)splits * span >= rows &&
-                       (long long)(splits - 1) * span < rows;
-  const bool ok = plan_ok && K % 2 == 0 && ldw % TN == 0 && ldw >= N &&
-                  reinterpret_cast<uintptr_t>(w) % 16 == 0 && GROUPED == (G > 0) &&
-                  (!GROUPED || (K % G == 0 && (LAYOUT == I4 ? (K / G) % 2 == 0
-                                                            : G % 2 == 0)));
+  return splits >= 1 && splits <= MAX_SPLITS && span >= 1 && mt == MROWS &&
+         (long long)splits * span >= rows && (long long)(splits - 1) * span < rows &&
+         (!wide(layout) || (K % 16 == 0 && span % STEP == 0));
+}
+
+// Host launcher of `a` with `splits` K-slices (the cluster) of `a.span`
+// (pair) rows and `mt` = MROWS activation rows a block. Returns
+// cudaGetLastError() or cudaErrorInvalidValue for a plan or an operand the
+// kernel does not take.
+template <int LAYOUT, bool GROUPED, int MODE>
+inline int launch_args(const Args& a, int splits, int mt, cudaStream_t stream) {
+  const int width = LAYOUT == C4 ? a.N - a.N / 2 : a.N;   // byte columns in use
+  const bool two = MODE == UP;
+  const bool cols_ok = LAYOUT == C4
+      ? !two && a.ldw >= width
+      : (two ? a.n1 % TN == 0 && a.n1 > 0 && a.n1 < a.N && a.ldw >= a.n1 &&
+                   a.ldw >= a.N - a.n1 &&
+                   reinterpret_cast<uintptr_t>(a.w2) % 16 == 0
+             : a.n1 == a.N && a.ldw >= a.N);
+  const int gs = GROUPED ? a.K / a.G : 0;
+  const bool ok = plan_ok(LAYOUT, a.K, splits, mt, a.span) && a.K % 2 == 0 &&
+                  a.ldw % TN == 0 && cols_ok && a.M >= 1 &&
+                  reinterpret_cast<uintptr_t>(a.w) % 16 == 0 && GROUPED == (a.G > 0) &&
+                  two == (a.w2 != nullptr) && (MODE == SWIGLU) == (a.ab != nullptr) &&
+                  (MODE == SWIGLU || a.x != nullptr) &&
+                  (MODE != SWIGLU || a.nw == nullptr) &&
+                  (!GROUPED || (a.K % a.G == 0 &&
+                                (LAYOUT == I4 ? gs % 2 == 0
+                                 : LAYOUT == K4 ? a.G % 2 == 0
+                                                : gs % 16 == 0)));
   if (!ok) return (int)cudaErrorInvalidValue;
-  auto kernel = gemv_splitk_kernel<LAYOUT, GROUPED>;
-  const int smem = smem_bytes(LAYOUT, K, G, M, span);
+  auto kernel = gemv_splitk_kernel<LAYOUT, GROUPED, MODE>;
+  const int smem = smem_bytes(LAYOUT, a.K, a.G, a.M, a.span);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + TN - 1) / TN, splits, (M + MROWS - 1) / MROWS);
+  cfg.gridDim = dim3((width + TN - 1) / TN, splits, (a.M + MROWS - 1) / MROWS);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -437,13 +596,28 @@ inline int launch(const void* x, const void* w, const void* scale, const void* n
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(x),
-                         static_cast<const int8_t*>(w), static_cast<const float*>(scale),
-                         static_cast<const __nv_bfloat16*>(nw),
-                         static_cast<const __nv_bfloat16*>(res), out, M, K, N, ldw, G,
-                         eps, out_f32, span);
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// The GEMV of rows 1, 5 and 6: one weight, x with an optional norm.
+template <int LAYOUT, bool GROUPED>
+inline int launch(const void* x, const void* w, const void* scale, const void* nw,
+                  const void* res, void* out, int M, int K, int N, int ldw, int G,
+                  float eps, int out_f32, int splits, int mt, int span,
+                  cudaStream_t stream) {
+  static_assert(LAYOUT == I4 || LAYOUT == K4, "row-packed int4 layouts only");
+  Args a = {};
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = static_cast<const int8_t*>(w);
+  a.scale = static_cast<const float*>(scale);
+  a.nw = static_cast<const __nv_bfloat16*>(nw);
+  a.res = static_cast<const __nv_bfloat16*>(res);
+  a.out = out;
+  a.M = M, a.K = K, a.N = N, a.n1 = N, a.ldw = ldw, a.G = G, a.out_f32 = out_f32;
+  a.span = span, a.eps = eps;
+  return launch_args<LAYOUT, GROUPED, GEMV>(a, splits, mt, stream);
 }
 
 }  // namespace splitk

@@ -1,9 +1,9 @@
 // Tensor-core tile kernel of the int4 GEMVs above the decode rows, for
 // sm_90a. Included by gemv_int4c.cu and gemv_int4cg.cu (the column-packed
 // layout, C4, per column and grouped), gemv_int4i.cu (the row-interleaved
-// layout, I4, per column and grouped) and gemv_int4g.cu (the K-split
-// layout, K4, grouped). A layout enters only through the W stage's box,
-// `unpack` and the epilogue's column map.
+// layout, I4, per column and grouped), gemv_int4g.cu and gemv_int4.cu (the
+// K-split layout, K4, grouped and per column). A layout enters only through
+// the W stage's box, `unpack` and the epilogue's column map.
 //
 //   out (M, N) = [rmsnorm(x)] (M, K) @ unpack(W) (K, N) [* scale] [+ res]
 //

@@ -38,19 +38,18 @@ _L = ctypes.c_longlong
 # x, w, scale, norm_w, residual, out, M, K, N, ldw, G, eps, out_f32, stream
 # (G scale groups, 0 = per-channel)
 _GEMV = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]
-# the same with the host's plan before the stream: splits (0 = the tiled
-# instance), mt, span (`quant.gemv_plan`); for the column-packed forms
-# splits (0 = the tiled instance), span (`quant.tc_plan`); rows 1 and 6
-# take either plan (mt 16: the split-K kernel, mt = the tile kernel's BN:
-# `quant.tc_plan`) and the tile kernel's scratch for x (or NULL)
-_GEMV_PLAN = _GEMV[:-1] + [_I, _I, _I, _P]
+# the same with the host's plan before the stream: for the column-packed
+# forms splits (0 = the tiled instance), span (`quant.tc_plan`); rows 1, 5
+# and 6 splits (0 = the tiled instance), mt, span (mt 16: the split-K
+# kernel, `quant.gemv_plan`; mt = the tile kernel's BN: `quant.tc_plan`)
+# and the tile kernel's scratch for x (or NULL)
 _GEMV_TC = _GEMV[:-1] + [_I, _I, _P]
 _GEMV_ROWS = _GEMV[:-1] + [_I, _I, _I, _P, _P]
 _SIGNATURES = {
     "ua2_gemv_int4i": _GEMV_ROWS,
     "ua2_gemv_int4i_tiled": _GEMV,
     "ua2_gemv_int8": _GEMV,
-    "ua2_gemv_int4": _GEMV_PLAN,
+    "ua2_gemv_int4": _GEMV_ROWS,
     "ua2_gemv_int4_tiled": _GEMV,
     "ua2_gemv_int4g": _GEMV_ROWS,
     "ua2_gemv_int4g_tiled": _GEMV,
@@ -65,10 +64,14 @@ _SIGNATURES = {
     # head_size, layout, G, eps, stream
     "ua2_qkv_rope": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _F, _P],
+    # x, w1, s1, w2, s2, w3, s3, norm_w, residual, ab, out, M, K, I, N,
+    # ldw3, layout12, G12, layout3, G3, eps, splits1, span1, splits3, span3,
+    # stream (`fused_mlp.swiglu_plan`)
+    "ua2_fused_swiglu": [_P] * 11 + [_I] * 9 + [_F] + [_I] * 4 + [_P],
     # x, w1, s1, w2, s2, w3, s3, norm_w, residual, h, out, M, K, I, N,
-    # ldw3, layout12, G12, layout3, G3, eps, stream
-    "ua2_fused_swiglu": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # ldw3, layout12, G12, layout3, G3, eps, stream: the two tiled passes
+    "ua2_fused_swiglu_tiled": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, o, B, H, G, T, hd, scale, causal, bq (query rows a block,
     # `flash_attention.flash_plan`), stream
     "ua2_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],

@@ -21,7 +21,7 @@ Six kernels of the JAX package live here, as CUDA C++ for ``sm_90a``
   `tc_plan`);
 * `int8_matmul` replaces `_pallas_int8_matmul` (per-channel int8);
 * `int4_matmul` replaces `_pallas_int4_matmul` (K-split int4; at decode
-  the split-K cluster kernel too);
+  the split-K cluster kernel, above 16 rows the tile kernel too);
 * `int4g_matmul` replaces `_pallas_int4g_matmul` (K-split, grouped; at
   decode the split-K cluster kernel, above 16 rows the tile kernel too);
 * `int4c_matmul` replaces `_pallas_int4c_matmul` (column-packed int4;
@@ -482,14 +482,15 @@ def check_weight(name, layout, values, scale, k, device) -> Tuple[int, int]:
     return n, g
 
 
-# The split-K int4 GEMV (csrc/gemv_int4_splitk.cuh) of rows 1, 5 and 6 at
-# decode: up to SPLITK_MAX_M activation rows (one tile of the tensor cores'
-# 16 rows), at most SPLITK_MAX_SPLITS K-slices a cluster, GEMV_TILE_N
-# columns a block; SPLITK_BLOCKS_PER_SM blocks an SM is the grid it aims
-# at (`gemv_plan`).
+# The split-K GEMV (csrc/gemv_int4_splitk.cuh) of rows 1, 5 and 6 and of the
+# fused SwiGLU's two passes at decode: up to SPLITK_MAX_M activation rows
+# (one tile of the tensor cores' 16 rows), at most SPLITK_MAX_SPLITS
+# K-slices a cluster, GEMV_TILE_N byte columns a block; SPLITK_BLOCKS_PER_SM
+# blocks an SM is the grid it aims at (`gemv_plan`).
 SPLITK_MAX_M = 16
 SPLITK_MAX_SPLITS = 8
 SPLITK_BLOCKS_PER_SM = 2.25
+SPLITK_STEP = 8      # pairs of rows a warp step of the int8 / C4 layouts
 
 
 class GemvPlan(NamedTuple):
@@ -511,22 +512,31 @@ class GemvPlan(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def gemv_plan(m: int, k: int, n: int, g: int, layout: int,
               sms: int) -> GemvPlan:
-    """The launch of an int4 GEMV of row-packed layout ``layout``
-    (`LAYOUT_I4` or `LAYOUT_K4`) with ``g`` scale groups (0: per channel)
-    on a card of ``sms`` SMs: a function of the shape and the SM count
-    only. Up to `SPLITK_MAX_M` rows: the split-K kernel, all rows in one
-    block (the MMA's 16), and the number of K-slices, up to
-    `SPLITK_MAX_SPLITS`, whose grid comes nearest (in ratio)
-    `SPLITK_BLOCKS_PER_SM` blocks an SM, the fewer slices on a tie. Every
-    slice but the last holds the same whole number of units and none is
-    empty; a unit is a byte row, or a scale group when grouped: K/G / 2
-    byte rows in the interleaved layout (both nibbles of a byte share a
-    group), K/G in the K-split one (the low and high halves each hold G/2
-    groups). Above `SPLITK_MAX_M` rows: the tiled kernel."""
+    """The launch of a split-K GEMV of layout ``layout`` with ``g`` scale
+    groups (0: per channel) on a card of ``sms`` SMs: a function of the
+    shape and the SM count only. The row-packed int4 layouts
+    (`LAYOUT_I4`, `LAYOUT_K4`: rows 1, 5 and 6, the fused SwiGLU's gate /
+    up and interleaved down-projection) and the fused SwiGLU's int8
+    (`LAYOUT_INT8`) and column-packed (`LAYOUT_C4`, byte column c holds
+    output columns c and N/2 + c) ones; the fused SwiGLU's pass 1 asks
+    with ``n`` = 2 I, its two weights' column tiles. Up to `SPLITK_MAX_M`
+    rows: the split-K kernel, all rows in one block (the MMA's 16), and
+    the number of K-slices, up to `SPLITK_MAX_SPLITS`, whose grid comes
+    nearest (in ratio) `SPLITK_BLOCKS_PER_SM` blocks an SM, the fewer
+    slices on a tie. The kernel's rows are K/2 byte rows (row-packed) or
+    K/2 pairs of rows (int8, column-packed: row 16 s + j with 16 s + j + 8,
+    a step of 16 rows). Every slice but the last holds the same whole
+    number of units and none is empty; a unit is a byte row, or a scale
+    group when grouped: K/G / 2 byte rows in the interleaved layout (both
+    nibbles of a byte share a group), K/G in the K-split one (the low and
+    high halves each hold G/2 groups); for int8 and column-packed a step of
+    8 pairs, or grouped the lcm of a step and K/G / 2 pairs. Above
+    `SPLITK_MAX_M` rows: the tiled kernel."""
     if m > SPLITK_MAX_M:
         return GemvPlan(0, 4, GEMV_TILE_N, k // 2)
     mt = SPLITK_MAX_M
-    tiles = -(-n // GEMV_TILE_N) * -(-m // mt)
+    width = n - n // 2 if layout == LAYOUT_C4 else n
+    tiles = -(-width // GEMV_TILE_N) * -(-m // mt)
     want = SPLITK_BLOCKS_PER_SM * sms
     s, span = min(splitk_slices(k, g, layout),
                   key=lambda c: (abs(math.log(tiles * c[0] / want)), c[0]))
@@ -534,11 +544,14 @@ def gemv_plan(m: int, k: int, n: int, g: int, layout: int,
 
 
 def splitk_slices(k: int, g: int, layout: int):
-    """Every legal (K-slices, byte rows a slice) of the split-K kernel for
+    """Every legal (K-slices, rows a slice) of the split-K kernel for
     contraction width ``k`` with ``g`` scale groups (`gemv_plan`'s units):
     up to `SPLITK_MAX_SPLITS` slices, none empty."""
     rows = k // 2
-    unit = 1 if not g else (k // g) // 2 if layout == LAYOUT_I4 else k // g
+    if layout in (LAYOUT_INT8, LAYOUT_C4):
+        unit = math.lcm(SPLITK_STEP, max((k // g) // 2, 1)) if g else SPLITK_STEP
+    else:
+        unit = 1 if not g else (k // g) // 2 if layout == LAYOUT_I4 else k // g
     units = rows // unit
     out = []
     for s in range(1, min(SPLITK_MAX_SPLITS, units) + 1):
@@ -710,7 +723,7 @@ def _launch_gemv(fn_name, layout, x, values, scale, out_dtype, pre_norm,
                              f"aligned")
         plan = (p.splits, p.span) if planner == "tc" else (
             p.splits, tc_layout().bn, p.span)
-    elif planner in ("splitk", "rows"):
+    elif planner == "rows":
         if values.data_ptr() % 16:
             raise ValueError(f"{fn_name}: values must be 16-byte aligned")
         p = gemv_plan(m, k, n, g, layout, _sm_count(dev))
@@ -737,9 +750,9 @@ def _gemv(wrapper, c_name, cls, x, values, scale, out_dtype, pre_norm=None,
           residual=None, form=None, planner=None):
     """The body of every GEMV wrapper: validate ``values`` / ``scale`` as a
     container of type ``cls``, then the plain twin for a CPU tensor, else
-    one launch of the C entry point ``c_name`` (given `gemv_plan`'s plan
-    when ``planner`` is "splitk", `tc_plan`'s when it is "tc", the first
-    up to `SPLITK_MAX_M` rows and the second above when it is "rows"),
+    one launch of the C entry point ``c_name`` (given `tc_plan`'s plan
+    when ``planner`` is "tc", `gemv_plan`'s up to `SPLITK_MAX_M` rows and
+    `tc_plan`'s above when it is "rows"),
     counted on ``wrapper`` and, when the plan named the tile kernel, on
     `gemv_tc` under the wrapper's form."""
     name = wrapper.__name__
@@ -805,11 +818,13 @@ def int4_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
     """x (M, K) bf16 @ K-split int4 (K/2, N_pad) * scale (N,) [+ residual]
     -> (M, N), optional RMSNorm prologue: byte [r, n] holds row r (low
     nibble) and row r + K/2 (high). CUDA kernel ``ua2_gemv_int4`` (replaces
-    `_pallas_int4_matmul`, uniaudio2_tpu/ops/quant.py:597): the split-K or
-    the tiled kernel as `gemv_plan` says, one launch; the plain twin for
-    CPU tensors."""
+    `_pallas_int4_matmul`, uniaudio2_tpu/ops/quant.py:597): the split-K
+    kernel up to `SPLITK_MAX_M` rows, the tensor-core tile kernel above
+    them (after its row kernel, which reorders x and folds the norm; the
+    scale and the residual in its epilogue), or the tiled kernel where
+    `tc_plan` says; the plain twin for CPU tensors."""
     return _gemv(int4_matmul, "ua2_gemv_int4", QuantizedLinear4, x, values,
-                 scale, out_dtype, pre_norm, residual, planner="splitk")
+                 scale, out_dtype, pre_norm, residual, planner="rows")
 
 
 def int4_matmul_tiled(x, values, scale, *, out_dtype=None, pre_norm=None,

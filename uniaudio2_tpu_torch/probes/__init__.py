@@ -7,8 +7,11 @@ shape and the DiT's kernel, against the production einsum path and SDPA),
 `sweep_gemv_blocks` (row 5's K-split GEMV in twelve tile forms, at M = 1,
 8 and 16); and, with no TPU counterpart, `gemv_splitk_sweep` (rows 1 and
 6's split-K GEMV at every legal number of K-slices, against the host's
-plan) and `tc_splits_sweep` (the tensor-core tile kernel of rows 1, 6, 7
-and 8 likewise). Each prints the card's name and power limit beside its numbers."""
+plan), `tc_splits_sweep` (the tensor-core tile kernel of rows 1, 6, 7
+and 8 likewise), `swiglu_splits_sweep` (row 2's two split-K passes likewise)
+and `splitk_ab` (rows 1, 5 and 6's split-K GEMVs through this checkout's
+kernel library and another checkout's, in one process). Each prints the
+card's name and power limit beside its numbers."""
 
 import statistics
 import subprocess

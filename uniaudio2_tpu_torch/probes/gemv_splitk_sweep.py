@@ -56,7 +56,7 @@ def launch(form, w, x, splits, span, residual=None, out_dtype=None):
         _cuda.ptr(x), _cuda.ptr(w.values), _cuda.ptr(w.scale), None,
         _cuda.ptr(residual), _cuda.ptr(out), m, k, n, w.values.shape[1], g,
         1e-5, int(out.dtype == torch.float32), splits, quant.SPLITK_MAX_M,
-        span, *([] if form == "int4" else [None]), _cuda.stream_of(x))
+        span, None, _cuda.stream_of(x))
     _cuda.check(err, name)
     return out
 
