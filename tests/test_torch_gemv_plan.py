@@ -33,6 +33,14 @@ column-packed layouts (rows in pairs, steps of 16 rows). Its plan
 of its sums (pass-1 split sums in f32, the scales, h = bf16(silu(a) * b),
 pass-2 split sums, the residual) is held to JAX's `fused_swiglu` in
 interpret mode and to the twin.
+
+The fused QKV step (row 3, `csrc/qkv_rope.cu`) runs it at decode in a QKV
+mode: the GEMV's plan over N = (H + 2G) hd columns, tiles of two 32-column
+runs hd/2 apart, so that each RoPE pair meets in one cluster. The column
+map and the pair epilogue are checked in pure Python at the model's widths
+(every output written once, each pair in one tile and one thread), and an
+emulation of its sums (split sums, the scale, the rotation by pair, one
+cast) is held to JAX's `qkv_rope_step` in interpret mode and to the twin.
 """
 
 import jax
@@ -43,11 +51,12 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from uniaudio2_tpu.ops import fused_mlp as jfused
+from uniaudio2_tpu.ops import qkv_step as jqkv
 from uniaudio2_tpu.ops import quant as jq
 
-from uniaudio2_tpu_torch.ops import _cuda, fused_mlp, quant
+from uniaudio2_tpu_torch.ops import _cuda, fused_mlp, qkv_step, quant
 from uniaudio2_tpu_torch.ops.norms import rms_norm
-from uniaudio2_tpu_torch.probes import gemv_splitk_sweep, splitk_ab
+from uniaudio2_tpu_torch.probes import gemv_splitk_sweep, qkv_splits_sweep, splitk_ab
 
 SMS = 132                                  # an H100 SXM
 I4, K4 = quant.LAYOUT_I4, quant.LAYOUT_K4
@@ -424,3 +433,164 @@ def test_swiglu_split_sums_match_jax_and_the_twin(form, folds):
     twin = fused_mlp.fused_swiglu_plain(x, w1, w2, w3, **kw)
     tol = 2e-2 * twin.float().abs().max().item()
     assert (emu.to(torch.bfloat16).float() - twin.float()).abs().max().item() <= tol
+
+
+# The fused QKV step (row 3, `csrc/qkv_rope.cu`) at decode: the split-K
+# kernel's QKV mode over W (N = (H + 2G) hd: q's heads, k's, v's). A tile's
+# 64 byte columns are columns hd h + 32 p + [0, 32) and the same plus hd/2
+# (tile x: head h = x / (hd / 64), p = x % (hd / 64)), so tile columns c and
+# c + 32 are a RoPE pair; rank r of the cluster finishes pairs r, r + S, ...
+# (pair i: row i / 32, tile column i % 32) with its 128 threads, EPQ = 4
+# pairs a thread. The two helpers below mirror the kernel's index
+# arithmetic.
+QKV_WIDTHS = {"backbone": (3072, 24, 8, 128), "decoder": (2048, 32, 8, 64)}
+QKV_FORMS = {"int4i": I4, "int4ig": I4, "int4": K4, "int4g": K4, "int8": INT8}
+
+
+def _qkv_tile_columns(tile, hd):
+    """W's column of each of tile ``tile``'s 64 columns (the kernel's
+    `wcol`)."""
+    head, p = divmod(tile, hd // 64)
+    qa = hd * head + 32 * p
+    return [qa + c + (hd // 2 - 32 if c >= 32 else 0) for c in range(64)]
+
+
+def _qkv_stores(n_head, n_groups, hd, rows, splits, threads=128):
+    """Every store of the kernel's QKV epilogue: (stream, row, column of the
+    stream, tile, tile column, rank, thread)."""
+    stores = []
+    for tile in range((n_head + 2 * n_groups) * hd // 64):
+        head, j0 = tile // (hd // 64), 32 * (tile % (hd // 64))
+        if head < n_head:
+            stream, dcol = "q", head * hd
+        elif head < n_head + n_groups:
+            stream, dcol = "k", (head - n_head) * hd
+        else:
+            stream, dcol = "v", (head - n_head - n_groups) * hd
+        for rank in range(splits):
+            for tid in range(threads):
+                for k in range(16 * 32 // threads):
+                    i = rank + splits * (tid + k * threads)
+                    if i >= rows * 32:
+                        continue
+                    m, c = divmod(i, 32)
+                    for h in (0, 1):
+                        stores.append((stream, m, dcol + j0 + c + h * hd // 2,
+                                       tile, c + 32 * h, rank, tid))
+    return stores
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 16])
+@pytest.mark.parametrize("width", list(QKV_WIDTHS))
+@pytest.mark.parametrize("form", list(QKV_FORMS))
+def test_qkv_plan_at_the_decode_shapes(form, width, m):
+    """The QKV mode's plan (`gemv_plan` capped at `QKV_MAX_SPLITS`) at the
+    model's widths: legal, one of the slice counts
+    `probes/qkv_splits_sweep.py` times at that case, and the card filled
+    (80 or 48 column tiles x 4 slices: 320 and 192 blocks on 132 SMs)."""
+    k, h, g, hd = QKV_WIDTHS[width]
+    n, layout = (h + 2 * g) * hd, QKV_FORMS[form]
+    groups = k // quant.INT4_GROUP if form.endswith("g") else 0
+    plan = quant.gemv_plan(m, k, n, groups, layout, SMS,
+                           qkv_step.QKV_MAX_SPLITS)
+    _legal(plan, m, k, n, groups, layout)
+    assert plan.splits == qkv_step.QKV_MAX_SPLITS == 4
+    assert (plan.splits, plan.span) in quant.splitk_slices(k, groups, layout)
+    assert form in qkv_splits_sweep.FORMS and m in qkv_splits_sweep.ROWS
+    assert (width, k, h, g, hd) in qkv_splits_sweep.WIDTHS
+    assert plan.blocks(m, n) >= SMS
+
+
+@pytest.mark.parametrize("rows,splits", [(1, 4), (2, 6), (16, 1), (16, 8)])
+@pytest.mark.parametrize("width", list(QKV_WIDTHS))
+def test_qkv_tiles_hold_whole_rope_pairs(width, rows, splits):
+    """The QKV mode's column map and pair epilogue at the model's widths:
+    every column of q, k and v is written exactly once for every row, by the
+    tile whose W column it is; the two columns of each RoPE pair (j and
+    j + hd/2 of a head) come from one tile and are written by one thread of
+    one rank, which holds both; every rank of a tile's cluster has work."""
+    _, h, g, hd = QKV_WIDTHS[width]
+    stores = _qkv_stores(h, g, hd, rows, splits)
+    keys = [(s, m, col) for s, m, col, *_ in stores]
+    assert len(keys) == len(set(keys))
+    want = {(s, m, col) for s, heads in (("q", h), ("k", g), ("v", g))
+            for m in range(rows) for col in range(heads * hd)}
+    assert set(keys) == want
+    base = {"q": 0, "k": h * hd, "v": (h + g) * hd}
+    by_pair = {}
+    for s, m, col, tile, c, rank, tid in stores:
+        assert _qkv_tile_columns(tile, hd)[c] == base[s] + col
+        head_col = col % hd
+        pair = (s, m, col - head_col + head_col % (hd // 2))
+        by_pair.setdefault(pair, set()).add((tile, rank, tid))
+    assert all(len(who) == 1 for who in by_pair.values())
+    assert len(by_pair) == len(want) // 2
+    ranks = {(tile, rank) for *_, tile, _, rank, _ in stores}
+    assert len(ranks) == (h + 2 * g) * hd // 64 * min(splits, rows * 32)
+
+
+def _emulate_qkv(x, w, norm_w, cos, sin, n_head, n_groups, hd, plan):
+    """The QKV mode's arithmetic: `_split_sum` of the normalised rows (the
+    twin's bf16 rounding), the per-channel scale, then tile by tile each
+    RoPE pair (tile columns c, c + 32) rotated in f32 as the kernel does
+    (y cos + rot sin, each product rounded, then the sum), v not; one cast
+    to bf16; q, k, v."""
+    y = _split_sum(rms_norm(x, norm_w, 1e-5).float(), w, plan)
+    out = y.clone()
+    for tile in range((n_head + 2 * n_groups) * hd // 64):
+        if tile // (hd // 64) >= n_head + n_groups:
+            continue                                   # v: not rotated
+        cols = _qkv_tile_columns(tile, hd)
+        a, b = torch.tensor(cols[:32]), torch.tensor(cols[32:])
+        ja, jb = a % hd, b % hd
+        out[:, a] = y[:, a] * cos[ja] + (-y[:, b]) * sin[ja]
+        out[:, b] = y[:, b] * cos[jb] + y[:, a] * sin[jb]
+    out = out.to(torch.bfloat16)
+    q_cols, kv_cols = n_head * hd, n_groups * hd
+    return (out[:, :q_cols], out[:, q_cols:q_cols + kv_cols],
+            out[:, q_cols + kv_cols:])
+
+
+@pytest.mark.parametrize("heads,m", [((4, 4, 128), 3), ((8, 8, 64), 16)])
+@pytest.mark.parametrize("form", list(QKV_FORMS))
+def test_qkv_split_sums_match_jax_and_the_twin(form, heads, m):
+    """The emulation of the QKV mode (split sums in rank order, the scale,
+    the rotation by pair, one cast) at K = 256 and N = 1536 (backbone-like
+    hd 128 and decoder-like hd 64 heads, each stream whole chunks of the
+    JAX kernel's 512 columns) against JAX's `qkv_rope_step` (the Pallas
+    kernel in interpret mode, bf16 out) and the port's twin
+    (`qkv_rope_step_plain`, the XLA fallback's rounding: q, k, v rounded
+    to bf16 before the rotation). Against JAX the f32 sums run in another
+    order and the normalised rows may round to the other side (see
+    tests/test_torch_tc_plan.py): within 2^-7 x max|ref|, one bf16 ulp of
+    the range. Against the twin: 2e-2 x max|twin|, the card's bound for
+    the kernel."""
+    h, g, hd = heads
+    k, n, group = 256, (h + 2 * g) * hd, 64
+    rng = np.random.default_rng(len(form) * 7 + m)
+    w = _container(form, torch.from_numpy(
+        (rng.standard_normal((k, n)) * 0.02).astype(np.float32)), group)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        torch.bfloat16)
+    nw = torch.from_numpy((1.0 + 0.1 * rng.standard_normal(k)).astype(
+        np.float32)).to(torch.bfloat16)
+    ang = rng.uniform(0.0, 6.0, hd // 2).astype(np.float32)
+    cos = torch.from_numpy(np.cos(np.concatenate([ang, ang])))
+    sin = torch.from_numpy(np.sin(np.concatenate([ang, ang])))
+    grouped = w.scale.ndim == 2
+    plan = quant.gemv_plan(m, k, n, w.scale.shape[0] if grouped else 0,
+                           QKV_FORMS[form], SMS, qkv_step.QKV_MAX_SPLITS)
+    assert plan.splits > 1                 # a real split at these shapes
+    emu = _emulate_qkv(x, w, nw, cos, sin, h, g, hd, plan)
+
+    with pltpu.force_tpu_interpret_mode():
+        ref = jqkv.qkv_rope_step(_jax(x), _to_jax(w), _jax(nw), 1e-5,
+                                 jnp.asarray(cos.numpy()),
+                                 jnp.asarray(sin.numpy()), h, g, hd)
+    twin = qkv_step.qkv_rope_step_plain(x, w, nw, 1e-5, cos, sin, h, g, hd)
+    for e, r, t in zip(emu, ref, twin):
+        r = np.asarray(r).astype(np.float32)
+        np.testing.assert_allclose(e.float().numpy(), r, rtol=0,
+                                   atol=2.0 ** -7 * np.abs(r).max())
+        tol = 2e-2 * t.float().abs().max().item()
+        assert (e.float() - t.float()).abs().max().item() <= tol

@@ -25,7 +25,14 @@ GQA flash form keeps the flash kernel's 2e-2. Both flash forms are held
 row by row (each query row to 2e-2 x its own max|twin|): a causal row i
 averages i + 1 values and is ~sqrt(1 / i) the size of row 0. The float32
 flash kernel and its twin keep every product in f32 and sum in another
-order: rows within 1e-5 x their max|twin|.
+order: rows within 1e-5 x their max|twin| (the kernel's three TF32
+products keep ~22 bits of each operand); so does the first float32 design
+on the CUDA cores, `flash_attention_f32_simt`.
+Row 3 (the fused QKV step) at decode runs the split-K kernel's QKV mode
+with the host's plan: every form at both model widths and M = 1-17 within
+2e-2 x max|twin|, bit-identical from call to call, one kernel node in a
+captured graph; the first design, `qkv_rope_step_tiled`, within the same
+bound.
 The two int4 probe kernels (rows 11 and 13: the conversion-free unpack
 and the twelve tile forms of the K-split GEMV) add exact f32 products in
 another order than their twins and round once: one bf16 ulp
@@ -242,6 +249,74 @@ def test_qkv_rope_step_every_mode(dev, form, b, h, g_, hd):
         _close(o, r)
 
 
+QKV_WIDTHS = {"backbone": (3072, 24, 8, 128), "decoder": (2048, 32, 8, 64)}
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 16, 17])
+@pytest.mark.parametrize("width", list(QKV_WIDTHS))
+@pytest.mark.parametrize("form", ["int4i", "int4ig", "int4", "int4g", "int8"])
+def test_qkv_rope_step_at_decode(dev, form, width, m):
+    """Row 3 at the model's widths: up to 16 rows the split-K kernel's QKV
+    mode, above them the first design; within 2e-2 x max|twin| on q, k and
+    v, two calls the same bits, one count a call; the first design
+    (`qkv_rope_step_tiled`, counted on its own) held to the twin too."""
+    g = _gen(dev, 30)
+    k, h, g_, hd = QKV_WIDTHS[width]
+    w = _make(g, dev, form, k, (h + 2 * g_) * hd)
+    x = _bf16(g, dev, m, k)
+    nw = (1.0 + 0.1 * torch.randn(k, generator=g, device=dev)).to(torch.bfloat16)
+    ang = torch.rand(hd // 2, generator=g, device=dev) * 6.0
+    cos = torch.cos(torch.cat([ang, ang]))
+    sin = torch.sin(torch.cat([ang, ang]))
+    args = (x, w, nw, 1e-5, cos, sin, h, g_, hd)
+    assert qkv_step.can_fuse(w, x, h, g_, hd)
+    before = qkv_step.qkv_rope_step.forms.get(form, 0)
+    tiled = qkv_step.qkv_rope_step_tiled.forms.get(form, 0)
+    out, again = qkv_step.qkv_rope_step(*args), qkv_step.qkv_rope_step(*args)
+    first = qkv_step.qkv_rope_step_tiled(*args)
+    torch.cuda.synchronize()
+    assert qkv_step.qkv_rope_step.forms[form] == before + 2
+    assert qkv_step.qkv_rope_step_tiled.forms[form] == tiled + 1
+    ref = qkv_step.qkv_rope_step_plain(*args)
+    for o, a, f, r in zip(out, again, first, ref):
+        assert torch.equal(o, a)
+        _close(o, r)
+        _close(f, r)
+
+
+@pytest.mark.parametrize("m", [1, 16])
+def test_qkv_rope_step_is_one_graph_node(dev, m, tmp_path):
+    """At decode one call captured in a CUDA graph is one kernel node, the
+    split-K kernel's QKV instance, and its replay gives the eager bits."""
+    g = _gen(dev, 31)
+    k, h, g_, hd = QKV_WIDTHS["backbone"]
+    w = _make(g, dev, "int4i", k, (h + 2 * g_) * hd)
+    x = _bf16(g, dev, m, k)
+    nw = _bf16(g, dev, k)
+    cos, sin = (torch.rand(hd, generator=g, device=dev) for _ in range(2))
+    args = (x, w, nw, 1e-5, cos, sin, h, g_, hd)
+    ref = qkv_step.qkv_rope_step(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qkv_step.qkv_rope_step(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        out = qkv_step.qkv_rope_step(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, r) for o, r in zip(out, ref))
+    dot = tmp_path / "graph.dot"
+    graph.debug_dump(str(dot))
+    kernels = [line for line in dot.read_text().splitlines()
+               if "kernel" in line and ("gemv_" in line or "qkv_" in line)]
+    assert len(kernels) == 1, kernels
+    assert "18gemv_splitk_kernelILi1ELb0ELi3E" in kernels[0] or \
+        "gemv_splitk_kernel<1, false, 3>" in kernels[0], kernels
+
+
 SWIGLU_FORMS = [(a, b) for a in ("int8", "int4", "int4g")
                 for b in ("int8", "int4c", "int4cg")] \
     + [(a, b) for a in ("int4i", "int4ig") for b in ("int8", "int4i", "int4ig")]
@@ -341,16 +416,17 @@ def test_flash_attention_every_instantiation(dev, hd, causal, b, h, g_, t):
                                                      causal=causal))
 
 
-@pytest.mark.parametrize("t", [1, 15, 64, 65, 130, 186, 374, 750])
+@pytest.mark.parametrize("t", [1, 15, 63, 64, 65, 130, 186, 374, 750])
 @pytest.mark.parametrize("b,h,g_", [(2, 24, 24), (1, 4, 2)])
 @pytest.mark.parametrize("hd", [64, 128])
 def test_flash_attention_f32(dev, hd, b, h, g_, t):
-    """The float32 kernel (`csrc/flash_attn_f32.cu`, non-causal), K/V
-    groups equal to the heads and fewer, at the codec windows' T and
-    around its 64-row query and key tiles: rows within 1e-5 x their
-    max|twin| (both sum f32 products, in another order), one launch a call
-    counted as the form "f32", two launches the same bits. TF32 off for the
-    twin's products."""
+    """The float32 kernel (`csrc/flash_attn_f32.cu`, non-causal, 3xTF32 on
+    the tensor cores), K/V groups equal to the heads and fewer, at the
+    codec windows' T and around its 64-row query and key tiles: rows within
+    1e-5 x their max|twin| (the kernel's products keep ~22 bits of each
+    operand, both sum in f32 in another order), on the card and on the
+    CPU, one launch a call counted as the form "f32", two launches the same
+    bits. TF32 off for the twin's products."""
     g = _gen(dev, 9)
     q = torch.randn((b, h, t, hd), generator=g, device=dev)
     k, v = (torch.randn((b, g_, t, hd), generator=g, device=dev)
@@ -368,6 +444,28 @@ def test_flash_attention_f32(dev, hd, b, h, g_, t):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = flag
     _close_rows(out, ref, rtol=1e-5)
+    cpu = flash_attention.attention_plain(q.cpu(), k.cpu(), v.cpu(), hd ** -0.5)
+    _close_rows(out.cpu(), cpu, rtol=1e-5)
+
+
+@pytest.mark.parametrize("t", [1, 63, 186, 750])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_f32_simt(dev, hd, t):
+    """The first float32 design (f32 FMAs on the CUDA cores), the
+    yardstick: rows within 1e-5 x their max|twin|, counted on its own,
+    never as the wrapper's form "f32"."""
+    g = _gen(dev, 19)
+    q, k, v = (torch.randn((2, 24, t, hd), generator=g, device=dev)
+               for _ in range(3))
+    before = (flash_attention.flash_attention_f32_simt.launches,
+              flash_attention.flash_attention.forms.get("f32", 0))
+    out = flash_attention.flash_attention_f32_simt(q, k, v, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert (flash_attention.flash_attention_f32_simt.launches,
+            flash_attention.flash_attention.forms.get("f32", 0)) == (
+                before[0] + 1, before[1])
+    cpu = flash_attention.attention_plain(q.cpu(), k.cpu(), v.cpu(), hd ** -0.5)
+    _close_rows(out.cpu(), cpu, rtol=1e-5)
 
 
 @pytest.mark.parametrize("b,h,g_,t,hd", [(1, 24, 8, 2048, 128), (1, 24, 8, 1000, 128),

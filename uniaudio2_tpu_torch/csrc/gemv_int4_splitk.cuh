@@ -1,8 +1,9 @@
 // Split-K GEMV for the decode rows, for sm_90a, on the tensor cores: the
 // row-interleaved (I4) and K-split (K4) int4 layouts of rows 1, 5 and 6,
 // and the two passes of the fused SwiGLU (row 2), which add the int8
-// (INT8) and column-packed int4 (C4) layouts. Included by gemv_int4i.cu,
-// gemv_int4g.cu, gemv_int4.cu and fused_swiglu.cu only.
+// (INT8) and column-packed int4 (C4) layouts, and the fused QKV step
+// (row 3). Included by gemv_int4i.cu, gemv_int4g.cu, gemv_int4.cu,
+// fused_swiglu.cu and qkv_rope.cu only.
 //
 //   out (M, N) = [rmsnorm(x)] (M, K) @ unpack(W) (K, N) * scale [+ res]
 //
@@ -65,9 +66,24 @@
 // 2 (SWIGLU) over W3, launched after pass 1 has completed, staging
 // bf16(silu(a) * b) of its slice from those f32 sums where the norm mode
 // stages bf16(norm(x)).
+// The fused QKV step (`ua2_qkv_rope`, row 3) is a fourth instance (QKV):
+// the norm prologue and the products of a GEMV over W (N = (H + 2 G) hd
+// columns, q's heads, then k's, then v's), with another column map and
+// epilogue. RoPE pairs output column j of a head with j + hd/2, so a tile's
+// 64 byte columns are two runs of 32, columns hd h + 32 p + [0, 32) and
+// the same plus hd/2 (tile x: head h = x / (hd / 64), p = x % (hd / 64);
+// at hd 64 the identity, one tile a head): tile column c < 32 and c + 32
+// are a pair, and a lane's 8 columns lie in one run (two 32-byte runs a
+// row, whole sectors). Rank r of the cluster finishes pairs r, r + S, ...
+// of the tile: both columns' partials added over the ranks in rank order,
+// the per-channel scale, then o = y cos + rot sin in f32 (rot = -y[j + hd/2]
+// | y[j - hd/2]; v not rotated), one cast to bf16, and the store into q, k
+// or v by the head's stream.
 #pragma once
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "gemv_common.cuh"
 
@@ -88,8 +104,8 @@ constexpr unsigned OFFSET = 0x88888888u;  // two's complement -> n + 8
 constexpr unsigned MAGIC = 0x4B000000u;   // f32 2^23
 constexpr unsigned MAGIC2 = 0x43004300u;  // bf16x2 (128, 128)
 // Modes of the kernel: a GEMV (rows 1, 5 and 6), the fused SwiGLU's pass 1
-// over W1 | W2, its pass 2 staging h
-constexpr int GEMV = 0, UP = 1, SWIGLU = 2;
+// over W1 | W2, its pass 2 staging h, the fused QKV step
+constexpr int GEMV = 0, UP = 1, SWIGLU = 2, QKV = 3;
 
 // One level a byte row, in steps of 16 rows: INT8 and C4.
 __host__ __device__ constexpr bool wide(int layout) { return layout == INT8 || layout == C4; }
@@ -111,6 +127,23 @@ struct Args {
   int M, K, N, n1, ldw, G, out_f32, span;
   float eps;
 };
+
+// The QKV mode's operands, a type of its own so that the other modes'
+// kernel parameters stay as they were: with these fields added to Args,
+// rows 1, 5 and 6's GEMV instances read up to 1.9x slower at 16 rows on the
+// H100, the same code otherwise (`probes/splitk_ab.py`). `out` is q
+// (M, H hd), `out_k` and `out_v` are k and v (M, G hd), bf16; `cos_r` and
+// `sin_r` the (hd,) f32 rope rows shared by the rows.
+struct QkvArgs : Args {
+  const float* cos_r;
+  const float* sin_r;
+  void* out_k;
+  void* out_v;
+  int n_head, n_groups, hd;
+};
+
+template <int MODE>
+using KernelArgs = std::conditional_t<MODE == QKV, QkvArgs, Args>;
 
 // (a & b) | c in one LOP3, every operand a register.
 __device__ __forceinline__ unsigned and_or(unsigned a, unsigned b, unsigned c) {
@@ -160,6 +193,26 @@ __device__ __forceinline__ float lane_of(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
+// Each of the first R rows' sum of squares into ss[m], in the order
+// k = tid, tid + THREADS, ... (the same in every block); the R rows side by
+// side, so that a step's loads of every row are in flight at once. Rows past
+// the mt live ones read row mt - 1 (their sums are not used).
+template <int R>
+__device__ __forceinline__ void row_squares(const __nv_bfloat16* src, int K, int mt,
+                                            float (&ss)[MROWS]) {
+  const __nv_bfloat16* row[R];
+#pragma unroll
+  for (int m = 0; m < R; ++m) row[m] = src + (size_t)min(m, mt - 1) * K;
+#pragma unroll 4
+  for (int k = threadIdx.x; k < K; k += THREADS) {
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const float v = bf(row[m][k]);
+      ss[m] += v * v;
+    }
+  }
+}
+
 // Scale groups a slice of `span` (pair) rows may touch (bound for smem).
 __host__ __device__ inline int slice_groups(int layout, int K, int G, int span) {
   if (G == 0) return 0;
@@ -191,10 +244,11 @@ __host__ inline int smem_bytes(int layout, int K, int G, int M, int span) {
 }
 
 template <int LAYOUT, bool GROUPED, int MODE>
-__global__ void __launch_bounds__(THREADS) gemv_splitk_kernel(const Args p) {
+__global__ void __launch_bounds__(THREADS) gemv_splitk_kernel(const KernelArgs<MODE> p) {
   static_assert(LAYOUT == I4 || LAYOUT == K4 || LAYOUT == INT8 || LAYOUT == C4,
                 "a layout of gemv_common.cuh");
   static_assert(!(GROUPED && LAYOUT == INT8), "int8 has per-channel scales only");
+  static_assert(MODE != QKV || LAYOUT != C4, "the QKV weight is row-packed or int8");
   constexpr bool WIDE = wide(LAYOUT);
   constexpr int LD = WIDE ? 4 : 2;        // loads of a lane a step
   constexpr int RB = R * 2 / LD;          // steps in flight: the same bytes
@@ -220,6 +274,17 @@ __global__ void __launch_bounds__(THREADS) gemv_splitk_kernel(const Args p) {
   const int wc0 = second ? col0 - p.n1 : col0;       // the tile's first column in W
   const int wn = MODE != UP ? N : second ? N - p.n1 : p.n1;   // W's width
   const int nh = N / 2;                              // C4: the high nibbles' columns
+  // QKV: the tiles a head, the tile's head, its first column and the
+  // offset of its second run
+  int tph = 1, hd = 0;
+  if constexpr (MODE == QKV) tph = p.hd / 64, hd = p.hd;
+  const int head = blockIdx.x / tph;
+  const int qa = MODE == QKV ? hd * head + 32 * (blockIdx.x % tph) : 0;
+  const int run2 = MODE == QKV ? hd / 2 - 32 : 0;
+  // W's column of tile column c (QKV: the two runs of 32)
+  auto wcol = [&](int c) {
+    return MODE == QKV ? qa + c + (c >= 32 ? run2 : 0) : wc0 + c;
+  };
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* part = reinterpret_cast<float*>(smem);                       // MROWS x TO
@@ -233,7 +298,7 @@ __global__ void __launch_bounds__(THREADS) gemv_splitk_kernel(const Args p) {
   // (WIDE: rows 16 s + t + 4 l, l < 4), columns [8 gq, 8 gq + 8) of the tile
   const int steps = (n_rows + STEP - 1) / STEP;
   const int my_steps = steps > warp ? (steps - warp + NWARPS - 1) / NWARPS : 0;
-  const int8_t* wp = w + (size_t)((WIDE ? 2 * r0 : r0) + t) * ldw + wc0 + 8 * gq;
+  const int8_t* wp = w + (size_t)((WIDE ? 2 * r0 : r0) + t) * ldw + wcol(8 * gq);
   uint2 cur[RB][LD], nxt[RB][LD] = {};
   auto load = [&](uint2 (&buf)[RB][LD], int batch) {
 #pragma unroll
@@ -260,15 +325,18 @@ __global__ void __launch_bounds__(THREADS) gemv_splitk_kernel(const Args p) {
   if (MODE != SWIGLU && p.nw != nullptr) {
     float ss[MROWS];
 #pragma unroll
+    for (int m = 0; m < MROWS; ++m) ss[m] = 0.f;
+    const __nv_bfloat16* src = p.x + (size_t)m0 * K;
+    if (mt == 1)
+      row_squares<1>(src, K, mt, ss);
+    else if (mt == 2)
+      row_squares<2>(src, K, mt, ss);
+    else if (mt <= 8)
+      row_squares<8>(src, K, mt, ss);
+    else
+      row_squares<MROWS>(src, K, mt, ss);
+#pragma unroll
     for (int m = 0; m < MROWS; ++m) {
-      ss[m] = 0.f;
-      if (m < mt) {
-        const __nv_bfloat16* src = p.x + (size_t)(m0 + m) * K;
-        for (int k = tid; k < K; k += THREADS) {
-          const float v = bf(src[k]);
-          ss[m] += v * v;
-        }
-      }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) ss[m] += __shfl_xor_sync(0xffffffffu, ss[m], o);
     }
@@ -340,9 +408,10 @@ __global__ void __launch_bounds__(THREADS) gemv_splitk_kernel(const Args p) {
         lo = gin && col0 + c < nh ? scale[(size_t)(g0 + gi) * N + col0 + c] : 0.f;
         hi = gin && col0 + c < N - nh ? scale[(size_t)(g0 + gi) * N + nh + col0 + c] : 0.f;
       } else {
-        const bool in = gin && wc0 + c < wn;
-        lo = in ? scale[(size_t)(g0 + gi) * wn + wc0 + c] : 0.f;
-        hi = in ? scale[(size_t)(hi0 + gi) * wn + wc0 + c] : 0.f;
+        const int wc = wcol(c);
+        const bool in = gin && wc < wn;
+        lo = in ? scale[(size_t)(g0 + gi) * wn + wc] : 0.f;
+        hi = in ? scale[(size_t)(hi0 + gi) * wn + wc] : 0.f;
       }
       st[e] = c % 2 ? lo * (1.f / 256.f) : lo;
       st[ng * TN + e] = c % 2 ? hi * (1.f / 4096.f) : hi * (1.f / 16.f);
@@ -477,21 +546,44 @@ __global__ void __launch_bounds__(THREADS) gemv_splitk_kernel(const Args p) {
   // row e / TO; column e % TO, C4's high nibbles at TN and above
   float ep_scale[EP], ep_res[EP];
   int ep_col[EP];
+  // QKV: the RoPE pairs rank, rank + S, ... of the tile instead, pair i
+  // being tile columns i % 32 and i % 32 + 32 of row i / 32; entry 2 k + h
+  // holds the scale, cos and sin of pair k's column h (h = 1: j + hd/2)
+  constexpr int PAIRS = TN / 2;
+  constexpr int EPQ = MROWS * PAIRS / THREADS;
+  const int j0 = MODE == QKV ? 32 * (blockIdx.x % tph) : 0;   // in the head
+  float pq_scale[2 * EPQ], pq_cos[2 * EPQ], pq_sin[2 * EPQ];
+  if constexpr (MODE == QKV) {
 #pragma unroll
-  for (int k = 0; k < EP; ++k) {
-    const int e = rank + S * (tid + k * THREADS);
-    const int row = m0 + e / TO, jc = e % TO;
-    int col = col0 + jc, scol = wc0 + jc;
-    bool in = e < mt * TO && col < N;
-    if (LAYOUT == C4) {
-      const bool hi = jc >= TN;
-      const int bcol = col0 + jc - (hi ? TN : 0);
-      in = e < mt * TO && bcol < (hi ? N - nh : nh);
-      col = scol = hi ? nh + bcol : bcol;
+    for (int k = 0; k < EPQ; ++k) {
+      const int i = rank + S * (tid + k * THREADS);
+      const bool in = i < mt * PAIRS;
+      const int c = i % PAIRS;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = j0 + c + h * (hd / 2);
+        pq_scale[2 * k + h] = !GROUPED && in ? __ldg(scale + wcol(c + PAIRS * h)) : 1.f;
+        pq_cos[2 * k + h] = in ? __ldg(p.cos_r + j) : 0.f;
+        pq_sin[2 * k + h] = in ? __ldg(p.sin_r + j) : 0.f;
+      }
     }
-    ep_col[k] = in ? col : -1;
-    ep_scale[k] = !GROUPED && in ? __ldg(scale + scol) : 1.f;
-    ep_res[k] = p.res != nullptr && in ? bf(p.res[(size_t)row * N + col]) : 0.f;
+  } else {
+#pragma unroll
+    for (int k = 0; k < EP; ++k) {
+      const int e = rank + S * (tid + k * THREADS);
+      const int row = m0 + e / TO, jc = e % TO;
+      int col = col0 + jc, scol = wc0 + jc;
+      bool in = e < mt * TO && col < N;
+      if (LAYOUT == C4) {
+        const bool hi = jc >= TN;
+        const int bcol = col0 + jc - (hi ? TN : 0);
+        in = e < mt * TO && bcol < (hi ? N - nh : nh);
+        col = scol = hi ? nh + bcol : bcol;
+      }
+      ep_col[k] = in ? col : -1;
+      ep_scale[k] = !GROUPED && in ? __ldg(scale + scol) : 1.f;
+      ep_res[k] = p.res != nullptr && in ? bf(p.res[(size_t)row * N + col]) : 0.f;
+    }
   }
 
   // 5. the block's partial tile: the warps' tiles added in warp order.
@@ -518,27 +610,71 @@ __global__ void __launch_bounds__(THREADS) gemv_splitk_kernel(const Args p) {
   }
 
   // 6. across the cluster: rank r finishes outputs r, r + S, ... of the
-  // tile, adding the ranks' partials in rank order
+  // tile (QKV: pairs), adding the ranks' partials in rank order
   cluster.sync();
+  if constexpr (MODE == QKV) {
+    // the head's stream: q and k rotated, v not
+    __nv_bfloat16* dst;
+    int ld, dcol;
+    bool rope = true;
+    if (head < p.n_head) {
+      dst = static_cast<__nv_bfloat16*>(p.out);
+      ld = p.n_head * p.hd, dcol = head * p.hd;
+    } else if (head < p.n_head + p.n_groups) {
+      dst = static_cast<__nv_bfloat16*>(p.out_k);
+      ld = p.n_groups * p.hd, dcol = (head - p.n_head) * p.hd;
+    } else {
+      dst = static_cast<__nv_bfloat16*>(p.out_v);
+      ld = p.n_groups * p.hd, dcol = (head - p.n_head - p.n_groups) * p.hd;
+      rope = false;
+    }
 #pragma unroll
-  for (int k = 0; k < EP; ++k) {
-    const int e = rank + S * (tid + k * THREADS);
-    const int row = m0 + e / TO, col = ep_col[k];
-    if (col < 0) continue;
-    float pv[MAX_SPLITS];           // every rank's partial read at once
+    for (int k = 0; k < EPQ; ++k) {
+      const int i = rank + S * (tid + k * THREADS);
+      if (i >= mt * PAIRS) continue;
+      const int m = i / PAIRS, c = i % PAIRS, e = m * TO + c;
+      float pa[MAX_SPLITS], pb[MAX_SPLITS];
 #pragma unroll
-    for (int q = 0; q < MAX_SPLITS; ++q)
-      pv[q] = q < S ? cluster.map_shared_rank(part, q)[e] : 0.f;
-    float v = 0.f;
+      for (int q = 0; q < MAX_SPLITS; ++q) {
+        const float* rp = q < S ? cluster.map_shared_rank(part, q) : nullptr;
+        pa[q] = q < S ? rp[e] : 0.f;
+        pb[q] = q < S ? rp[e + PAIRS] : 0.f;
+      }
+      float ya = 0.f, yb = 0.f;
 #pragma unroll
-    for (int q = 0; q < MAX_SPLITS; ++q)
-      if (q < S) v += pv[q];
-    if (!GROUPED) v *= ep_scale[k];
-    if (p.res != nullptr) v += ep_res[k];
-    if (p.out_f32)
-      reinterpret_cast<float*>(p.out)[(size_t)row * N + col] = v;
-    else
-      reinterpret_cast<__nv_bfloat16*>(p.out)[(size_t)row * N + col] = __float2bfloat16(v);
+      for (int q = 0; q < MAX_SPLITS; ++q)
+        if (q < S) ya += pa[q], yb += pb[q];
+      if (!GROUPED) ya *= pq_scale[2 * k], yb *= pq_scale[2 * k + 1];
+      float oa = ya, ob = yb;
+      if (rope) {
+        oa = __fadd_rn(__fmul_rn(ya, pq_cos[2 * k]), __fmul_rn(-yb, pq_sin[2 * k]));
+        ob = __fadd_rn(__fmul_rn(yb, pq_cos[2 * k + 1]), __fmul_rn(ya, pq_sin[2 * k + 1]));
+      }
+      __nv_bfloat16* o = dst + (size_t)(m0 + m) * ld + dcol + j0 + c;
+      o[0] = __float2bfloat16(oa);
+      o[hd / 2] = __float2bfloat16(ob);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < EP; ++k) {
+      const int e = rank + S * (tid + k * THREADS);
+      const int row = m0 + e / TO, col = ep_col[k];
+      if (col < 0) continue;
+      float pv[MAX_SPLITS];           // every rank's partial read at once
+#pragma unroll
+      for (int q = 0; q < MAX_SPLITS; ++q)
+        pv[q] = q < S ? cluster.map_shared_rank(part, q)[e] : 0.f;
+      float v = 0.f;
+#pragma unroll
+      for (int q = 0; q < MAX_SPLITS; ++q)
+        if (q < S) v += pv[q];
+      if (!GROUPED) v *= ep_scale[k];
+      if (p.res != nullptr) v += ep_res[k];
+      if (p.out_f32)
+        reinterpret_cast<float*>(p.out)[(size_t)row * N + col] = v;
+      else
+        reinterpret_cast<__nv_bfloat16*>(p.out)[(size_t)row * N + col] = __float2bfloat16(v);
+    }
   }
   cluster.sync();                    // no block leaves while others read it
 }
@@ -559,7 +695,7 @@ inline bool plan_ok(int layout, int K, int splits, int mt, int span) {
 // cudaGetLastError() or cudaErrorInvalidValue for a plan or an operand the
 // kernel does not take.
 template <int LAYOUT, bool GROUPED, int MODE>
-inline int launch_args(const Args& a, int splits, int mt, cudaStream_t stream) {
+inline int launch_args(const KernelArgs<MODE>& a, int splits, int mt, cudaStream_t stream) {
   const int width = LAYOUT == C4 ? a.N - a.N / 2 : a.N;   // byte columns in use
   const bool two = MODE == UP;
   const bool cols_ok = LAYOUT == C4
@@ -569,7 +705,13 @@ inline int launch_args(const Args& a, int splits, int mt, cudaStream_t stream) {
                    reinterpret_cast<uintptr_t>(a.w2) % 16 == 0
              : a.n1 == a.N && a.ldw >= a.N);
   const int gs = GROUPED ? a.K / a.G : 0;
-  const bool ok = plan_ok(LAYOUT, a.K, splits, mt, a.span) && a.K % 2 == 0 &&
+  bool qkv_ok = true;
+  if constexpr (MODE == QKV)
+    qkv_ok = (a.hd == 64 || a.hd == 128) && a.n_head > 0 && a.n_groups > 0 &&
+             a.N == (a.n_head + 2 * a.n_groups) * a.hd && a.cos_r != nullptr &&
+             a.sin_r != nullptr && a.out_k != nullptr && a.out_v != nullptr &&
+             a.nw != nullptr && a.res == nullptr && !a.out_f32;
+  const bool ok = plan_ok(LAYOUT, a.K, splits, mt, a.span) && a.K % 2 == 0 && qkv_ok &&
                   a.ldw % TN == 0 && cols_ok && a.M >= 1 &&
                   reinterpret_cast<uintptr_t>(a.w) % 16 == 0 && GROUPED == (a.G > 0) &&
                   two == (a.w2 != nullptr) && (MODE == SWIGLU) == (a.ab != nullptr) &&

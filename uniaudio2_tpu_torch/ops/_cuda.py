@@ -61,9 +61,13 @@ _SIGNATURES = {
     # card holds at once
     "ua2_tc_max_clusters": [_I, _P],
     # x, w, scale, norm_w, cos, sin, q, k, v, B, K, n_head, n_groups,
-    # head_size, layout, G, eps, stream
+    # head_size, layout, G, eps, stream: the first design at any B
+    "ua2_qkv_rope_tiled": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _F, _P],
+    # the same with the split-K plan before the stream: splits, span
+    # (`quant.gemv_plan`; above 16 rows the first design, the plan unread)
     "ua2_qkv_rope": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     _I, _I, _F, _P],
+                     _I, _I, _F, _I, _I, _P],
     # x, w1, s1, w2, s2, w3, s3, norm_w, residual, ab, out, M, K, I, N,
     # ldw3, layout12, G12, layout3, G3, eps, splits1, span1, splits3, span3,
     # stream (`fused_mlp.swiglu_plan`)
@@ -76,8 +80,10 @@ _SIGNATURES = {
     # `flash_attention.flash_plan`), stream
     "ua2_flash_attn": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # q, k, v, o, B, H, G, T, hd, scale, stream: float32, non-causal
-    # (csrc/flash_attn_f32.cu)
+    # (csrc/flash_attn_f32.cu: 3xTF32 on the tensor cores, and the first
+    # design on the CUDA cores)
     "ua2_flash_attn_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "ua2_flash_attn_f32_simt": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # hd, bq, int[3] out: keys a stage, stages, dynamic shared bytes
     "ua2_flash_layout": [_I, _I, _P],
     # g, m_q, m_scale, p, a, b, upd, new_m_q, new_m_scale, rows,

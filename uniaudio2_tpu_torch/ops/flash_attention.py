@@ -4,7 +4,10 @@ heads for the backbone's prefill probe.
 CUDA kernels ``ua2_flash_attn`` (``csrc/flash_attn.cu``, bf16: wgmma
 products, K/V through a TMA ring, the launch planned on the host by
 `flash_plan`) and ``ua2_flash_attn_f32`` (``csrc/flash_attn_f32.cu``,
-float32, non-causal: f32 FMAs on the CUDA cores) replace
+float32, non-causal: both products on the tensor cores as three TF32
+products, hi.hi + hi.lo + lo.hi, at float32 accuracy; the first design,
+f32 FMAs on the CUDA cores, stays as `flash_attention_f32_simt`, the
+yardstick) replace
 `_flash_attention` (uniaudio2_tpu/codec/dit.py:174-193), the JAX
 package's call of JAX's Pallas TPU ``flash_attention``, and `bb_flash`
 (scripts/profile_attention.py:102-108), the same bundled kernel with
@@ -22,7 +25,8 @@ the *unnormalised* P to bf16 and divides by the row sum at the end (the
 flash convention); in bf16 the two agree to about 2^-8 of the output's
 range, so the card-side check is |kernel - twin| <= 2e-2 x max|twin|, as
 for the GEMV kernels. In float32 both keep every product and probability
-in f32 and differ in the order of the sums only.
+in f32 (the kernel's products to ~22 bits of each operand) and differ in
+the order of the sums.
 
 The backbone's own prefill keeps `ops.attention.causal_attention`: the JAX
 engine's prefill runs that XLA einsum, not a Pallas kernel.
@@ -90,6 +94,24 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
+def _operands(fn, q, k, v, dtypes):
+    """(B, H, G, T, hd) of card operands a flash kernel takes; raises for
+    any other head dim, dtype, head grouping, shape or alignment."""
+    b, h, t, hd = q.shape
+    g = k.shape[1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{fn}: head dim {hd} not in {HEAD_DIMS}")
+    if q.dtype not in dtypes:
+        raise ValueError(f"{fn}: dtype {q.dtype} not in {dtypes}")
+    if g <= 0 or h % g:
+        raise ValueError(f"{fn}: {h} heads over {g} K/V groups")
+    for name, x, heads in (("q", q, h), ("k", k, g), ("v", v, g)):
+        check_operand(x, name, q.dtype, (b, heads, t, hd), q.device)
+        if x.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} is not 16-byte aligned")
+    return b, h, g, t, hd
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float, causal: bool = False) -> torch.Tensor:
     """``q`` (B, H, T, hd), ``k``, ``v`` (B, G, T, hd) with H % G == 0 ->
@@ -100,21 +122,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the form "f32"."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale, causal)
-    b, h, t, hd = q.shape
-    g = k.shape[1]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
-    if q.dtype not in DTYPES:
-        raise ValueError(f"flash_attention: dtype {q.dtype} not in {DTYPES}")
     if causal and q.dtype == torch.float32:
         raise ValueError("flash_attention: the float32 kernel is non-causal")
-    if g <= 0 or h % g:
-        raise ValueError(f"flash_attention: {h} heads over {g} K/V groups")
-    dev = q.device
-    for name, x, heads in (("q", q, h), ("k", k, g), ("v", v, g)):
-        check_operand(x, name, q.dtype, (b, heads, t, hd), dev)
-        if x.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
+    b, h, g, t, hd = _operands("flash_attention", q, k, v, DTYPES)
     o = torch.empty_like(q)
     if t == 0:
         return o
@@ -134,4 +144,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+def flash_attention_f32_simt(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, scale: float) -> torch.Tensor:
+    """`flash_attention` of float32 inputs (non-causal) through the first
+    design, f32 FMAs on the CUDA cores (``ua2_flash_attn_f32_simt``),
+    counted on its own. No path of the model calls it: it is the yardstick
+    the 3xTF32 kernel is timed against."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale)
+    b, h, g, t, hd = _operands("flash_attention_f32_simt", q, k, v,
+                               (torch.float32,))
+    o = torch.empty_like(q)
+    if t == 0:
+        return o
+    err = _cuda.lib().ua2_flash_attn_f32_simt(
+        _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(o), b, h, g, t,
+        hd, float(scale), _cuda.stream_of(q))
+    _cuda.check(err, "ua2_flash_attn_f32_simt")
+    _cuda.count(flash_attention_f32_simt)
+    return o
+
+
 _cuda.reset_count(flash_attention)
+_cuda.reset_count(flash_attention_f32_simt)

@@ -511,7 +511,7 @@ class GemvPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def gemv_plan(m: int, k: int, n: int, g: int, layout: int,
-              sms: int) -> GemvPlan:
+              sms: int, max_splits: int = SPLITK_MAX_SPLITS) -> GemvPlan:
     """The launch of a split-K GEMV of layout ``layout`` with ``g`` scale
     groups (0: per channel) on a card of ``sms`` SMs: a function of the
     shape and the SM count only. The row-packed int4 layouts
@@ -521,7 +521,8 @@ def gemv_plan(m: int, k: int, n: int, g: int, layout: int,
     output columns c and N/2 + c) ones; the fused SwiGLU's pass 1 asks
     with ``n`` = 2 I, its two weights' column tiles. Up to `SPLITK_MAX_M`
     rows: the split-K kernel, all rows in one block (the MMA's 16), and
-    the number of K-slices, up to `SPLITK_MAX_SPLITS`, whose grid comes
+    the number of K-slices, up to ``max_splits`` (`SPLITK_MAX_SPLITS`; the
+    QKV step caps it lower, `qkv_step.QKV_MAX_SPLITS`), whose grid comes
     nearest (in ratio) `SPLITK_BLOCKS_PER_SM` blocks an SM, the fewer
     slices on a tie. The kernel's rows are K/2 byte rows (row-packed) or
     K/2 pairs of rows (int8, column-packed: row 16 s + j with 16 s + j + 8,
@@ -538,15 +539,16 @@ def gemv_plan(m: int, k: int, n: int, g: int, layout: int,
     width = n - n // 2 if layout == LAYOUT_C4 else n
     tiles = -(-width // GEMV_TILE_N) * -(-m // mt)
     want = SPLITK_BLOCKS_PER_SM * sms
-    s, span = min(splitk_slices(k, g, layout),
+    s, span = min(splitk_slices(k, g, layout, max_splits),
                   key=lambda c: (abs(math.log(tiles * c[0] / want)), c[0]))
     return GemvPlan(s, mt, GEMV_TILE_N, span)
 
 
-def splitk_slices(k: int, g: int, layout: int):
+def splitk_slices(k: int, g: int, layout: int,
+                  max_splits: int = SPLITK_MAX_SPLITS):
     """Every legal (K-slices, rows a slice) of the split-K kernel for
     contraction width ``k`` with ``g`` scale groups (`gemv_plan`'s units):
-    up to `SPLITK_MAX_SPLITS` slices, none empty."""
+    up to ``max_splits`` slices, none empty."""
     rows = k // 2
     if layout in (LAYOUT_INT8, LAYOUT_C4):
         unit = math.lcm(SPLITK_STEP, max((k // g) // 2, 1)) if g else SPLITK_STEP
@@ -554,7 +556,7 @@ def splitk_slices(k: int, g: int, layout: int):
         unit = 1 if not g else (k // g) // 2 if layout == LAYOUT_I4 else k // g
     units = rows // unit
     out = []
-    for s in range(1, min(SPLITK_MAX_SPLITS, units) + 1):
+    for s in range(1, min(max_splits, units) + 1):
         per = -(-units // s)                      # units a slice
         if (s - 1) * per < units:                 # no slice empty
             out.append((s, per * unit))
