@@ -11,11 +11,12 @@ caught):
 2. build every CUDA kernel from ``uniaudio2_tpu_torch/csrc`` with nvcc
    (sm_90a) and print the build seconds, each kernel's registers and
    spills, and a line for each of the four bf16 and four float32 flash
-   kernels (3xTF32 and the first design, hd 64 and 128) and of the six
+   kernels (3xTF32 and the first design, hd 64 and 128) and of the seven
    tensor-core tile kernels (rows 7 and 8,
    column-packed; row 1, interleaved, per channel and grouped; rows 5 and
-   6, K-split per channel and grouped) and the split-K kernel's instances
-   (rows 1, 5 and 6, the fused SwiGLU's passes and the QKV step);
+   6, K-split per channel and grouped; row 4, int8) and the split-K
+   kernel's instances (rows 1, 4, 5 and 6, row 4's wide-N GEMV, the fused
+   SwiGLU's passes and the QKV step);
 3. each kernel, in every weight form it has, against its plain PyTorch
    twin at the serving path's shapes (bf16 activations, M = 1, 2 — the CFG
    pair —, 63 — the prefill bucket 64 — and, for the GEMVs, 255 — bucket
@@ -33,6 +34,14 @@ caught):
    they run the tensor-core tile kernel, the plan (`quant.tc_plan`), the
    tile kernel, its tiled instance and ``torch._weight_int4pack_mm`` in
    the same run, the share of the bound, and at how many cases the tile
+   kernel beats the tiled instance; row 4 (the int8 GEMV) at the
+   projections configurations A and B serve (attn_proj with its residual
+   at both widths, the projection, the audio head, the prefill's QKV
+   projection with its norm) at M = 1, 2, 8, 16 (the split-K kernel) and
+   63, 126, 255, 510 (the tile kernel), and the text lm_head at M = 1-16
+   (the split-K kernel's wide-N instance where the plan says) and 63: the
+   plan, the kernel, its tiled instance and ``torch._weight_int8pack_mm``
+   in the same run, the share of the bound, and at how many cases the
    kernel beats the tiled instance; the fused SwiGLU in its five served
    forms at both widths, with the norm and the residual, at M = 1, 2, 8
    and 16 (two split-K passes, each beside the first design's two tiled
@@ -86,8 +95,10 @@ caught):
    D and E (synchronised, the median of three after a warm-up, then one
    profiled run: busy share and device ms by kernel kind), with summary
    lines.
-   Then the prefill and first frame: C against the CPU twins (phase 5's
-   bounds); D against the interleaved int4all run and E against C, on the
+   Then the prefill and first frame: A and C against the CPU twins (phase
+   5's bounds), and a planted fault A must fail (backbone layer 14's int8
+   attn_proj levels negated); D against the interleaved int4all run and E
+   against C, on the
    card, on the TTS prompt at buckets 64 and 256 and on the ASR prompt
    (the same levels in another byte order: the logits within phase 5's
    bounds, the frame's K rows within tighter ones, far tighter on the
@@ -369,21 +380,22 @@ def phase_build():
               f"{got.get('registers')} registers, {got.get('spill stores')} "
               f"bytes of spill stores", flush=True)
     modes = {"0": "GEMV", "1": "SwiGLU pass 1", "2": "SwiGLU pass 2",
-             "3": "QKV"}
+             "3": "QKV", "4": "GEMV wide"}
     for (layout, grouped, mode), got in sorted(splitk.items()):
         print(f"[2] gemv_splitk_kernel<layout {names[layout]}, grouped "
               f"{grouped}, {modes[mode]}>: {got.get('registers')} registers, "
               f"{got.get('spill stores', 0)} bytes of spill stores", flush=True)
     if _cuda.build_info["log"] and (len(flash), len(flash32), len(tile),
-                                    len(splitk)) != (4, 4, 6, 19):
+                                    len(splitk)) != (4, 4, 7, 21):
         fail(f"ptxas reported {len(flash)} of the 4 bf16 flash kernels, "
              f"{len(flash32)} of the 4 float32 ones (3xTF32 and SIMT, hd 64 "
-             f"and 128), {len(tile)} of the 6 "
-             f"tile kernels (C4, I4 and K4 per channel and grouped) and "
-             f"{len(splitk)} of the 19 split-K kernels (the GEMV: I4 and K4 "
-             f"per channel and grouped; the fused SwiGLU's pass 1: those and "
-             f"INT8; its pass 2: I4 and C4 per channel and grouped, INT8; the "
-             f"QKV step: I4 and K4 per channel and grouped, INT8)")
+             f"and 128), {len(tile)} of the 7 "
+             f"tile kernels (C4, I4 and K4 per channel and grouped, INT8) and "
+             f"{len(splitk)} of the 21 split-K kernels (the GEMV: I4 and K4 "
+             f"per channel and grouped, INT8; the int8 wide-N GEMV; the fused "
+             f"SwiGLU's pass 1: I4 and K4 per channel and grouped, INT8; its "
+             f"pass 2: I4 and C4 per channel and grouped, INT8; the QKV step: "
+             f"I4 and K4 per channel and grouped, INT8)")
 
 
 def nbytes(*tensors) -> int:
@@ -573,9 +585,9 @@ def phase_kernels(torch, dev):
 
     def yardstick_case(kind, form, label, k, n, m, w, x, kw, case, fn,
                        fn_tiled, lib_ms, rtol, times):
-        """A planned kernel (``kind``: "split-K", rows 1, 5 and 6 at a
-        decode M, `quant.gemv_plan`; "tile", rows 1, 6, 7 and 8 above 16
-        rows, `quant.tc_plan`): its tiled instance held to the twin and timed
+        """A planned kernel (``kind``: "split-K", rows 1, 4, 5 and 6 at a
+        decode M, `quant.gemv_plan`; "tile", rows 1, 4, 5, 6, 7 and 8 above
+        16 rows, `quant.tc_plan`): its tiled instance held to the twin and timed
         beside it and the library's GEMV (kernel, tiled, tiled, kernel: the
         lesser median of each pair, against a moment of noise in one), the
         plan and the share of the bound, kept in ``times``."""
@@ -592,7 +604,8 @@ def phase_kernels(torch, dev):
                      f"span={plan.span}")
             blocks = plan.blocks(m, n, layout)
         else:
-            plan = quant.gemv_plan(m, k, n, g, layout, sms)
+            plan = quant.gemv_plan(m, k, n, g, layout, sms,
+                                   wide=form == "int8")
             shape = (f"S={plan.splits} MT={plan.mt} tile={plan.tile} "
                      f"span={plan.span}")
             blocks = plan.blocks(m, n)
@@ -637,21 +650,16 @@ def phase_kernels(torch, dev):
     prefill = (("prefill qkv +norm", 3072, 5120, False, True, None),
                ("mlp gate/up", 3072, 8192, False, False, None),
                ("mlp_proj", 8192, 3072, False, False, None))
-    for form in ("int4i", "int4ig", "int4", "int4g", "int8"):
+    for form in ("int4i", "int4ig", "int4", "int4g"):
         fn = {"int4i": quant.int4i_matmul, "int4ig": quant.int4i_matmul,
-              "int4": quant.int4_matmul, "int4g": quant.int4g_matmul,
-              "int8": quant.int8_matmul}[form]
-        ms_list = ((1, 2, 8, 16, 63, 255, 510) if form in rows_tc else
-                   (1, 2, 8, 16, 63, 255) if form in tiled else (1, 2, 63, 255))
+              "int4": quant.int4_matmul, "int4g": quant.int4g_matmul}[form]
+        ms_list = (1, 2, 8, 16, 63, 255, 510)
         for m in ms_list:
             cases = shapes
             if form in rows_tc and m > quant.SPLITK_MAX_M:
                 # the K-split trees' down-projection is column-packed (row 8)
                 cases += prefill[:2] if form in ("int4", "int4g") else prefill
             for label, k, n, res, norm, out_dtype in cases:
-                if form == "int8" and label in ("decoder attn_proj +res",
-                                                "projection"):
-                    continue        # int8's row is the lm_head, below
                 w = make_weight(torch, gen, dev, form, k, n)
                 x = bf16(m, k)
                 kw = dict(out_dtype=out_dtype,
@@ -797,26 +805,55 @@ def phase_kernels(torch, dev):
     print(f"[3] fused_swiglu (split-K passes) faster than the two tiled "
           f"passes at {len(swiglu_times) - len(slower)} of "
           f"{len(swiglu_times)} cases; not at {slower}", flush=True)
-    n = 128256
-    w = quant.quantize(torch.randn((3072, n), generator=gen, device=dev) * 0.02)
-    w_lib = w.values[:, :n].T.contiguous()     # (N, K) int8 for the library
-    s_lib = w.scale.to(torch.bfloat16)
-    for m in (1, 2, 63):
-        x = bf16(m, 3072)
-        ref_case = library = None
-        if m == 1:                                 # f32 logits out
-            ref_case = (nbytes(x, w.values[:, :n], w.scale) + 4 * m * n,
-                        2 * m * 3072 * n)
+    # row 4, the int8 GEMV (configurations A and B, and the text lm_head in
+    # every configuration): at the frame loop's M (1, 2, 8, 16) the split-K
+    # kernel (the lm_head's wide-N instance where the plan says), above 16
+    # rows (the bucket-64 prefill's 63 and 126, bucket 256's 255 and 510)
+    # the tile kernel; each case beside the tiled instance
+    # (`int8_matmul_tiled`, held to the twin too) and the library's
+    # `torch._weight_int8pack_mm` (bf16 scales and output, the GEMV alone),
+    # with the plan and the share of the bound. Row: the lm_head at M = 1.
+    int8_times = {}
+    for label, k, n, res, norm, out_dtype in (
+            ("attn_proj +res", 3072, 3072, True, False, None),
+            ("decoder attn_proj +res", 2048, 2048, True, False, None),
+            ("projection", 3072, 2048, False, False, None),
+            ("audio_head f32", 2048, 12300, False, False, torch.float32),
+            ("prefill qkv +norm", 3072, 5120, False, True, None),
+            ("lm_head f32", 3072, 128256, False, False, torch.float32)):
+        w = make_weight(torch, gen, dev, "int8", k, n)
+        w_lib = w.values[:, :n].T.contiguous()     # (N, K) int8 for the library
+        s_lib = w.scale.to(torch.bfloat16)
+        lm_head = label.startswith("lm_head")
+        for m in (1, 2, 8, 16, 63) if lm_head else (1, 2, 8, 16, 63, 126, 255,
+                                                    510):
+            x = bf16(m, k)
+            kw = dict(out_dtype=out_dtype,
+                      residual=bf16(m, n) if res else None,
+                      pre_norm=(bf16(k), 1e-5) if norm else None)
+            out_bytes = 4 if out_dtype is torch.float32 else 2
+            case = (nbytes(x) + weight_bytes(w) + 2 * k * norm
+                    + (2 * res + out_bytes) * m * n, 2 * m * k * n)
 
-            def library():       # bf16 scales and bf16 logits out
+            def library():
                 return torch._weight_int8pack_mm(x, w_lib, s_lib)
-        check("int8_matmul", f"lm_head f32 3072->{n} M={m}",
-              lambda: quant.int8_matmul(x, w.values, w.scale,
-                                        out_dtype=torch.float32),
-              lambda: quant.int8_matmul_plain(x, w.values, w.scale,
-                                              out_dtype=torch.float32),
-              ref_case, library, row=ref_case is not None)
-    del w, w_lib
+            _, lib_ms = check(
+                "int8_matmul", f"{label} {k}->{n} M={m}",
+                lambda: quant.int8_matmul(x, w.values, w.scale, **kw),
+                lambda: quant.int8_matmul_plain(x, w.values, w.scale, **kw),
+                case, library, row=lm_head and m == 1)
+            yardstick_case("split-K" if m <= quant.SPLITK_MAX_M else "tile",
+                           "int8", label, k, n, m, w, x, kw, case,
+                           quant.int8_matmul, quant.int8_matmul_tiled, lib_ms,
+                           RTOL, int8_times)
+        del w, w_lib
+    slower = [key for key, (ms, tiled_ms, _) in int8_times.items()
+              if ms >= tiled_ms]
+    beats = [key for key, (ms, _, lib_ms) in int8_times.items() if ms < lib_ms]
+    print(f"[3] row 4 (int8): faster than the tiled instance at "
+          f"{len(int8_times) - len(slower)} of {len(int8_times)} cases; not at "
+          f"{slower}; faster than the library at {len(beats)} of them",
+          flush=True)
 
     def flash_plan_line(shape, case, ms, lib_ms):
         """The host's plan of a flash call and the shares of its bound that
@@ -1215,9 +1252,9 @@ def expected_launches(cfg, params, mode: str, frames: int, prefill_rows: int):
 
 
 # The weight forms whose GEMV runs the tensor-core tile kernel above
-# quant.SPLITK_MAX_M rows (rows 1, 5, 6, 7 and 8), as `quant.gemv_tc` counts
-# them.
-TILE_FORMS = ("int4i", "int4ig", "int4", "int4g", "int4c", "int4cg")
+# quant.SPLITK_MAX_M rows (rows 1, 4, 5, 6, 7 and 8), as `quant.gemv_tc`
+# counts them.
+TILE_FORMS = ("int4i", "int4ig", "int4", "int4g", "int4c", "int4cg", "int8")
 
 
 def expected_tile(params, prefill_rows: int):
@@ -1379,6 +1416,13 @@ def swap_nibbles(torch, w):
     v = w.values.to(torch.int32) & 0xFF
     v = (((v << 4) | (v >> 4)) & 0xFF).to(torch.uint8).view(torch.int8)
     return type(w)(v.contiguous(), w.scale)
+
+
+def negate_levels(torch, w):
+    """The int8 container ``w`` with every level negated: what an int8
+    kernel that read its levels with the wrong sign would compute."""
+    return type(w)((-w.values.to(torch.int16)).to(torch.int8).contiguous(),
+                   w.scale)
 
 
 def with_attn_proj(torch, params, subs, only=None):
@@ -1748,6 +1792,29 @@ def layout_verdicts(torch, cfg, dev, label, params, ref_frames, tag):
     return verdicts
 
 
+def int8_verdicts(torch, cfg, dev, label, params):
+    """Configuration A (int8: row 4 serves every projection outside the
+    fused QKV and MLP steps, the lm_head, and every prefill GEMV) against
+    its CPU twins on the TTS prompt's first frame under BOUNDS, then a
+    planted fault that the same comparison must reject: backbone layer 14's
+    attn_proj with its int8 levels negated."""
+    (g, m), _, _ = prompts(cfg)
+    t0 = time.perf_counter()
+    plain = first_frame(torch, cfg, to_cpu(params), g, m, "cpu")
+    print(f"[8] {label}: twins {time.perf_counter() - t0:.1f} s on the CPU",
+          flush=True)
+    verdicts = {"A vs the CPU twins": rejected(
+        torch, "[8]", f"{label} vs the CPU twins",
+        first_frame(torch, cfg, params, g, m, dev), plain, BOUNDS)}
+    what = "control: A, int8 attn_proj levels negated in backbone layer 14"
+    bad = with_layer(params, "backbone", 14, lambda k, v: (
+        negate_levels(torch, v) if k == "attn_proj_w" else v))
+    verdicts[what] = rejected(torch, "[8]", what,
+                              first_frame(torch, cfg, bad, g, m, dev), plain,
+                              BOUNDS)
+    return verdicts
+
+
 def phase_formats(torch, dev, cfg, base, int4all, sound64):
     """Phase 8: every other serving configuration from the bf16 tree
     ``base``. ``int4all`` is phase 4's tree and ``sound64`` its first frame
@@ -1791,6 +1858,8 @@ def phase_formats(torch, dev, cfg, base, int4all, sound64):
             fail(f"{label}: kernels never launched: {missing}")
         for k, v in got.items():
             total[k] += v
+        if letter == "A":
+            verdicts.update(int8_verdicts(torch, cfg, dev, label, params))
         if letter == "C":
             bucket256_prefills(torch, cfg, params, label)
             t0 = time.perf_counter()
@@ -2089,45 +2158,67 @@ def defaults_verdicts(torch, cfg, params, dev, seed):
 
 # The int8-vs-bf16 gap's second witness: the comparison of DEFAULTS_BOUNDS
 # at the inline boundary frame, on the tree cut to its first WITNESS_DEPTH
-# backbone layers (the CPU path at full depth would take minutes), run on
-# the card and on the CPU (the twins and the plain int8 attention the CPU
-# tests hold token-identical to the JAX engine). If the card path added to
-# the gap, the card would read more than the CPU: its error may be at most
-# WITNESS_FACTOR x the CPU's, and its 1 - cosine WITNESS_FACTOR^2 x. The
-# scale written one slot late, on the card, must fail the same test.
-# On the H100 (seed 0) the card reads text 8.49e-2 / 0.99589, codebook 0
-# 0.103 / 0.99205, K rows 5.58e-2 / 0.99904 (the full run's early K rows
-# to the digit: teacher forcing keeps layers 0-3 free of the later ones),
+# backbone layers and WITNESS_EXPERT_DEPTH layers of each expert (the CPU
+# path at full depth would take minutes: its twins dequantize every weight
+# at every call, so the cost goes by the layers the prefill and the ten
+# teacher-forced frames pass; with both experts whole, 3 + 2 layers, it
+# took 181 s), run on the card and on the CPU (the twins and the plain int8
+# attention the CPU tests hold token-identical to the JAX engine). If the
+# card path added to the gap, the card would read more than the CPU: its
+# error may be at most WITNESS_FACTOR x the CPU's, and its 1 - cosine
+# WITNESS_FACTOR^2 x. The scale written one slot late, on the card, must
+# fail the same test.
+# On the H100 (seed 0), with both experts whole, the card read text
+# 8.49e-2 / 0.99589, codebook 0 0.103 / 0.99205, K rows 5.58e-2 / 0.99904,
 # the CPU 8.10e-2 / 0.99644, 0.103 / 0.99323, 5.13e-2 / 0.99919: the card
-# adds at most 1.09x the error and 1.18x the 1 - cosine; the fault reads
-# >= 1.30 / <= 0.525. Readings in PERF.md.
+# added at most 1.09x the error and 1.18x the 1 - cosine; the fault read
+# >= 1.30 / <= 0.525. Readings at this depth in PERF.md.
 WITNESS_DEPTH = EARLY_LAYERS
+WITNESS_EXPERT_DEPTH = 1
 WITNESS_FACTOR = 2.0
+EXPERTS = ("understanding_expert", "generation_expert")
 
 
-def cut_depth(cfg, params, depth):
+def cut_depth(cfg, params, depth, expert_depth=None):
     """``cfg`` and its serving tree with only the first ``depth`` backbone
-    layers (views of the full tree's)."""
+    layers and, given ``expert_depth``, the first ``expert_depth`` layers of
+    each expert (views of the full tree's)."""
     import dataclasses
+
+    keep = {"backbone": depth}
+    if expert_depth is not None:
+        keep.update(dict.fromkeys(EXPERTS, expert_depth))
 
     class Cut(type(cfg)):
         @property
         def backbone(self):
-            return super().backbone.replace(n_layer=depth)
+            return super().backbone.replace(n_layer=keep["backbone"])
+
+        @property
+        def understanding_expert(self):
+            c = super().understanding_expert
+            return c.replace(n_layer=keep.get(EXPERTS[0], c.n_layer))
+
+        @property
+        def generation_expert(self):
+            c = super().generation_expert
+            return c.replace(n_layer=keep.get(EXPERTS[1], c.n_layer))
 
     cut = Cut(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
-    bb = dict(params["backbone"], layers=params["backbone"]["layers"][:depth])
-    return cut, dict(params, backbone=bb)
+    tree = dict(params)
+    for sub, n in keep.items():
+        tree[sub] = dict(params[sub], layers=params[sub]["layers"][:n])
+    return cut, tree
 
 
 def defaults_witness(torch, cfg, params, dev):
     """The int8-vs-bf16 KV gap at the inline boundary frame on the card and
-    on the CPU, at WITNESS_DEPTH backbone layers; returns the outputs on
-    which the card's gap outgrows the CPU's, for the sound run and for the
-    planted fault."""
+    on the CPU, at WITNESS_DEPTH backbone layers and WITNESS_EXPERT_DEPTH
+    of each expert; returns the outputs on which the card's gap outgrows
+    the CPU's, for the sound run and for the planted fault."""
     import contextlib
 
-    wcfg, tree = cut_depth(cfg, params, WITNESS_DEPTH)
+    wcfg, tree = cut_depth(cfg, params, WITNESS_DEPTH, WITNESS_EXPERT_DEPTH)
     pos = BOUNDARY_POS["inline"]
     t0 = time.perf_counter()
 
@@ -2156,7 +2247,8 @@ def defaults_witness(torch, cfg, params, dev):
             if not ok:
                 caught.append(name)
             print(f"[9w] {label}: int8 vs bf16 KV at {WITNESS_DEPTH} backbone "
-                  f"layers, position {pos}: {name} card {err:.4e} x max|ref| / "
+                  f"layers ({WITNESS_EXPERT_DEPTH} of each expert), "
+                  f"position {pos}: {name} card {err:.4e} x max|ref| / "
                   f"cosine {cos:.6f}, CPU {cerr:.4e} / {ccos:.6f}"
                   f"{'' if ok else '  REJECTED'}", flush=True)
         verdicts[label] = caught
@@ -2488,7 +2580,7 @@ GRAPH_FAULT_FRAMES = 16
 SAMPLED_FRAMES = 200
 # The kernels a counted wrapper launches in a frame (up to
 # quant.SPLITK_MAX_M rows), by the traced name's base: a GEMV wrapper one
-# `gemv_kernel` (rows 1, 5 and 6 one `gemv_splitk_kernel` instead),
+# `gemv_kernel` (rows 1, 4, 5 and 6 one `gemv_splitk_kernel` instead),
 # `qkv_rope_step` one `gemv_splitk_kernel` in its QKV mode (MODE 3; above
 # 16 rows one `qkv_rope_kernel`), `fused_swiglu` two `gemv_splitk_kernel`
 # (its two passes). "gemv_splitk_kernel QKV" counts the QKV instances,
@@ -2622,7 +2714,8 @@ def counted_families(counted, rows):
     want = dict.fromkeys(TRACED_FAMILIES, 0)
     gemvs = {fn for fn, _ in counters().values()} - {
         fused_mlp.fused_swiglu, qkv_step.qkv_rope_step}
-    splitk = {quant.int4i_matmul, quant.int4_matmul, quant.int4g_matmul}
+    splitk = {quant.int4i_matmul, quant.int4_matmul, quant.int4g_matmul,
+              quant.int8_matmul}
     for fn, (launches, _) in counted.items():
         if fn is qkv_step.qkv_rope_step:
             want[QKV_SPLITK if rows <= quant.SPLITK_MAX_M

@@ -1,7 +1,9 @@
-"""The split-K int4 GEMV of rows 1, 5 and 6 (`csrc/gemv_int4_splitk.cuh`): its
+"""The split-K GEMV of rows 1, 4, 5 and 6 (`csrc/gemv_int4_splitk.cuh`): its
 host plan (`quant.gemv_plan`) and, on the CPU, a plain emulation of the
 plan's fixed-order split sum, in the four row-packed forms (interleaved
-per channel and grouped, K-split per channel and grouped).
+per channel and grouped, K-split per channel and grouped) and int8 (row
+4: pairs of rows in steps of 16; over a wide output, the lm_head, the
+wide-N instance: 256 columns a block, one slice).
 
 The plan is a function of the shape and the SM count only. It must be
 legal for every weight `check_weight` admits: 1-8 K-slices that cover the
@@ -15,11 +17,11 @@ slice's activations (RMS-normalised and rounded to bf16) with the levels
 (per channel: unscaled, the scale on the f32 sum; grouped: level x scale
 rounded to bf16) and then the residual. It is held
  * to JAX's `_pallas_int4i_matmul` / `_pallas_int4_matmul` /
-   `_pallas_int4g_matmul` in interpret
+   `_pallas_int4g_matmul` / `_pallas_int8_matmul` in interpret
    mode with f32 output: the same arithmetic in another order of f32 sums,
    within 1e-5 x max|ref|;
  * to the port's plain twins (`int4i_matmul_plain` / `int4_matmul_plain` /
-   `int4g_matmul_plain`,
+   `int4g_matmul_plain` / `int8_matmul_plain`,
    the XLA fallback's rounding, bf16 output): within 2e-2 x max|twin| per
    channel (the twin rounds scale x level to bf16 and the product before
    the residual), one bf16 ulp, 2^-7 x max|twin|, grouped without a
@@ -61,20 +63,29 @@ from uniaudio2_tpu_torch.probes import gemv_splitk_sweep, qkv_splits_sweep, spli
 SMS = 132                                  # an H100 SXM
 I4, K4 = quant.LAYOUT_I4, quant.LAYOUT_K4
 INT8, C4 = quant.LAYOUT_INT8, quant.LAYOUT_C4
-# (K, N) of the model's decode GEMVs of rows 1, 5 and 6
-DECODE = ((3072, 3072), (2048, 2048), (2048, 12300), (3072, 2048))
+# (K, N) of the model's decode GEMVs of rows 1, 4, 5 and 6, and the text
+# lm_head (int8 in every configuration)
+DECODE = ((3072, 3072), (2048, 2048), (2048, 12300), (3072, 2048),
+          (3072, 128256))
 FORMS = {"int4i": (I4, False), "int4ig": (I4, True), "int4": (K4, False),
-         "int4g": (K4, True)}
+         "int4g": (K4, True), "int8": (INT8, False)}
 JAX_FNS = {"int4i": jq._pallas_int4i_matmul, "int4ig": jq._pallas_int4i_matmul,
-           "int4": jq._pallas_int4_matmul, "int4g": jq._pallas_int4g_matmul}
+           "int4": jq._pallas_int4_matmul, "int4g": jq._pallas_int4g_matmul,
+           "int8": jq._pallas_int8_matmul}
 TWINS = {"int4i": quant.int4i_matmul_plain, "int4ig": quant.int4i_matmul_plain,
-         "int4": quant.int4_matmul_plain, "int4g": quant.int4g_matmul_plain}
+         "int4": quant.int4_matmul_plain, "int4g": quant.int4g_matmul_plain,
+         "int8": quant.int8_matmul_plain}
 
 
 def _legal(plan, m, k, n, g, layout):
     rows = k // 2
+    if plan.tile == quant.SPLITK_WIDE_N:   # int8's wide-N instance
+        assert layout == INT8 and not g and m <= quant.SPLITK_MAX_M
+        assert (plan.splits, plan.mt, plan.span) == (1, 16, rows)
+        assert k % 16 == 0
+        return
     assert plan.tile == quant.GEMV_TILE_N
-    if m > quant.SPLITK_MAX_M:
+    if m > quant.SPLITK_MAX_M or (layout in (INT8, C4) and k % 16):
         assert plan.splits == 0
         return
     assert plan.mt == quant.SPLITK_MAX_M == 16       # the MMA's rows
@@ -105,6 +116,17 @@ def test_plan_at_the_decode_shapes(form, k, n, m):
     _legal(plan, m, k, n, g, layout)
     if m <= quant.SPLITK_MAX_M:
         assert plan.blocks(m, n) >= SMS, plan
+    if form == "int8":                     # as `int8_matmul` asks
+        wide = quant.gemv_plan(m, k, n, g, layout, SMS, wide=True)
+        _legal(wide, m, k, n, g, layout)
+        # the wide-N instance serves the lm_head only (501 tiles of 256
+        # columns fill the 297 blocks the plan aims at on 132 SMs), where
+        # four blocks fit an SM: up to 7 rows at K = 3072
+        assert (wide.tile == quant.SPLITK_WIDE_N) == (n == 128256 and m <= 7)
+        assert quant.SPLITK_WIDE_BLOCKS * (quant.wide_smem(m, k) + 1024) \
+            <= quant.SM_SHARED_BYTES or wide.tile == quant.GEMV_TILE_N
+        if m <= quant.SPLITK_MAX_M:
+            assert wide.blocks(m, n) >= SMS, wide
 
 
 @pytest.mark.parametrize("m", [1, 3, 16])
@@ -143,10 +165,13 @@ def test_plan_aims_at_its_blocks_per_sm(sms):
 def test_the_sweep_times_the_legal_slice_counts(form):
     """The sweep behind `SPLITK_BLOCKS_PER_SM`
     (`probes/gemv_splitk_sweep.py`) times every legal slice count of each
-    decode shape, and the plan is one of them."""
+    decode shape (int8 also the lm_head, and its wide-N instance), and the
+    plan is one of them."""
     layout, grouped = FORMS[form]
     assert form in gemv_splitk_sweep.FORMS
-    for _, k, n, _, _ in gemv_splitk_sweep.CASES:
+    cases = gemv_splitk_sweep.cases(form)
+    assert (gemv_splitk_sweep.LM_HEAD in cases) == (form == "int8")
+    for _, k, n, _, _ in cases:
         g = k // quant.INT4_GROUP if grouped else 0
         slices = quant.splitk_slices(k, g, layout)
         for s, span in slices:
@@ -155,6 +180,10 @@ def test_the_sweep_times_the_legal_slice_counts(form):
         for m in gemv_splitk_sweep.ROWS:
             plan = quant.gemv_plan(m, k, n, g, layout, SMS)
             assert (plan.splits, plan.span) in slices
+            wide = quant.gemv_plan(m, k, n, g, layout, SMS,
+                                   wide=form == "int8")
+            assert wide == plan or (form == "int8" and wide.tile
+                                    == quant.SPLITK_WIDE_N)
 
 
 def _split_sum(xs, w, plan):
@@ -195,7 +224,9 @@ def _inputs(form, k, n, m, group, seed):
     rng = np.random.default_rng(seed)
     w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32) * 0.02)
     layout, grouped = FORMS[form]
-    if form == "int4g":
+    if form == "int8":
+        c = quant.quantize(w)
+    elif form == "int4g":
         c = quant.quantize4_grouped(w, group)
     elif form == "int4":
         c = quant.quantize4(w)

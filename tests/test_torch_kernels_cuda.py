@@ -158,9 +158,12 @@ def test_int4i_matmul(dev, m, norm, res, out_dtype):
     _close(out, quant.int4i_matmul_plain(x, w.values, w.scale, **kw))
 
 
-@pytest.mark.parametrize("m", [1, 2, 63, 130])
+@pytest.mark.parametrize("m", [1, 2, 8, 16, 17, 63, 126, 130, 255, 510])
 @pytest.mark.parametrize("norm,res,out_dtype", FOLDS)
 def test_int8_matmul(dev, m, norm, res, out_dtype):
+    """Row 4 with every fold: up to 16 rows the split-K kernel, above them
+    the tile kernel (one count of its "int8" form a call, none of the tiled
+    yardstick); within 2e-2 x max|twin|, the same bits twice."""
     g = _gen(dev, 1)
     k, n = 384, 1000
     w = quant.quantize(torch.randn((k, n), generator=g, device=dev) * 0.02)
@@ -168,8 +171,64 @@ def test_int8_matmul(dev, m, norm, res, out_dtype):
     kw = dict(out_dtype=out_dtype,
               pre_norm=(_bf16(g, dev, k), 1e-5) if norm else None,
               residual=_bf16(g, dev, m, n, std=0.1) if res else None)
+    before = (quant.int8_matmul.launches, quant.int8_matmul_tiled.launches,
+              quant.gemv_tc.forms.get("int8", 0))
     out = quant.int8_matmul(x, w.values, w.scale, **kw)
+    again = quant.int8_matmul(x, w.values, w.scale, **kw)
     torch.cuda.synchronize()
+    tile = 2 if m > quant.SPLITK_MAX_M else 0
+    assert (quant.int8_matmul.launches, quant.int8_matmul_tiled.launches,
+            quant.gemv_tc.forms.get("int8", 0)) == (
+        before[0] + 2, before[1], before[2] + tile)
+    assert torch.equal(out, again)
+    _close(out, quant.int8_matmul_plain(x, w.values, w.scale, **kw))
+
+
+@pytest.mark.parametrize("m", [1, 63])
+@pytest.mark.parametrize("norm,res,out_dtype", FOLDS)
+def test_int8_matmul_tiled_yardstick(dev, m, norm, res, out_dtype):
+    """Row 4's first design, `int8_matmul_tiled`, with every fold: within
+    2e-2 x max|twin|, counted on its own."""
+    g = _gen(dev, 2)
+    k, n = 384, 1000
+    w = quant.quantize(torch.randn((k, n), generator=g, device=dev) * 0.02)
+    x = _bf16(g, dev, m, k)
+    kw = dict(out_dtype=out_dtype,
+              pre_norm=(_bf16(g, dev, k), 1e-5) if norm else None,
+              residual=_bf16(g, dev, m, n, std=0.1) if res else None)
+    before = (quant.int8_matmul.launches, quant.int8_matmul_tiled.launches,
+              quant.gemv_tc.forms.get("int8", 0))
+    out = quant.int8_matmul_tiled(x, w.values, w.scale, **kw)
+    torch.cuda.synchronize()
+    assert (quant.int8_matmul.launches, quant.int8_matmul_tiled.launches,
+            quant.gemv_tc.forms.get("int8", 0)) == (before[0], before[1] + 1,
+                                                    before[2])
+    _close(out, quant.int8_matmul_plain(x, w.values, w.scale, **kw))
+
+
+@pytest.mark.parametrize("m", [1, 2, 16])
+@pytest.mark.parametrize("norm,res,out_dtype", FOLDS)
+def test_int8_matmul_wide_n(dev, m, norm, res, out_dtype):
+    """Row 4 over an output wide enough for the split-K kernel's wide-N
+    instance (the lm_head's kind: 301 tiles of 256 columns on 132 SMs;
+    ragged past the last whole tile, stored 512 wider): the plan names it,
+    and the output is within 2e-2 x max|twin|, the same bits twice."""
+    g = _gen(dev, 3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k, n = 256, 256 * int(quant.SPLITK_BLOCKS_PER_SM * sms + 4) + 100
+    w = quant.quantize(torch.randn((k, n), generator=g, device=dev) * 0.02)
+    assert quant.gemv_plan(m, k, n, 0, quant.LAYOUT_INT8, sms,
+                           wide=True).tile == quant.SPLITK_WIDE_N
+    x = _bf16(g, dev, m, k)
+    kw = dict(out_dtype=out_dtype,
+              pre_norm=(_bf16(g, dev, k), 1e-5) if norm else None,
+              residual=_bf16(g, dev, m, n, std=0.1) if res else None)
+    before = quant.int8_matmul.launches
+    out = quant.int8_matmul(x, w.values, w.scale, **kw)
+    again = quant.int8_matmul(x, w.values, w.scale, **kw)
+    torch.cuda.synchronize()
+    assert quant.int8_matmul.launches == before + 2
+    assert torch.equal(out, again)
     _close(out, quant.int8_matmul_plain(x, w.values, w.scale, **kw))
 
 
@@ -534,8 +593,9 @@ def test_int4_native_gemv(dev, k, n, m):
 
 
 SPLITK_FORMS = {"int4i": quant.int4i_matmul, "int4ig": quant.int4i_matmul,
-                "int4": quant.int4_matmul, "int4g": quant.int4g_matmul}
-# the decode shapes of rows 1, 5 and 6: (K, N, residual, f32 out)
+                "int4": quant.int4_matmul, "int4g": quant.int4g_matmul,
+                "int8": quant.int8_matmul}
+# the decode shapes of rows 1, 4, 5 and 6: (K, N, residual, f32 out)
 SPLITK_SHAPES = {"attn_proj": (3072, 3072, True, False),
                  "decoder attn_proj": (2048, 2048, True, False),
                  "audio_head": (2048, 12300, False, True),
@@ -546,7 +606,7 @@ SPLITK_SHAPES = {"attn_proj": (3072, 3072, True, False),
 @pytest.mark.parametrize("shape", list(SPLITK_SHAPES))
 @pytest.mark.parametrize("form", list(SPLITK_FORMS))
 def test_int4_decode_gemv(dev, form, shape, m):
-    """Rows 1 (per-channel and grouped), 5 and 6 at their decode shapes (the
+    """Rows 1 (per-channel and grouped), 4, 5 and 6 at their decode shapes (the
     split-K kernel, M <= 16) and the prefill's M (the tile kernel), as
     the path calls them and with the
     other folds (norm, residual, f32 out):

@@ -218,12 +218,13 @@ def test_wrappers_take_the_twin_on_the_cpu():
         assert (fn.launches, tiled.launches) == before
 
 
-# Rows 1 and 6 above 16 rows: the tile kernel's row-interleaved (I4) and
-# K-split (K4) instances. The K-split one runs I4's products on x' (x[0],
-# x[K/2], x[1], x[K/2 + 1], ...), which its row kernel writes, normalised
-# when the call folds a norm; a slice of the plan is a range of x' (span / 2
-# rows of each K half).
-I4, K4 = quant.LAYOUT_I4, quant.LAYOUT_K4
+# Rows 1, 4, 5 and 6 above 16 rows: the tile kernel's row-interleaved (I4),
+# K-split (K4) and int8 (INT8) instances. The K-split one runs I4's products
+# on x' (x[0], x[K/2], x[1], x[K/2 + 1], ...), which its row kernel writes,
+# normalised when the call folds a norm; a slice of the plan is a range of
+# x' (span / 2 rows of each K half). Int8 reads x as it is (normalised by
+# the row kernel for a call with a norm), one level a byte.
+I4, K4, INT8 = quant.LAYOUT_I4, quant.LAYOUT_K4, quant.LAYOUT_INT8
 # (K, N) of the prefill GEMVs (QKV, attn_proj, gate / up, the interleaved
 # down-projection), the narrow trees' widths, ragged N
 ROW_SHAPES = ((3072, 5120), (3072, 3072), (3072, 8192), (8192, 3072),
@@ -299,9 +300,9 @@ def test_row_plan_fills_one_wave(sms, layout):
 
 
 def _x_prime(x, layout):
-    """The k order the tile kernel reads: x itself (I4), or x[0], x[K/2],
-    x[1], x[K/2 + 1], ... (K4)."""
-    if layout == I4:
+    """The k order the tile kernel reads: x itself (I4, INT8), or x[0],
+    x[K/2], x[1], x[K/2 + 1], ... (K4)."""
+    if layout != K4:
         return x
     k = x.shape[-1]
     return torch.stack([x[:, :k // 2], x[:, k // 2:]], -1).reshape(x.shape)
@@ -335,15 +336,18 @@ def _emulate_rows(x, w, plan, xn=None, residual=None):
 
 
 ROW_FORMS = {"int4i": (I4, False), "int4ig": (I4, True), "int4": (K4, False),
-             "int4g": (K4, True)}
+             "int4g": (K4, True), "int8": (INT8, False)}
 ROW_JAX = {"int4i": jq._pallas_int4i_matmul, "int4ig": jq._pallas_int4i_matmul,
-           "int4": jq._pallas_int4_matmul, "int4g": jq._pallas_int4g_matmul}
+           "int4": jq._pallas_int4_matmul, "int4g": jq._pallas_int4g_matmul,
+           "int8": jq._pallas_int8_matmul}
 
 
 def _row_inputs(form, k, n, m, group, seed):
     rng = np.random.default_rng(seed)
     w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32) * 0.02)
-    if form == "int4g":
+    if form == "int8":
+        c = quant.quantize(w)
+    elif form == "int4g":
         c = quant.quantize4_grouped(w, group)
     elif form == "int4":
         c = quant.quantize4(w)
@@ -370,9 +374,9 @@ def _jax(a):
                                          (2048, 200, 17, 32)])
 @pytest.mark.parametrize("form", list(ROW_FORMS))
 def test_row_split_sum_matches_jax_and_the_twin(form, k, n, m, group, folds):
-    """The row-packed emulation against JAX's `_pallas_int4i_matmul` /
-    `_pallas_int4_matmul` / `_pallas_int4g_matmul` in interpret mode (f32
-    out, with the same folds)
+    """The row-packed and int8 emulation against JAX's `_pallas_int4i_matmul`
+    / `_pallas_int4_matmul` / `_pallas_int4g_matmul` / `_pallas_int8_matmul`
+    in interpret mode (f32 out, with the same folds)
     and the port's twin (bf16 out: 2e-2 x max|twin|, one bf16 ulp grouped
     without a residual), given the twin's normalised rows, as the row
     kernel rounds them. Against JAX the f32 sums differ in order only:
@@ -477,3 +481,69 @@ def test_swiglu_wrappers_take_the_twin_on_the_cpu():
         for fn in fns:
             assert torch.equal(fn(x, w1, w2, w3, norm_w=nw, residual=x), ref)
         assert [fn.launches for fn in fns] == before
+
+
+# Row 4 above 16 rows: the tile kernel's INT8 instance, one output column a
+# byte column (128 a tile), per-channel scales only.
+# (K, N) of int8's prefill GEMVs: attn_proj (backbone and decoder widths),
+# the projection, the audio head, the QKV projection, the lm_head; then
+# narrow and ragged ones
+INT8_SHAPES = ((3072, 3072), (2048, 2048), (3072, 2048), (2048, 12300),
+               (3072, 5120), (3072, 128256), (512, 600), (256, 300),
+               (520, 37), (100, 300))
+
+
+@pytest.mark.parametrize("m", ROWS)
+@pytest.mark.parametrize("k,n", INT8_SHAPES)
+def test_int8_plan_is_legal(k, n, m):
+    """Legal for int8 (the checks of the row-packed layouts, no groups):
+    up to 16 rows and at K % 8 the tiled kernel, else tiles of 128 output
+    columns and BN rows over 1-8 slices of whole stages."""
+    _row_legal(quant.tc_plan(m, k, n, 0, SMS, INT8), m, k, n, 0, INT8)
+
+
+@pytest.mark.parametrize("m,k,n,plan,blocks", [
+    (63, 3072, 3072, (4, 768), 96),
+    (255, 3072, 3072, (4, 768), 96),
+    (510, 3072, 3072, (2, 1536), 96),
+    (255, 2048, 2048, (6, 384), 96),
+    (255, 3072, 2048, (6, 512), 96),
+    (255, 2048, 12300, (1, 2048), 97),
+    (63, 3072, 5120, (2, 1536), 80),
+    (255, 3072, 5120, (2, 1536), 80),
+    (510, 3072, 5120, (1, 3072), 80),
+    (63, 3072, 128256, (1, 3072), 1002),
+])
+def test_int8_plan_grid_on_132_sms(m, k, n, plan, blocks):
+    """The int8 grids on 132 SMs (128 output columns a tile, as the
+    row-packed layouts): the prefill's QKV projection 40 tiles x 2 slices,
+    attn_proj 24 x 4, the audio head's 97 tiles and the lm_head's 1,002
+    one slice each."""
+    got = quant.tc_plan(m, k, n, 0, SMS, INT8)
+    assert tuple(got) == plan
+    assert got.blocks(m, n, INT8) == blocks
+
+
+@pytest.mark.parametrize("sms", [132, 114, 78])
+def test_int8_plan_fills_one_wave(sms):
+    """`_fills_one_wave` at int8's prefill shapes."""
+    for k, n in INT8_SHAPES[:5] + INT8_SHAPES[6:7]:
+        for m in (17, 63, 126, 255, 510):
+            _fills_one_wave(m, k, n, 0, sms, INT8)
+
+
+@pytest.mark.parametrize("m", [1, 17, 255])
+def test_int8_wrappers_take_the_twin_on_the_cpu(m):
+    """On CPU tensors `int8_matmul` and its tiled yardstick return the twin
+    with every fold at a decode, the least tile-kernel and a prefill M, and
+    count no launch, on the wrappers or on the tile kernel's counter."""
+    w, x, nw, res = _row_inputs("int8", 512, 600, m, 64, 20 + m)
+    fns = (quant.int8_matmul, quant.int8_matmul_tiled)
+    before = [fn.launches for fn in fns] + [quant.gemv_tc.launches]
+    for kw in (dict(pre_norm=(nw, 1e-5), residual=res, out_dtype=torch.float32),
+               {}):
+        ref = quant.int8_matmul_plain(x, w.values, w.scale, **kw)
+        assert torch.equal(ref, quant.matmul_plain(x, w, **kw))
+        for fn in fns:
+            assert torch.equal(fn(x, w.values, w.scale, **kw), ref)
+    assert [fn.launches for fn in fns] + [quant.gemv_tc.launches] == before

@@ -1,9 +1,9 @@
 // Split-K GEMV for the decode rows, for sm_90a, on the tensor cores: the
-// row-interleaved (I4) and K-split (K4) int4 layouts of rows 1, 5 and 6,
-// and the two passes of the fused SwiGLU (row 2), which add the int8
-// (INT8) and column-packed int4 (C4) layouts, and the fused QKV step
-// (row 3). Included by gemv_int4i.cu, gemv_int4g.cu, gemv_int4.cu,
-// fused_swiglu.cu and qkv_rope.cu only.
+// row-interleaved (I4) and K-split (K4) int4 layouts of rows 1, 5 and 6
+// and the int8 layout (INT8) of row 4, the two passes of the fused SwiGLU
+// (row 2), which add the column-packed int4 layout (C4), and the fused QKV
+// step (row 3). Included by gemv_int4i.cu, gemv_int4g.cu, gemv_int4.cu,
+// gemv_int8.cu, fused_swiglu.cu and qkv_rope.cu only.
 //
 //   out (M, N) = [rmsnorm(x)] (M, K) @ unpack(W) (K, N) * scale [+ res]
 //
@@ -66,6 +66,22 @@
 // 2 (SWIGLU) over W3, launched after pass 1 has completed, staging
 // bf16(silu(a) * b) of its slice from those f32 sums where the norm mode
 // stages bf16(norm(x)).
+// Row 4's int8 GEMV over a wide output (the text lm_head, 128,256 columns,
+// 2,004 tiles of 64: one K-slice fills the card) is a fifth instance
+// (GEMV_WIDE): a block owns NWARPS x TN = 256 byte columns and warp w the 64 at
+// 64 w, walking all of the slice's steps, so that the block's four warps
+// read 256 contiguous bytes of each row where the GEMV mode's warps read
+// 64 bytes of four different rows: read alone, with no arithmetic, the
+// lm_head's bytes come faster in this pattern than in the GEMV mode's
+// (`probes/int8_read_pattern.py`; the H100's numbers in PERF.md). One
+// slice only (the host
+// plans it where the 256-column tiles alone reach the grid it aims at): no
+// warp or cluster reduction, each warp's tile goes to a (rows, 256) tile
+// in shared memory and out through the scale, residual and cast. Only the
+// live activation rows are staged (6 KB a row at K = 3072, not the 8 or 16
+// the MMA reads: its A rows past M read as zeros) and three steps are in
+// flight a warp, so that four blocks fit an SM (up to 7 rows at K = 3072)
+// and the lm_head's 501 tiles run in one wave.
 // The fused QKV step (`ua2_qkv_rope`, row 3) is a fourth instance (QKV):
 // the norm prologue and the products of a GEMV over W (N = (H + 2 G) hd
 // columns, q's heads, then k's, then v's), with another column map and
@@ -103,9 +119,13 @@ constexpr int MAX_SPLITS = 8;
 constexpr unsigned OFFSET = 0x88888888u;  // two's complement -> n + 8
 constexpr unsigned MAGIC = 0x4B000000u;   // f32 2^23
 constexpr unsigned MAGIC2 = 0x43004300u;  // bf16x2 (128, 128)
-// Modes of the kernel: a GEMV (rows 1, 5 and 6), the fused SwiGLU's pass 1
-// over W1 | W2, its pass 2 staging h, the fused QKV step
-constexpr int GEMV = 0, UP = 1, SWIGLU = 2, QKV = 3;
+// Modes of the kernel: a GEMV (rows 1, 4, 5 and 6), the fused SwiGLU's pass 1
+// over W1 | W2, its pass 2 staging h, the fused QKV step, row 4's wide-N
+// GEMV
+constexpr int GEMV = 0, UP = 1, SWIGLU = 2, QKV = 3, GEMV_WIDE = 4;
+
+// Byte columns a block: NWARPS x TN in the wide-N mode, TN otherwise.
+__host__ __device__ constexpr int block_cols(int mode) { return mode == GEMV_WIDE ? NWARPS * TN : TN; }
 
 // One level a byte row, in steps of 16 rows: INT8 and C4.
 __host__ __device__ constexpr bool wide(int layout) { return layout == INT8 || layout == C4; }
@@ -233,8 +253,13 @@ __host__ __device__ inline int staged_m(int M, int m0) { return M - m0 > 8 ? 16 
 
 // Dynamic shared memory: the block's partial tile (two for C4), then a
 // region that holds the staged activations and scale tiles during the main
-// loop and the warps' partial tiles after it.
-__host__ inline int smem_bytes(int layout, int K, int G, int M, int span) {
+// loop and the warps' partial tiles after it. The wide-N mode: its (live
+// rows, 256) tile, then the live rows staged.
+__host__ inline int smem_bytes(int layout, int K, int G, int M, int span, int mode = GEMV) {
+  if (mode == GEMV_WIDE) {
+    const int rows = M < MROWS ? M : MROWS;
+    return align16(rows * block_cols(GEMV_WIDE) * 4) + align16(rows * staged_rows(span) * 4);
+  }
   const int na = layout == C4 ? 2 : 1;
   const int part = na * MROWS * TN * 4;
   const int stage = align16(staged_m(M, 0) * staged_rows(span) * 4) +
@@ -249,12 +274,18 @@ __global__ void __launch_bounds__(THREADS) gemv_splitk_kernel(const KernelArgs<M
                 "a layout of gemv_common.cuh");
   static_assert(!(GROUPED && LAYOUT == INT8), "int8 has per-channel scales only");
   static_assert(MODE != QKV || LAYOUT != C4, "the QKV weight is row-packed or int8");
+  static_assert(MODE != GEMV_WIDE || (LAYOUT == INT8 && !GROUPED), "the wide-N mode is int8's");
   constexpr bool WIDE = wide(LAYOUT);
+  constexpr bool WIDE_N = MODE == GEMV_WIDE;
   constexpr int LD = WIDE ? 4 : 2;        // loads of a lane a step
-  constexpr int RB = R * 2 / LD;          // steps in flight: the same bytes
+  // steps in flight: the same bytes; WIDE_N 3, which keeps it at 128
+  // registers, so that four blocks fit an SM (four steps take 144
+  // registers: three blocks an SM, two waves over the lm_head's 501 tiles)
+  constexpr int RB = WIDE_N ? 3 : R * 2 / LD;
   constexpr int NA = LAYOUT == C4 ? 2 : 1;
-  constexpr int TO = NA * TN;             // outputs of a tile row
-  constexpr int EP = MROWS * TO / THREADS;
+  constexpr int TB = block_cols(MODE);    // byte columns a block
+  constexpr int TO = NA * TB;             // outputs of a tile row
+  constexpr int EP = WIDE_N ? 1 : MROWS * TO / THREADS;
   cg::cluster_group cluster = cg::this_cluster();
   const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int M = p.M, K = p.K, N = p.N, ldw = p.ldw, G = p.G;
@@ -262,10 +293,13 @@ __global__ void __launch_bounds__(THREADS) gemv_splitk_kernel(const KernelArgs<M
   const int r0 = blockIdx.y * p.span;
   const int n_rows = max(min(rows, r0 + p.span) - r0, 0);
   const int xw = staged_rows(p.span);
-  const int col0 = blockIdx.x * TN, m0 = blockIdx.z * MROWS;
+  const int col0 = blockIdx.x * TB, m0 = blockIdx.z * MROWS;
   const int mt = min(MROWS, M - m0);                 // live activation rows
-  const int mr = staged_m(M, m0);
+  const int mr = WIDE_N ? mt : staged_m(M, m0);      // staged rows
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // WIDE_N: the warp's 64 columns of the tile, and whether they are stored
+  const int wcw = WIDE_N ? TN * warp : 0;
+  const bool warp_in = !WIDE_N || col0 + wcw < ldw;
   const int t = lane & 3, gq = lane >> 2;            // MMA thread / group ids
   // the tile's weight: W2 past column n1 (its columns from 0 again)
   const bool second = MODE == UP && col0 >= p.n1;
@@ -288,7 +322,7 @@ __global__ void __launch_bounds__(THREADS) gemv_splitk_kernel(const KernelArgs<M
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* part = reinterpret_cast<float*>(smem);                       // MROWS x TO
-  unsigned char* region = smem + MROWS * TO * 4;
+  unsigned char* region = smem + (WIDE_N ? align16(mr * TO * 4) : MROWS * TO * 4);
   unsigned* xs = reinterpret_cast<unsigned*>(region);                 // mr x xw
   float* st = reinterpret_cast<float*>(region + align16(mr * xw * 4));
   float* red = reinterpret_cast<float*>(region);                      // after the loop
@@ -296,14 +330,18 @@ __global__ void __launch_bounds__(THREADS) gemv_splitk_kernel(const KernelArgs<M
   // 1. the first batch of weight loads: step s of this warp is slice (pair)
   // rows [8 s, 8 s + 8); a lane loads byte rows 8 s + t and 8 s + t + 4
   // (WIDE: rows 16 s + t + 4 l, l < 4), columns [8 gq, 8 gq + 8) of the tile
+  // (WIDE_N: of the warp's 64). The warps take every NWARPS-th step of the
+  // slice; WIDE_N's each take them all
   const int steps = (n_rows + STEP - 1) / STEP;
-  const int my_steps = steps > warp ? (steps - warp + NWARPS - 1) / NWARPS : 0;
-  const int8_t* wp = w + (size_t)((WIDE ? 2 * r0 : r0) + t) * ldw + wcol(8 * gq);
+  const int my_steps = WIDE_N ? (warp_in ? steps : 0)
+                              : steps > warp ? (steps - warp + NWARPS - 1) / NWARPS : 0;
+  auto step_row = [&](int n) { return STEP * (WIDE_N ? n : warp + NWARPS * n); };
+  const int8_t* wp = w + (size_t)((WIDE ? 2 * r0 : r0) + t) * ldw + wcol(wcw + 8 * gq);
   uint2 cur[RB][LD], nxt[RB][LD] = {};
   auto load = [&](uint2 (&buf)[RB][LD], int batch) {
 #pragma unroll
     for (int u = 0; u < RB; ++u) {
-      const int i = STEP * (warp + NWARPS * (batch * RB + u));
+      const int i = step_row(batch * RB + u);
       const bool in = batch * RB + u < my_steps;
 #pragma unroll
       for (int l = 0; l < LD; ++l) {
@@ -437,14 +475,17 @@ __global__ void __launch_bounds__(THREADS) gemv_splitk_kernel(const KernelArgs<M
 #pragma unroll
     for (int u = 0; u < RB; ++u) {
       if (b * RB + u >= my_steps) break;
-      const int i = STEP * (warp + NWARPS * (b * RB + u));
+      const int i = step_row(b * RB + u);
       unsigned a[4];
       {
-        const unsigned p0 = xs[gq * xw + i + t], p4 = xs[gq * xw + i + t + 4];
+        // WIDE_N stages the live rows only: A rows past them are zeros
+        const bool live = !WIDE_N || gq < mr;
+        const unsigned p0 = live ? xs[gq * xw + i + t] : 0u;
+        const unsigned p4 = live ? xs[gq * xw + i + t + 4] : 0u;
         a[0] = __byte_perm(p0, p4, 0x5410);      // low levels' x, rows t, t + 4
         a[2] = __byte_perm(p0, p4, 0x7632);      // high levels' x
         a[1] = a[3] = 0u;
-        if (mr > 8) {
+        if (WIDE_N ? gq + 8 < mr : mr > 8) {
           const unsigned q0 = xs[(gq + 8) * xw + i + t];
           const unsigned q4 = xs[(gq + 8) * xw + i + t + 4];
           a[1] = __byte_perm(q0, q4, 0x5410);
@@ -539,6 +580,30 @@ __global__ void __launch_bounds__(THREADS) gemv_splitk_kernel(const KernelArgs<M
     for (int u = 0; u < RB; ++u)
 #pragma unroll
       for (int l = 0; l < LD; ++l) cur[u][l] = nxt[u][l];
+  }
+
+  if constexpr (WIDE_N) {
+    // one slice: the warp's tile into the block's (mt, 256) tile, then each
+    // output scaled, the residual added in f32, one cast. acc[0][j] holds
+    // rows gq, gq + 8 and the warp's columns 16 t + j, 16 t + 8 + j
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float* dst = part + gq * TO + wcw + 16 * t + j;
+      if (gq < mt) dst[0] = acc[0][j][0], dst[8] = acc[0][j][1];
+      if (gq + 8 < mt) dst[8 * TO] = acc[0][j][2], dst[8 * TO + 8] = acc[0][j][3];
+    }
+    __syncthreads();
+    for (int e = tid; e < mt * TO; e += THREADS) {
+      const int row = m0 + e / TO, col = col0 + e % TO;
+      if (col >= N) continue;
+      float v = part[e] * __ldg(scale + col);
+      if (p.res != nullptr) v += bf(p.res[(size_t)row * N + col]);
+      if (p.out_f32)
+        reinterpret_cast<float*>(p.out)[(size_t)row * N + col] = v;
+      else
+        reinterpret_cast<__nv_bfloat16*>(p.out)[(size_t)row * N + col] = __float2bfloat16(v);
+    }
+    return;
   }
 
   // the epilogue's operands (outputs rank, rank + S, ... of the tile),
@@ -712,6 +777,7 @@ inline int launch_args(const KernelArgs<MODE>& a, int splits, int mt, cudaStream
              a.sin_r != nullptr && a.out_k != nullptr && a.out_v != nullptr &&
              a.nw != nullptr && a.res == nullptr && !a.out_f32;
   const bool ok = plan_ok(LAYOUT, a.K, splits, mt, a.span) && a.K % 2 == 0 && qkv_ok &&
+                  (MODE != GEMV_WIDE || (splits == 1 && a.M <= MROWS)) &&
                   a.ldw % TN == 0 && cols_ok && a.M >= 1 &&
                   reinterpret_cast<uintptr_t>(a.w) % 16 == 0 && GROUPED == (a.G > 0) &&
                   two == (a.w2 != nullptr) && (MODE == SWIGLU) == (a.ab != nullptr) &&
@@ -723,11 +789,12 @@ inline int launch_args(const KernelArgs<MODE>& a, int splits, int mt, cudaStream
                                                 : gs % 16 == 0)));
   if (!ok) return (int)cudaErrorInvalidValue;
   auto kernel = gemv_splitk_kernel<LAYOUT, GROUPED, MODE>;
-  const int smem = smem_bytes(LAYOUT, a.K, a.G, a.M, a.span);
+  const int smem = smem_bytes(LAYOUT, a.K, a.G, a.M, a.span, MODE);
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((width + TN - 1) / TN, splits, (a.M + MROWS - 1) / MROWS);
+  cfg.gridDim = dim3((width + block_cols(MODE) - 1) / block_cols(MODE), splits,
+                     (a.M + MROWS - 1) / MROWS);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -743,13 +810,16 @@ inline int launch_args(const KernelArgs<MODE>& a, int splits, int mt, cudaStream
   return (int)cudaGetLastError();
 }
 
-// The GEMV of rows 1, 5 and 6: one weight, x with an optional norm.
-template <int LAYOUT, bool GROUPED>
+// The GEMV of rows 1, 4, 5 and 6: one weight, x with an optional norm
+// (MODE: GEMV, or row 4's GEMV_WIDE).
+template <int LAYOUT, bool GROUPED, int MODE = GEMV>
 inline int launch(const void* x, const void* w, const void* scale, const void* nw,
                   const void* res, void* out, int M, int K, int N, int ldw, int G,
                   float eps, int out_f32, int splits, int mt, int span,
                   cudaStream_t stream) {
-  static_assert(LAYOUT == I4 || LAYOUT == K4, "row-packed int4 layouts only");
+  static_assert(LAYOUT == I4 || LAYOUT == K4 || (LAYOUT == INT8 && !GROUPED),
+                "row-packed int4 layouts and per-channel int8 only");
+  static_assert(MODE == GEMV || MODE == GEMV_WIDE, "a GEMV mode");
   Args a = {};
   a.x = static_cast<const __nv_bfloat16*>(x);
   a.w = static_cast<const int8_t*>(w);
@@ -759,7 +829,7 @@ inline int launch(const void* x, const void* w, const void* scale, const void* n
   a.out = out;
   a.M = M, a.K = K, a.N = N, a.n1 = N, a.ldw = ldw, a.G = G, a.out_f32 = out_f32;
   a.span = span, a.eps = eps;
-  return launch_args<LAYOUT, GROUPED, GEMV>(a, splits, mt, stream);
+  return launch_args<LAYOUT, GROUPED, MODE>(a, splits, mt, stream);
 }
 
 }  // namespace splitk

@@ -1,19 +1,21 @@
-// Tensor-core tile kernel of the int4 GEMVs above the decode rows, for
+// Tensor-core tile kernel of the quantized GEMVs above the decode rows, for
 // sm_90a. Included by gemv_int4c.cu and gemv_int4cg.cu (the column-packed
 // layout, C4, per column and grouped), gemv_int4i.cu (the row-interleaved
 // layout, I4, per column and grouped), gemv_int4g.cu and gemv_int4.cu (the
-// K-split layout, K4, grouped and per column). A layout enters only through
-// the W stage's box, `unpack` and the epilogue's column map.
+// K-split layout, K4, grouped and per column) and gemv_int8.cu (int8, one
+// level a byte, INT8, per column). A layout enters only through the W
+// stage's box, `unpack` and the epilogue's column map.
 //
 //   out (M, N) = [rmsnorm(x)] (M, K) @ unpack(W) (K, N) [* scale] [+ res]
 //
 // Replaces, above quant.SPLITK_MAX_M activation rows, the tiled template of
 // gemv_common.cuh for `_pallas_int4c_matmul` / `_pallas_int4cg_matmul`
-// (uniaudio2_tpu/ops/quant.py:789-916), `_pallas_int4i_matmul` (:919-1038)
-// and `_pallas_int4g_matmul` (:688-786). The serving path calls them at
-// every prefill: the QKV projection (I4 / K4, with the RMSNorm folded),
-// attn_proj (with the residual folded) and, above 128 rows (the fused MLP
-// takes up to 128), gate, up and the down-projection, at M = 63 to 510.
+// (uniaudio2_tpu/ops/quant.py:789-916), `_pallas_int4i_matmul` (:919-1038),
+// `_pallas_int4g_matmul` (:688-786) and `_pallas_int8_matmul` (:463-565).
+// The serving path calls them at every prefill: the QKV projection (I4 /
+// K4 / INT8, with the RMSNorm folded), attn_proj (with the residual folded)
+// and, above 128 rows (the fused MLP takes up to 128), gate, up and the
+// down-projection, at M = 63 to 510.
 //
 // Bound: operations. At (M = 255, K = 8192, N = 3072) a call is 12.8 GFLOP
 // (13 us at 989 TFLOP/s) against 12.6 MB of weights (3.8 us at 3.35 TB/s);
@@ -37,6 +39,16 @@
 //     - I4: byte [r, c] holds input rows 2r and 2r + 1 of column c, so one
 //       byte is exactly one A register (its two nibbles, one pair), and
 //       rows g and g + 8 are output columns c and c + 8;
+//     - INT8: byte [k, c] is input row k of column c, so the two halves of
+//       an A register are a box row apart. A thread's A rows g and g + 8
+//       are the adjacent byte columns 16 u + 2 g and 16 u + 2 g + 1 of its
+//       warpgroup's 64 (the epilogue's column map permutes the 64 so), and
+//       one 2-byte load of a row gives both rows' levels of that k: four
+//       loads a k-step (rows 2t, 2t + 1, 2t + 8, 2t + 9), one byte permute
+//       pairing two rows, where one byte a register would take eight byte
+//       loads. Under the 128-byte swizzle the four rows a load instruction
+//       reads (2t, t < 4, or 2t + 1) put the warp's 16-byte run in four
+//       distinct 16-byte chunks: no bank conflict;
 //     - K4: byte [r, c] holds rows r and K/2 + r, the Pallas kernel's two
 //       dots. A small row kernel (`rows_kernel`) writes the activations in
 //       the k order x'[2r] = x[r], x'[2r + 1] = x[K/2 + r] into a scratch
@@ -51,12 +63,14 @@
 //       copy costs one pass over x (2 M K bytes each way) and a launch,
 //       and the served QKV call writes a normalised copy anyway;
 //  * a block is WGS = 2 consumer warpgroups (128 output columns: 64 byte
-//    columns of C4, 128 of I4 / K4) and one producer warp. The producer
-//    keeps a ring of STAGES stages of BK = 64 input rows full by TMA (x: a
-//    (BN, 64) bf16 box, 128-byte swizzled as wgmma reads it; W: C4 a (64,
-//    64) byte box, 64-byte swizzled, I4 / K4 a (32, 128) byte box,
-//    128-byte swizzled, so that the four bytes a thread reads of a k-step
-//    fall in distinct banks across its warp), each stage with a `full`
+//    columns of C4, 128 of I4 / K4 / INT8) and one producer warp. The
+//    producer keeps a ring of STAGES stages (`stages`: INT8's W box is twice
+//    the others', and its ring takes as many stages as 227 KB hold, five)
+//    of BK = 64 input rows full by TMA (x: a (BN, 64) bf16 box, 128-byte
+//    swizzled as wgmma reads it; W: C4 a (64, 64) byte box, 64-byte
+//    swizzled, I4 / K4 a (32, 128) byte box and INT8 a (64, 128) one,
+//    128-byte swizzled, so that the bytes a thread reads of a k-step fall
+//    in distinct banks across its warp), each stage with a `full`
 //    mbarrier (the box bytes) and an `empty` one (every consumer thread
 //    arrives once its products of the stage have completed), so the loads
 //    of later stages run under the products of this one. Rows past M and K
@@ -70,8 +84,12 @@
 //    LOP3 flips the sign bits too). Grouped: each level becomes f32 the
 //    same way, is multiplied by its f32 scale (fetched from L2 a stage
 //    ahead) and rounded to bf16 before the product, as the Pallas kernel
-//    rounds the scaled tile;
-//  * the RMSNorm prologue (I4 / K4; the served QKV call) is `rows_kernel`,
+//    rounds the scaled tile. INT8: a level needs 8 bits, more than bf16's
+//    7 under one exponent, so a byte permute puts (b ^ 0x80) = level + 128
+//    under the f32 exponent of 2^23, one FADD subtracts 2^23 + 128 and one
+//    cvt packs two levels as bf16x2 (exact: |level| <= 127), as
+//    gemv_int4_splitk.cuh does;
+//  * the RMSNorm prologue (I4 / K4 / INT8; the served QKV call) is `rows_kernel`,
 //    launched by the same C entry point before the tile kernel: f32 sums
 //    of squares in a fixed order, bf16(x * rsqrt(mean + eps) * w), the
 //    twin's rounding, into the scratch buffer the tile kernel then reads
@@ -129,18 +147,38 @@ constexpr int PITCH = COLS + 4;           // floats a row of the partial tile
 constexpr int X_BYTES = BN * 128;         // an x stage: BN rows of BK bf16
 constexpr int W_BYTES = BK * BC;          // a W stage: (BK, BC) C4, (BK/2, COLS) I4 / K4
 constexpr int MAX_SPLITS = 8;
+constexpr int SMEM_CAP = 232448;          // the 227 KB a block may take
 constexpr unsigned OFFSET = 0x88888888u;  // two's complement -> n + 8
 constexpr unsigned MAGIC2 = 0x43004300u;  // bf16x2 (128, 128)
 static_assert(BC == 32 * WGS, "a consumer warpgroup owns 32 byte columns of C4");
 static_assert((BK / 2) * COLS == W_BYTES, "one W stage size for every layout");
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
+// A W stage's bytes: INT8's (BK, COLS) box holds one level a byte, twice
+// the int4 layouts' W_BYTES.
+__host__ __device__ constexpr int w_bytes(int layout) {
+  return layout == INT8 ? BK * COLS : W_BYTES;
+}
+// Stages of the ring: STAGES for the int4 layouts; for INT8 as many as fit
+// beside the alignment slack and the mbarriers, at most 8.
+__host__ __device__ constexpr int stages(int layout) {
+  return layout == INT8 ? cmin(8, (SMEM_CAP - 1024 - 16 * 8) / (X_BYTES + BK * COLS))
+                        : STAGES;
+}
 // The ring during the loop, the partial tile after it.
-constexpr int REGION = cmax(STAGES * (X_BYTES + W_BYTES), BN * PITCH * 4);
+__host__ __device__ constexpr int region(int layout) {
+  return cmax(stages(layout) * (X_BYTES + w_bytes(layout)), BN * PITCH * 4);
+}
 // Dynamic shared memory: 1024 bytes of alignment slack (the 128-byte
-// swizzle's period), the region, the 2 STAGES mbarriers.
-constexpr int SMEM = 1024 + REGION + 16 * STAGES;
-static_assert(SMEM <= 232448, "over the 227 KB a block may take");
+// swizzle's period), the region, the 2 stages mbarriers.
+__host__ __device__ constexpr int smem(int layout) {
+  return 1024 + region(layout) + 16 * stages(layout);
+}
+constexpr int SMEM = smem(C4);            // every int4 layout's
+static_assert(SMEM == smem(I4) && SMEM == smem(K4), "one int4 ring");
+static_assert(smem(INT8) <= SMEM_CAP && stages(INT8) == 5,
+              "over the 227 KB a block may take");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -342,6 +380,15 @@ __device__ __forceinline__ unsigned byte_levels(unsigned b) {
   return d;
 }
 
+// INT8: the A register of bytes j and j + 1 of q (q XORed with 0x80808080:
+// a byte is level + 128), byte j's level in the low half, exact: each byte
+// under the f32 exponent of 2^23, less 2^23 + 128, one cvt to bf16x2.
+__device__ __forceinline__ unsigned int8_levels(unsigned q, int j) {
+  const float lo = __uint_as_float(__byte_perm(q, 0x4B000000u, 0x7440 | j)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(q, 0x4B000000u, 0x7440 | (j + 1))) - 8388736.f;
+  return pack_bf2(lo, hi);
+}
+
 // Grouped: the byte's two levels times their f32 scales (slo the low
 // nibble's, shi the high one's), rounded to bf16.
 __device__ __forceinline__ unsigned byte_levels_scaled(unsigned b, float slo, float shi) {
@@ -362,8 +409,13 @@ gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
                const __grid_constant__ CUtensorMap tw, const float* __restrict__ scale,
                const __nv_bfloat16* __restrict__ res, void* __restrict__ out, int M,
                int K, int N, int G, int out_f32, int span) {
+  static_assert(!(GROUPED && LAYOUT == INT8), "int8 has per-channel scales only");
   constexpr int XB = X_BYTES;
-  constexpr bool ROWS = LAYOUT != C4;                 // row-packed: I4, K4
+  constexpr int WB = w_bytes(LAYOUT);
+  constexpr int STAGES = stages(LAYOUT);
+  constexpr int REGION = region(LAYOUT);
+  constexpr bool ROWS = LAYOUT != C4;                 // a byte column a column
+  constexpr bool PACKED = LAYOUT == I4 || LAYOUT == K4;   // two rows a byte
   cg::cluster_group cluster = cg::this_cluster();
   const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int nh = N / 2;
@@ -381,7 +433,7 @@ gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* gbase = smem_raw + (base - raw);     // `base` as a pointer
   const uint32_t x_s = base;                          // stage s at + s XB
-  const uint32_t w_s = base + STAGES * XB;            // stage s at + s W_BYTES
+  const uint32_t w_s = base + STAGES * XB;            // stage s at + s WB
   float* part = reinterpret_cast<float*>(gbase);      // BN x PITCH, after the loop
   const uint32_t bars = base + REGION;                // full[s], then empty[s]
 
@@ -402,28 +454,36 @@ gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
         const int s = j % STAGES;
         const uint32_t full = bars + 8 * s;
         if (j >= STAGES) mbar_wait(bars + 8 * (STAGES + s), ((j / STAGES) - 1) & 1);
-        mbar_expect_tx(full, XB + W_BYTES);
+        mbar_expect_tx(full, XB + WB);
         const int k = k_begin + j * BK;
         tma_load(x_s + s * XB, &tx, full, k, m0);
-        tma_load(w_s + s * W_BYTES, &tw, full, col0, ROWS ? k / 2 : k);
+        tma_load(w_s + s * WB, &tw, full, col0, PACKED ? k / 2 : k);
       }
     }
   } else {
     const int wg = warp >> 2, u = warp & 3;
     const int g = lane >> 2, t = lane & 3;
     // C4: byte column cl of the tile, output columns c and nh + c. I4 / K4:
-    // output (= byte) columns cl and cl + 8 of the tile, c and c + 8
-    const int cl = ROWS ? 64 * wg + 16 * u + g : 32 * wg + 8 * u + g;
+    // output (= byte) columns cl and cl + 8 of the tile, c and c + 8. INT8:
+    // output (= byte) columns cl and cl + 1
+    const int cl = LAYOUT == INT8 ? 64 * wg + 16 * u + 2 * g
+                   : ROWS         ? 64 * wg + 16 * u + g
+                                  : 32 * wg + 8 * u + g;
     const int c = col0 + cl;
     // the bytes of a k-step of 16 this thread reads, in a W stage:
     //  C4 (64-byte swizzle: the 16-byte chunk of a row is XORed with bits
     //  7-8 of its offset, t for each of the rows 2t, 2t + 1, 2t + 8,
     //  2t + 9): byte (row 2t, column cl), then + BK, + 8 BK, + 9 BK;
     //  I4 / K4 (128-byte swizzle: the chunk XORed with the row's index mod
-    //  8): byte rows t (w_off) and t + 4 (w_off4), columns cl and cl + 8 (+ 8)
-    const int w_off = ROWS ? t * COLS + (((cl >> 4) ^ t) << 4) + g
-                           : 2 * t * BK + ((((cl >> 4) ^ t) << 4) | (cl & 15));
-    const int w_off4 = t * COLS + 4 * COLS + (((cl >> 4) ^ (t + 4)) << 4) + g;
+    //  8): byte rows t (w_off) and t + 4 (w_off4), columns cl and cl + 8 (+ 8);
+    //  INT8 (128-byte swizzle): the 2 bytes of columns cl, cl + 1 of rows
+    //  2t (w_off) and 2t + 1 (w_off4), then 8 rows below each (+ 8 COLS)
+    const int w_off = LAYOUT == INT8 ? 2 * t * COLS + (((cl >> 4) ^ (2 * t)) << 4) + (cl & 15)
+                      : ROWS ? t * COLS + (((cl >> 4) ^ t) << 4) + g
+                             : 2 * t * BK + ((((cl >> 4) ^ t) << 4) | (cl & 15));
+    const int w_off4 = LAYOUT == INT8
+                           ? (2 * t + 1) * COLS + (((cl >> 4) ^ (2 * t + 1)) << 4) + (cl & 15)
+                           : t * COLS + 4 * COLS + (((cl >> 4) ^ (t + 4)) << 4) + g;
     const unsigned char* wsm = gbase + STAGES * XB;
 
     float acc[BN / 2];
@@ -462,10 +522,24 @@ gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
       }
       mbar_wait(bars + 8 * s, (j / STAGES) & 1);
       uint32_t a[4][4];
-      const unsigned char* wp = wsm + s * W_BYTES;
+      const unsigned char* wp = wsm + s * WB;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        if constexpr (ROWS) {
+        if constexpr (LAYOUT == INT8) {
+          // A registers: (row g, k 2t, 2t + 1) the low bytes of rows 2t and
+          // 2t + 1, (row g + 8) their high bytes; then rows 2t + 8, 2t + 9
+          const unsigned char* q = wp + kk * 16 * COLS;
+          const unsigned r0 = *reinterpret_cast<const unsigned short*>(q + w_off);
+          const unsigned r1 = *reinterpret_cast<const unsigned short*>(q + w_off4);
+          const unsigned r8 = *reinterpret_cast<const unsigned short*>(q + 8 * COLS + w_off);
+          const unsigned r9 = *reinterpret_cast<const unsigned short*>(q + 8 * COLS + w_off4);
+          const unsigned lo = __byte_perm(r0, r1, 0x5140) ^ 0x80808080u;
+          const unsigned hi = __byte_perm(r8, r9, 0x5140) ^ 0x80808080u;
+          a[kk][0] = int8_levels(lo, 0);
+          a[kk][1] = int8_levels(lo, 2);
+          a[kk][2] = int8_levels(hi, 0);
+          a[kk][3] = int8_levels(hi, 2);
+        } else if constexpr (ROWS) {
           // A registers: (row g, k 2t, 2t + 1) byte row t column cl, (row
           // g + 8) column cl + 8, then byte row t + 4: k 2t + 8, 2t + 9
           const unsigned char* q = wp + kk * 8 * COLS;
@@ -507,9 +581,9 @@ gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
 
     // the block's partial tile: row = activation row; column: C4 cl the low
     // nibbles' output column, BC + cl the high nibbles'; I4 / K4 cl and
-    // cl + 8
+    // cl + 8; INT8 cl and cl + 1
     consumers_sync();                                   // the ring is drained
-    constexpr int second = ROWS ? 8 : BC;
+    constexpr int second = LAYOUT == INT8 ? 1 : ROWS ? 8 : BC;
 #pragma unroll
     for (int n = 0; n < BN / 8; ++n)
 #pragma unroll
@@ -555,7 +629,7 @@ gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
   cluster.sync();                     // no block leaves while its tile is read
 }
 
-// The activations a row-packed call's tile kernel reads, one block a row:
+// The activations a row-packed or int8 call's tile kernel reads, one block a row:
 // with a norm weight the row RMS-normalised (f32 sum of squares in a fixed
 // order, rsqrt(mean + eps)), times the weight and rounded to bf16, as the
 // twin rounds it (`ops/norms.py`); for K4 in the k order x'[2r] = x[r],
@@ -644,13 +718,14 @@ inline bool plan_ok(int layout, int M, int K, int N, int ldw, int G, int splits,
   if ((long long)splits * span < K || (long long)(splits - 1) * span >= K) return false;
   if (M < 1 || N < 1 || K % 8 || ldw % 16 || ldw < (layout == C4 ? N - N / 2 : N))
     return false;
-  if (G > 0 && (K % G || (K / G) % 16 || (layout == K4 && G % 2))) return false;
+  if (G > 0 && (layout == INT8 || K % G || (K / G) % 16 || (layout == K4 && G % 2)))
+    return false;
   return true;
 }
 
-// The launch: x (M, K) bf16 and w (K, ldw) (C4) or (K/2, ldw) (I4, K4)
-// int8, both 16-byte aligned; residual (M, N) bf16 or NULL; for K4 and for
-// a call with a norm weight (I4, K4), xn, (M, K) bf16 and 16-byte aligned,
+// The launch: x (M, K) bf16 and w (K, ldw) (C4, INT8) or (K/2, ldw) (I4,
+// K4) int8, both 16-byte aligned; residual (M, N) bf16 or NULL; for K4 and
+// for a call with a norm weight (I4, K4, INT8), xn, (M, K) bf16 and 16-byte aligned,
 // takes the activations `rows_kernel` writes (C4 folds neither). Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a plan or an operand
 // the kernel does not take or a tensor map cuTensorMapEncodeTiled refuses.
@@ -679,11 +754,14 @@ int launch(const void* x, const void* w, const void* scale, const void* nw,
   const bool mapped =
       map2d(&tx, staged ? xn : x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, M, K, K * 2, BN, BK,
             CU_TENSOR_MAP_SWIZZLE_128B) &&
-      (ROWS ? map2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, K / 2, ldw, ldw, BK / 2, COLS,
-                    CU_TENSOR_MAP_SWIZZLE_128B)
-            : map2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, ldw, ldw, BK, BC,
-                    CU_TENSOR_MAP_SWIZZLE_64B));
+      (LAYOUT == INT8 ? map2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, ldw, ldw, BK, COLS,
+                              CU_TENSOR_MAP_SWIZZLE_128B)
+       : ROWS ? map2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, K / 2, ldw, ldw, BK / 2, COLS,
+                      CU_TENSOR_MAP_SWIZZLE_128B)
+              : map2d(&tw, w, CU_TENSOR_MAP_DATA_TYPE_UINT8, K, ldw, ldw, BK, BC,
+                      CU_TENSOR_MAP_SWIZZLE_64B));
   if (!mapped) return (int)cudaErrorInvalidValue;
+  constexpr int SMEM = smem(LAYOUT);
   auto kernel = gemv_tc_kernel<LAYOUT, GROUPED>;
   static bool ready[64] = {};     // the shared-memory cap, raised once a device
   int dev = 0;

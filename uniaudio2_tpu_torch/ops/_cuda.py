@@ -39,8 +39,8 @@ _L = ctypes.c_longlong
 # (G scale groups, 0 = per-channel)
 _GEMV = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P]
 # the same with the host's plan before the stream: for the column-packed
-# forms splits (0 = the tiled instance), span (`quant.tc_plan`); rows 1, 5
-# and 6 splits (0 = the tiled instance), mt, span (mt 16: the split-K
+# forms splits (0 = the tiled instance), span (`quant.tc_plan`); rows 1, 4,
+# 5 and 6 splits (0 = the tiled instance), mt, span (mt 16: the split-K
 # kernel, `quant.gemv_plan`; mt = the tile kernel's BN: `quant.tc_plan`)
 # and the tile kernel's scratch for x (or NULL)
 _GEMV_TC = _GEMV[:-1] + [_I, _I, _P]
@@ -48,7 +48,9 @@ _GEMV_ROWS = _GEMV[:-1] + [_I, _I, _I, _P, _P]
 _SIGNATURES = {
     "ua2_gemv_int4i": _GEMV_ROWS,
     "ua2_gemv_int4i_tiled": _GEMV,
-    "ua2_gemv_int8": _GEMV,
+    "ua2_gemv_int8": _GEMV_ROWS,
+    "ua2_gemv_int8_wide": _GEMV_ROWS,
+    "ua2_gemv_int8_tiled": _GEMV,
     "ua2_gemv_int4": _GEMV_ROWS,
     "ua2_gemv_int4_tiled": _GEMV,
     "ua2_gemv_int4g": _GEMV_ROWS,

@@ -19,7 +19,8 @@ Six kernels of the JAX package live here, as CUDA C++ for ``sm_90a``
   ``csrc/gemv_int4_splitk.cuh``, planned by `gemv_plan`, above 16 rows the
   tensor-core tile kernel of ``csrc/gemv_int4_tc.cuh``, planned by
   `tc_plan`);
-* `int8_matmul` replaces `_pallas_int8_matmul` (per-channel int8);
+* `int8_matmul` replaces `_pallas_int8_matmul` (per-channel int8; at
+  decode the split-K cluster kernel, above 16 rows the tile kernel too);
 * `int4_matmul` replaces `_pallas_int4_matmul` (K-split int4; at decode
   the split-K cluster kernel, above 16 rows the tile kernel too);
 * `int4g_matmul` replaces `_pallas_int4g_matmul` (K-split, grouped; at
@@ -491,10 +492,31 @@ SPLITK_MAX_M = 16
 SPLITK_MAX_SPLITS = 8
 SPLITK_BLOCKS_PER_SM = 2.25
 SPLITK_STEP = 8      # pairs of rows a warp step of the int8 / C4 layouts
+# Output columns a block of the int8 GEMV's wide-N instance (four warps of
+# GEMV_TILE_N, each walking all of K): where that many columns a tile alone
+# give the grid `SPLITK_BLOCKS_PER_SM` blocks an SM (the lm_head), a block
+# reads 256 contiguous bytes of a row. It is built for SPLITK_WIDE_BLOCKS
+# blocks an SM (128 registers a thread), and the plan takes it where the
+# shared memory of that many blocks fits an SM's SM_SHARED_BYTES (1 KB of
+# each block's is the system's), so that the lm_head's 501 tiles run in one
+# wave: up to 7 rows at K = 3072 (`gemv_plan`).
+SPLITK_WIDE_N = 256
+SPLITK_WIDE_BLOCKS = 4
+SM_SHARED_BYTES = 233472      # an sm_90 SM's shared memory, 228 KB
+
+
+def wide_smem(m: int, k: int) -> int:
+    """Dynamic shared bytes of a wide-N block (csrc/gemv_int4_splitk.cuh
+    `smem_bytes`): its (rows, 256) f32 tile, then the rows staged, K/2
+    words each padded to 4 past a multiple of 32."""
+    rows = min(m, SPLITK_MAX_M)
+    words = -(-(k // 2) // 32) * 32 + 4
+    return (-(-rows * SPLITK_WIDE_N * 4 // 16) * 16
+            + -(-rows * words * 4 // 16) * 16)
 
 
 class GemvPlan(NamedTuple):
-    """How one int4 GEMV call is launched. ``splits`` K-slices (0: the tiled
+    """How one GEMV call is launched. ``splits`` K-slices (0: the tiled
     kernel of every row tile over all of K), ``mt`` activation rows a block,
     ``tile`` output columns a block and ``span`` byte rows a slice."""
 
@@ -511,14 +533,16 @@ class GemvPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def gemv_plan(m: int, k: int, n: int, g: int, layout: int,
-              sms: int, max_splits: int = SPLITK_MAX_SPLITS) -> GemvPlan:
+              sms: int, max_splits: int = SPLITK_MAX_SPLITS,
+              wide: bool = False) -> GemvPlan:
     """The launch of a split-K GEMV of layout ``layout`` with ``g`` scale
     groups (0: per channel) on a card of ``sms`` SMs: a function of the
     shape and the SM count only. The row-packed int4 layouts
     (`LAYOUT_I4`, `LAYOUT_K4`: rows 1, 5 and 6, the fused SwiGLU's gate /
-    up and interleaved down-projection) and the fused SwiGLU's int8
-    (`LAYOUT_INT8`) and column-packed (`LAYOUT_C4`, byte column c holds
-    output columns c and N/2 + c) ones; the fused SwiGLU's pass 1 asks
+    up and interleaved down-projection), the int8 one (`LAYOUT_INT8`: row
+    4, the fused SwiGLU's int8 passes) and the fused SwiGLU's
+    column-packed one (`LAYOUT_C4`, byte column c holds output columns c
+    and N/2 + c); the fused SwiGLU's pass 1 asks
     with ``n`` = 2 I, its two weights' column tiles. Up to `SPLITK_MAX_M`
     rows: the split-K kernel, all rows in one block (the MMA's 16), and
     the number of K-slices, up to ``max_splits`` (`SPLITK_MAX_SPLITS`; the
@@ -532,13 +556,22 @@ def gemv_plan(m: int, k: int, n: int, g: int, layout: int,
     nibbles of a byte share a group), K/G in the K-split one (the low and
     high halves each hold G/2 groups); for int8 and column-packed a step of
     8 pairs, or grouped the lcm of a step and K/G / 2 pairs. Above
-    `SPLITK_MAX_M` rows: the tiled kernel."""
-    if m > SPLITK_MAX_M:
+    `SPLITK_MAX_M` rows, and for int8 and column-packed weights whose K is
+    not a whole number of steps of 16 rows: the tiled kernel. With
+    ``wide`` (`int8_matmul`), an int8 GEMV whose `SPLITK_WIDE_N`-column
+    tiles alone reach that grid (the lm_head) takes the wide-N instance,
+    one slice (``tile`` = `SPLITK_WIDE_N`), where `SPLITK_WIDE_BLOCKS` of
+    its blocks fit an SM's shared memory (`wide_smem`)."""
+    if m > SPLITK_MAX_M or (layout in (LAYOUT_INT8, LAYOUT_C4) and k % 16):
         return GemvPlan(0, 4, GEMV_TILE_N, k // 2)
     mt = SPLITK_MAX_M
     width = n - n // 2 if layout == LAYOUT_C4 else n
     tiles = -(-width // GEMV_TILE_N) * -(-m // mt)
     want = SPLITK_BLOCKS_PER_SM * sms
+    if wide and layout == LAYOUT_INT8 and -(-n // SPLITK_WIDE_N) >= want \
+            and SPLITK_WIDE_BLOCKS * (wide_smem(m, k) + 1024) \
+            <= SM_SHARED_BYTES:
+        return GemvPlan(1, mt, SPLITK_WIDE_N, k // 2)
     s, span = min(splitk_slices(k, g, layout, max_splits),
                   key=lambda c: (abs(math.log(tiles * c[0] / want)), c[0]))
     return GemvPlan(s, mt, GEMV_TILE_N, span)
@@ -601,8 +634,9 @@ class TcLayout(NamedTuple):
     def col_tiles(self, n: int, layout: int = LAYOUT_C4) -> int:
         """Column tiles of an ``n``-wide output: the column-packed layout
         covers columns c and N/2 + c with byte column c (``bc`` byte
-        columns a block), the row-packed ones (`LAYOUT_I4`, `LAYOUT_K4`)
-        one output column a byte column (2 ``bc`` a block)."""
+        columns a block), the others (`LAYOUT_I4`, `LAYOUT_K4`,
+        `LAYOUT_INT8`) one output column a byte column (2 ``bc`` a
+        block)."""
         if layout == LAYOUT_C4:
             return -(-(n - n // 2) // self.bc)
         return -(-n // (2 * self.bc))
@@ -618,7 +652,7 @@ def tc_layout() -> TcLayout:
 
 
 class TcPlan(NamedTuple):
-    """How one int4 GEMV above `SPLITK_MAX_M` rows is launched: ``splits``
+    """How one GEMV above `SPLITK_MAX_M` rows is launched: ``splits``
     K-slices of ``span`` input rows, one cluster a (column, row) tile of
     the tile kernel; ``splits`` = 0: the tiled kernel of
     `gemv_common.cuh`."""
@@ -640,11 +674,12 @@ class TcPlan(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def tc_plan(m: int, k: int, n: int, g: int, sms: int,
             layout: int = LAYOUT_C4) -> TcPlan:
-    """The launch of an int4 GEMV above the decode rows (`int4c_matmul`,
-    `int4cg_matmul`; `int4i_matmul` and `int4g_matmul` above
-    `SPLITK_MAX_M` rows) of ``m`` rows, contraction width ``k``, ``n``
-    output columns, ``g`` scale groups (0: per channel) and weight layout
-    ``layout`` (`LAYOUT_C4`, `LAYOUT_I4` or `LAYOUT_K4`) on a card of
+    """The launch of a GEMV above the decode rows (`int4c_matmul`,
+    `int4cg_matmul`; `int4i_matmul`, `int4_matmul`, `int4g_matmul` and
+    `int8_matmul` above `SPLITK_MAX_M` rows) of ``m`` rows, contraction
+    width ``k``, ``n`` output columns, ``g`` scale groups (0: per channel)
+    and weight layout ``layout`` (`LAYOUT_C4`, `LAYOUT_I4`, `LAYOUT_K4` or
+    `LAYOUT_INT8`) on a card of
     ``sms`` SMs: a function of the shape and the SM count only.
 
     The tiled kernel (``splits`` = 0) takes up to `SPLITK_MAX_M` rows, and
@@ -696,9 +731,10 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _launch_gemv(fn_name, layout, x, values, scale, out_dtype, pre_norm,
-                 residual, planner=None):
-    """One launch of the C entry point ``fn_name``; returns the output and
-    whether the plan named the tile kernel."""
+                 residual, planner=None, wide=None):
+    """One launch of the C entry point ``fn_name`` (``wide``, where the
+    plan names the wide-N instance); returns the output and whether the
+    plan named the tile kernel."""
     dev = x.device
     if x.ndim != 2 or x.dtype != torch.bfloat16:
         raise ValueError(f"{fn_name}: x must be 2-D bf16, got "
@@ -728,8 +764,11 @@ def _launch_gemv(fn_name, layout, x, values, scale, out_dtype, pre_norm,
     elif planner == "rows":
         if values.data_ptr() % 16:
             raise ValueError(f"{fn_name}: values must be 16-byte aligned")
-        p = gemv_plan(m, k, n, g, layout, _sm_count(dev))
+        p = gemv_plan(m, k, n, g, layout, _sm_count(dev),
+                      wide=wide is not None)
         plan = (p.splits, p.mt, p.span)
+        if p.tile != GEMV_TILE_N:
+            fn_name = wide
     if planner == "rows":
         # the tile kernel reads x through this scratch copy (normalised,
         # and for the K-split layout reordered) when it folds a norm or
@@ -749,12 +788,13 @@ def _launch_gemv(fn_name, layout, x, values, scale, out_dtype, pre_norm,
 
 
 def _gemv(wrapper, c_name, cls, x, values, scale, out_dtype, pre_norm=None,
-          residual=None, form=None, planner=None):
+          residual=None, form=None, planner=None, wide=None):
     """The body of every GEMV wrapper: validate ``values`` / ``scale`` as a
     container of type ``cls``, then the plain twin for a CPU tensor, else
     one launch of the C entry point ``c_name`` (given `tc_plan`'s plan
     when ``planner`` is "tc", `gemv_plan`'s up to `SPLITK_MAX_M` rows and
-    `tc_plan`'s above when it is "rows"),
+    `tc_plan`'s above when it is "rows"; the entry point ``wide`` where
+    `gemv_plan` names the wide-N instance),
     counted on ``wrapper`` and, when the plan named the tile kernel, on
     `gemv_tc` under the wrapper's form."""
     name = wrapper.__name__
@@ -768,7 +808,7 @@ def _gemv(wrapper, c_name, cls, x, values, scale, out_dtype, pre_norm=None,
         return matmul_plain(x, cls(values, scale), out_dtype=out_dtype,
                             pre_norm=pre_norm, residual=residual)
     out, tile = _launch_gemv(c_name, LAYOUTS[cls], x, values, scale,
-                             out_dtype, pre_norm, residual, planner)
+                             out_dtype, pre_norm, residual, planner, wide)
     _cuda.count(wrapper, form)
     if tile:
         _cuda.count(gemv_tc, form or name.removesuffix("_matmul"))
@@ -809,10 +849,27 @@ def int8_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
                 residual=None):
     """x (M, K) bf16 @ int8 (K, N_pad) * scale (N,) [+ residual] -> (M, N),
     optional RMSNorm prologue. CUDA kernel ``ua2_gemv_int8`` (replaces
-    `_pallas_int8_matmul`, uniaudio2_tpu/ops/quant.py:483); the plain twin
-    for CPU tensors."""
+    `_pallas_int8_matmul`, uniaudio2_tpu/ops/quant.py:483): up to
+    `SPLITK_MAX_M` rows the split-K kernel as `gemv_plan` says (over a
+    wide output, the lm_head, its wide-N instance,
+    ``ua2_gemv_int8_wide``), above them
+    the tensor-core tile kernel (a norm: its row kernel first; the scale
+    and the residual in its epilogue) or, at shapes neither takes, the
+    tiled kernel; the plain twin for CPU tensors. The tile kernel's
+    launches count on `gemv_tc` as the form "int8"."""
     return _gemv(int8_matmul, "ua2_gemv_int8", QuantizedLinear, x, values,
-                 scale, out_dtype, pre_norm, residual)
+                 scale, out_dtype, pre_norm, residual, planner="rows",
+                 wide="ua2_gemv_int8_wide")
+
+
+def int8_matmul_tiled(x, values, scale, *, out_dtype=None, pre_norm=None,
+                      residual=None):
+    """`int8_matmul` through the tiled kernel at any M
+    (``ua2_gemv_int8_tiled``), counted on its own: the yardstick the
+    split-K and tile kernels are timed against. No serving path calls
+    it."""
+    return _gemv(int8_matmul_tiled, "ua2_gemv_int8_tiled", QuantizedLinear,
+                 x, values, scale, out_dtype, pre_norm, residual)
 
 
 def int4_matmul(x, values, scale, *, out_dtype=None, pre_norm=None,
@@ -908,8 +965,8 @@ def int4cg_matmul_tiled(x, values, scale, *, out_dtype=None, pre_norm=None,
 
 for _fn in (int4i_matmul, int8_matmul, int4_matmul, int4g_matmul,
             int4c_matmul, int4cg_matmul, int4i_matmul_tiled,
-            int4g_matmul_tiled, int4_matmul_tiled, int4c_matmul_tiled,
-            int4cg_matmul_tiled):
+            int8_matmul_tiled, int4g_matmul_tiled, int4_matmul_tiled,
+            int4c_matmul_tiled, int4cg_matmul_tiled):
     _cuda.reset_count(_fn)
 
 _GEMV = {QuantizedLinear: int8_matmul, QuantizedLinearI4: int4i_matmul,

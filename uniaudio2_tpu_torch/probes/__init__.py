@@ -8,9 +8,11 @@ shape and the DiT's kernel, against the production einsum path and SDPA),
 8 and 16); and, with no TPU counterpart, `gemv_splitk_sweep` (rows 1 and
 6's split-K GEMV at every legal number of K-slices, against the host's
 plan), `tc_splits_sweep` (the tensor-core tile kernel of rows 1, 6, 7
-and 8 likewise), `swiglu_splits_sweep` (row 2's two split-K passes likewise)
-and `splitk_ab` (rows 1, 5 and 6's split-K GEMVs through this checkout's
-kernel library and another checkout's, in one process). Each prints the
+and 8 likewise), `swiglu_splits_sweep` (row 2's two split-K passes likewise),
+`splitk_ab` (rows 1, 5 and 6's split-K GEMVs through this checkout's
+kernel library and another checkout's, in one process) and
+`int8_read_pattern` (the lm_head's bytes read in row 4's access patterns,
+no arithmetic). Each prints the
 card's name and power limit beside its numbers."""
 
 import statistics

@@ -10,7 +10,8 @@ tensors.
 The other checkout builds its own library (in its own ``build/``) in a
 subprocess, which also reports its C entry points' argument counts (an
 older checkout's K-split entry point takes no scratch pointer for the tile
-kernel).
+kernel; a form whose entry point there takes no plan at all, as int8's
+before it had a split-K instance, is left out).
 For each form, each decode shape of `gemv_splitk_sweep.CASES` and M = 1, 2
 and 16, at this checkout's plan (`quant.gemv_plan`): the two libraries'
 outputs, compared bit for bit, then `ROUNDS` rounds that time this
@@ -48,18 +49,23 @@ def other_library(root: str):
     """Build the kernel library of the checkout at ``root`` and load it:
     returns the library, its entry points' argument types set from this
     checkout's signatures (``_GEMV_ROWS``, less the scratch pointer where
-    the other build's entry point has none)."""
+    the other build's entry point has none), and the forms whose entry
+    point there takes the plan."""
     out = subprocess.run([sys.executable, "-c", _OTHER], cwd=root, check=True,
                          capture_output=True, text=True).stdout
     info = json.loads(out.strip().splitlines()[-1])
     lib = ctypes.CDLL(info["lib"])
+    planned = set()
     for name in set(ENTRY.values()):
         args = _cuda._SIGNATURES[name]
+        if info["args"].get(name, 0) < len(args) - 1:
+            continue                     # no plan arguments there
+        planned.add(name)
         fn = getattr(lib, name)
         fn.argtypes = args if info["args"][name] == len(args) else \
             args[:-2] + args[-1:]
         fn.restype = ctypes.c_int
-    return lib
+    return lib, tuple(f for f in FORMS if ENTRY[f] in planned)
 
 
 def launch(lib, form, w, x, plan, residual, out):
@@ -83,14 +89,15 @@ def main(other_root: str, device: str = "cuda"):
     from uniaudio2_tpu_torch.probes import FlushedTimer, card
 
     dev = torch.device(device)
-    libs = {"this": _cuda.lib(), "other": other_library(other_root)}
+    other, forms = other_library(other_root)
+    libs = {"this": _cuda.lib(), "other": other}
     gen = torch.Generator(device=dev).manual_seed(9)
     timer = FlushedTimer(dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(json.dumps({"probe": "splitk_ab", "card": card(), "sms": sms,
-                      "other": other_root}), flush=True)
+                      "other": other_root, "forms": forms}), flush=True)
     lines = []
-    for form in FORMS:
+    for form in forms:
         for label, k, n, res, f32 in CASES:
             w = weight(form, k, n, gen, dev)
             g = w.scale.shape[0] if w.scale.ndim == 2 else 0
@@ -118,7 +125,7 @@ def main(other_root: str, device: str = "cuda"):
                         "us": best, "this_over_other": best["this"] / best["other"]}
                 print(json.dumps(line), flush=True)
                 lines.append(line)
-    for form in FORMS:
+    for form in forms:
         ratios = [line["this_over_other"] for line in lines
                   if line["form"] == form]
         print(json.dumps({"form": form, "cases": len(ratios),
