@@ -11,10 +11,12 @@ caught):
 2. build every CUDA kernel from ``uniaudio2_tpu_torch/csrc`` with nvcc
    (sm_90a) and print the build seconds, each kernel's registers and
    spills, and a line for each of the four bf16 and four float32 flash
-   kernels (3xTF32 and the first design, hd 64 and 128) and of the seven
+   kernels (3xTF32 and the first design, hd 64 and 128), of the seven
    tensor-core tile kernels (rows 7 and 8,
    column-packed; row 1, interleaved, per channel and grouped; rows 5 and
-   6, K-split per channel and grouped; row 4, int8) and the split-K
+   6, K-split per channel and grouped; row 4, int8), of the tile kernel's
+   five pass-1 instances of the fused SwiGLU (`swiglu_tc_kernel`: I4 and
+   K4 per channel and grouped, INT8) and the split-K
    kernel's instances (rows 1, 4, 5 and 6, row 4's wide-N GEMV, the fused
    SwiGLU's passes and the QKV step);
 3. each kernel, in every weight form it has, against its plain PyTorch
@@ -44,9 +46,13 @@ caught):
    in the same run, the share of the bound, and at how many cases the
    kernel beats the tiled instance; the fused SwiGLU in its five served
    forms at both widths, with the norm and the residual, at M = 1, 2, 8
-   and 16 (two split-K passes, each beside the first design's two tiled
-   passes, `fused_swiglu_tiled`, with the plan and the share of the bound)
-   and 63 and 126 (the bucket-64 prefill, where the tiled passes serve);
+   and 16 (two split-K passes) and 63 and 126 (the bucket-64 prefill: two
+   tile passes), each beside the first design's two tiled passes,
+   `fused_swiglu_tiled`, with the plan and the share of the bound; and the
+   two byte-order pairs of the same levels (`int4+int4c` and
+   `int4i+int4i`, `int4g+int4cg` and `int4ig+int4ig`) at M = 17, 63, 126
+   and 128, both widths, plain and with the norm and the residual: pass
+   1's h and the output bit for bit;
    the fused QKV step in its five modes at both widths at M = 1, 2, 8 and
    16 (the split-K kernel's QKV mode, each case beside the first design,
    `qkv_rope_step_tiled`, with the plan and the share of the bound) and
@@ -90,7 +96,7 @@ caught):
    KV cache and block-128 reads); frames/s, memory, the launch count of
    every kernel form and of the tile kernel against the count the tree
    implies, the bucket-64 prefill's host-clock seconds (63 and 126 rows:
-   the fused MLP's tiled passes) of every configuration and the bucket-256
+   the fused MLP's tile passes) of every configuration and the bucket-256
    prefill's (255 and 510 rows) of phase 4's interleaved int4all tree, C,
    D and E (synchronised, the median of three after a warm-up, then one
    profiled run: busy share and device ms by kernel kind), with summary
@@ -143,7 +149,8 @@ caught):
    (``graph=False``) on phase 4's tree: TTS (128 frames, bucket 64,
    256 slots), the CFG pair and ASR; TTS and ASR at the engine's defaults
    (500 frames, 768 slots, int8 KV, block-128 levels: five of the six
-   levels read, so five graphs a program), inline, and TTS deferred; 8 ASR
+   levels read, so five graphs a program), inline, and TTS deferred at
+   200 frames (512 slots, the same policies); 8 ASR
    rows (greedy and with per-row seeds at topk 5) and 8 TTS rows (64
    frames); each request once each way: the same tokens,
    and every kernel form's launches equal to the tree's count over the
@@ -348,7 +355,7 @@ def phase_build():
            else "already built from these sources")
     print(f"[2] {Path(lib).name} ready in {time.perf_counter() - t0:.2f} s "
           f"({how})", flush=True)
-    kernel, flash, flash32, tile, splitk = "", {}, {}, {}, {}
+    kernel, flash, flash32, tile, up, splitk = "", {}, {}, {}, {}, {}
     for line in _cuda.build_info["log"].splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
@@ -358,6 +365,7 @@ def phase_build():
                 (flash, r"flash_attn_kernelILi(\d+)ELb(\d)ELi(\d)E"),
                 (flash32, r"flash_f32_(tc|simt)_kernelILi(\d+)EE"),
                 (tile, r"gemv_tc_kernelILi(\d)ELb(\d)E"),
+                (up, r"swiglu_tc_kernelILi(\d)ELb(\d)E"),
                 (splitk, r"gemv_splitk_kernelILi(\d)ELb(\d)ELi(\d)E")):
             form = re.search(pattern, kernel)
             got = form and re.search(
@@ -379,6 +387,11 @@ def phase_build():
         print(f"[2] gemv_tc_kernel<layout {names[layout]}, grouped {grouped}>: "
               f"{got.get('registers')} registers, {got.get('spill stores')} "
               f"bytes of spill stores", flush=True)
+    for (layout, grouped), got in sorted(up.items()):
+        print(f"[2] swiglu_tc_kernel<layout {names[layout]}, grouped {grouped}> "
+              f"(the fused SwiGLU's tile pass 1): {got.get('registers')} "
+              f"registers, {got.get('spill stores')} bytes of spill stores",
+              flush=True)
     modes = {"0": "GEMV", "1": "SwiGLU pass 1", "2": "SwiGLU pass 2",
              "3": "QKV", "4": "GEMV wide"}
     for (layout, grouped, mode), got in sorted(splitk.items()):
@@ -386,11 +399,13 @@ def phase_build():
               f"{grouped}, {modes[mode]}>: {got.get('registers')} registers, "
               f"{got.get('spill stores', 0)} bytes of spill stores", flush=True)
     if _cuda.build_info["log"] and (len(flash), len(flash32), len(tile),
-                                    len(splitk)) != (4, 4, 7, 21):
+                                    len(up), len(splitk)) != (4, 4, 7, 5, 21):
         fail(f"ptxas reported {len(flash)} of the 4 bf16 flash kernels, "
              f"{len(flash32)} of the 4 float32 ones (3xTF32 and SIMT, hd 64 "
              f"and 128), {len(tile)} of the 7 "
-             f"tile kernels (C4, I4 and K4 per channel and grouped, INT8) and "
+             f"tile kernels (C4, I4 and K4 per channel and grouped, INT8), "
+             f"{len(up)} of the 5 pass-1 tile kernels of the fused SwiGLU "
+             f"(I4 and K4 per channel and grouped, INT8) and "
              f"{len(splitk)} of the 21 split-K kernels (the GEMV: I4 and K4 "
              f"per channel and grouped, INT8; the int8 wide-N GEMV; the fused "
              f"SwiGLU's pass 1: I4 and K4 per channel and grouped, INT8; its "
@@ -424,6 +439,11 @@ def qkv_row(form):
 
 def swiglu_row(form):
     return "fused_swiglu" if form == "int4i+int4i" else f"fused_swiglu:{form}"
+
+
+# The row of the fused SwiGLU's tile passes above 16 rows (every form),
+# counted by their pass-1 kernel (`fused_mlp.swiglu_tc`)
+SWIGLU_TILE = "fused_swiglu:tile"
 
 
 def make_weight(torch, gen, dev, form, k, n):
@@ -482,11 +502,13 @@ def phase_kernels(torch, dev):
     results = {}
 
     def check(kernel, label, run, plain, case=None, library=None, row=False,
-              rtol=RTOL, per_row=False):
+              rtol=RTOL, per_row=False, also=None):
         """``case`` = (bytes, flops) of the call, for its bound; ``library``
         is one PyTorch call of the same function; ``row`` marks the case
         the kernel's row of the kernels line reports. ``per_row`` holds
-        each output row (last axis) to ``rtol`` x its own max|twin|."""
+        each output row (last axis) to ``rtol`` x its own max|twin|.
+        ``also`` = (row name, whether this is its case): a second row of
+        the kernels line that this case reports to."""
         out, ref = run(), plain()
         torch.cuda.synchronize()
         outs = out if isinstance(out, tuple) else (out,)
@@ -514,15 +536,16 @@ def phase_kernels(torch, dev):
         ms, plain_ms = timer(run), timer(plain)
         lib_ms = None if library is None else timer(library)
         extra = "" if lib_ms is None else f" library {lib_ms:.4f} ms"
-        entry = results.setdefault(kernel, {"max_abs_err": 0.0})
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if case is not None:
             bound_ms, bound_by = bound(*case)
             extra += f" bound {bound_ms:.4f} ms ({bound_by})"
-        if row:
-            entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=lib_ms)
-            extra += " [row]"
+        for name, is_row in [(kernel, row)] + ([also] if also else []):
+            entry = results.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            if is_row:
+                entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=lib_ms)
+                extra += " [row]" if name == kernel else f" [row {name}]"
         print(f"[3] {kernel:27s} {label:34s} max_abs_err {err:.3e}{row_err} "
               f"(tol {rtol:.3g} x max|twin{' row' if per_row else ''}|) "
               f"kernel {ms:.4f} ms twin "
@@ -751,10 +774,11 @@ def phase_kernels(torch, dev):
           f"than the library at {len(beats)} of them", flush=True)
     # the fused SwiGLU half-block in the forms the serving trees hold, with
     # the norm and the residual, at the frame loop's M (1, 2, 8, 16: two
-    # split-K passes, each case beside the first design's two tiled passes,
-    # `fused_swiglu_tiled`, its bits held to the twin too, with the plan)
-    # and the bucket-64 prefill's (63 and the CFG pair's 126: the tiled
-    # passes, which serve there). Row: the backbone's at M = 1.
+    # split-K passes) and the bucket-64 prefill's (63 and the CFG pair's
+    # 126: two tile passes), each case beside the first design's two tiled
+    # passes, `fused_swiglu_tiled` (its bits held to the twin too), with the
+    # plan and the share of the bound. Rows: the backbone's at M = 1, and
+    # for the tile passes (SWIGLU_TILE) `int4i+int4i`'s backbone at M = 63.
     swiglu_times = {}
     for up, down in (("int4i", "int4i"), ("int8", "int8"), ("int4", "int4c"),
                      ("int4g", "int4cg"), ("int4ig", "int4ig")):
@@ -773,15 +797,14 @@ def phase_kernels(torch, dev):
                 run = lambda: fused_mlp.fused_swiglu(x, w1, w2, w3, **kw)
                 plain = lambda: fused_mlp.fused_swiglu_plain(x, w1, w2, w3, **kw)
                 tiled = lambda: fused_mlp.fused_swiglu_tiled(x, w1, w2, w3, **kw)
+                tile = m > quant.SPLITK_MAX_M
+                also = (SWIGLU_TILE, form == "int4i+int4i" and m == 63
+                        and label == "backbone") if tile else None
                 ms, _ = check(swiglu_row(form), f"{label} {k}->{i}->{k} M={m}",
-                              run, plain, case, row=m == 1 and label == "backbone")
+                              run, plain, case, row=m == 1 and label == "backbone",
+                              also=also)
                 ms = min(ms, timer(run))
                 bound_ms, by = bound(*case)
-                if m > quant.SPLITK_MAX_M:
-                    print(f"[3] fused_swiglu {form} {label} M={m}: the tiled "
-                          f"passes serve, {ms:.4f} ms; bound {bound_ms:.4f} ms "
-                          f"({by}), {bound_ms / ms:.1%} of it", flush=True)
-                    continue
                 ref = plain().float()
                 err = (tiled().float() - ref).abs().max().item()
                 if err > RTOL * ref.abs().max().item():
@@ -794,17 +817,62 @@ def phase_kernels(torch, dev):
                          quant.LAYOUTS[type(w3)], sms)
                 plan = fused_mlp.swiglu_plan(*shape)
                 swiglu_times[(form, label, m)] = (ms, tiled_ms)
-                print(f"[3] fused_swiglu {form} {label} M={m}: plan split-K "
+                print(f"[3] fused_swiglu {form} {label} M={m}: plan {plan.kind} "
                       f"S={plan.up.splits} span={plan.up.span} | "
                       f"S={plan.down.splits} span={plan.down.span}: {ms:.4f} "
                       f"ms, two tiled passes {tiled_ms:.4f} ms "
                       f"(x{tiled_ms / ms:.2f}); bound {bound_ms:.4f} ms ({by}), "
                       f"{bound_ms / ms:.1%} of it", flush=True)
-    slower = [key for key, (ms, tiled_ms) in swiglu_times.items()
-              if ms >= tiled_ms]
-    print(f"[3] fused_swiglu (split-K passes) faster than the two tiled "
-          f"passes at {len(swiglu_times) - len(slower)} of "
-          f"{len(swiglu_times)} cases; not at {slower}", flush=True)
+    for kind, rows in (("split-K", lambda m: m <= quant.SPLITK_MAX_M),
+                       ("tile", lambda m: m > quant.SPLITK_MAX_M)):
+        cases = {key: v for key, v in swiglu_times.items() if rows(key[2])}
+        slower = [key for key, (ms, tiled_ms) in cases.items()
+                  if ms >= tiled_ms]
+        print(f"[3] fused_swiglu ({kind} passes) faster than the two tiled "
+              f"passes at {len(cases) - len(slower)} of {len(cases)} cases; "
+              f"not at {slower}", flush=True)
+    # the byte-order pairs above 16 rows: a K-split tree (K-split gate / up,
+    # column-packed down) and its interleaved copy, the same levels and
+    # scales (`quant.to_interleaved`), get one plan and the same bits: pass
+    # 1's h and pass 2's output, plain and with the norm and the residual
+    # (calls made to compare, through `fused_mlp._tile_passes`, uncounted)
+    for m in (17, 63, 126, 128):
+        for label, k, i in (("backbone", 3072, 8192), ("decoder", 2048, 8192)):
+            for up, down, twin_form in (("int4", "int4c", "int4i+int4i"),
+                                        ("int4g", "int4cg", "int4ig+int4ig")):
+                ksplit = (make_weight(torch, gen, dev, up, k, i),
+                          make_weight(torch, gen, dev, up, k, i),
+                          make_weight(torch, gen, dev, down, i, k))
+                inter = tuple(quant.to_interleaved(w) for w in ksplit)
+                x = bf16(m, k)
+                for folds in ({}, dict(norm_w=bf16(k), residual=bf16(m, k))):
+                    got = []
+                    for w1, w2, w3 in (ksplit, inter):
+                        x2, res2, *_, g12, g3 = fused_mlp._operands(
+                            "fused_swiglu", x, w1, w2, w3,
+                            folds.get("norm_w"), folds.get("residual"))
+                        plan = fused_mlp.swiglu_plan(
+                            m, k, i, k, g12, quant.LAYOUTS[type(w1)], g3,
+                            quant.LAYOUTS[type(w3)], sms)
+                        got.append((plan, *fused_mlp._tile_passes(
+                            x2, w1, w2, w3, folds.get("norm_w"), 1e-5, res2,
+                            plan)))
+                    torch.cuda.synchronize()
+                    (pk, ok, hk), (pi, oi, hi) = got
+                    dh = (hk.float() - hi.float()).abs().max().item()
+                    do = (ok.float() - oi.float()).abs().max().item()
+                    same_h, same_out = torch.equal(hk, hi), torch.equal(ok, oi)
+                    print(f"[3] byte orders: {up}+{down} vs {twin_form} {label} "
+                          f"M={m} {'norm+res' if folds else 'plain'}: plans "
+                          f"{'equal' if pk == pi else f'{pk} vs {pi}'}; pass 1 "
+                          f"h {'the same bits' if same_h else f'differs, max {dh:.4g}'}"
+                          f", pass 2 output "
+                          f"{'the same bits' if same_out else f'differs, max {do:.4g}'}",
+                          flush=True)
+                    if pk != pi or not (same_h and same_out):
+                        fail(f"fused_swiglu {up}+{down} and {twin_form} {label} "
+                             f"M={m}: not the same bits on the same levels (h "
+                             f"{dh:.4g}, output {do:.4g})")
     # row 4, the int8 GEMV (configurations A and B, and the text lm_head in
     # every configuration): at the frame loop's M (1, 2, 8, 16) the split-K
     # kernel (the lm_head's wide-N instance where the plan says), above 16
@@ -1172,6 +1240,7 @@ def counters():
     for form in ("int4i+int4i", "int8+int8", "int4+int4c", "int4g+int4cg",
                  "int4ig+int4ig"):
         rows[swiglu_row(form)] = (fused_mlp.fused_swiglu, form)
+    rows[SWIGLU_TILE] = (fused_mlp.swiglu_tc, None)
     return rows
 
 
@@ -1196,10 +1265,10 @@ def read_counts():
     return got
 
 
-# The fused SwiGLU's launches at a prefill (17-128 rows: the first design's
-# tiled passes serve there), by row, of every request `expected_launches`
-# was asked for: the prefills' share of that row's launches, which the
-# counted launches match in total.
+# The fused SwiGLU's launches at a prefill (17-128 rows: the tile passes
+# serve there), by row, of every request `expected_launches` was asked for:
+# the prefills' share of that row's launches, which the counted launches
+# match in total.
 PREFILL_SWIGLU = {}
 
 
@@ -1210,11 +1279,13 @@ def expected_launches(cfg, params, mode: str, frames: int, prefill_rows: int):
     warm-up frames and replays): each launch goes to the kernel and form
     of its weight's container.
     Prefill of the 3 + 28 + 2 expert and backbone layers: QKV and attn_proj
-    GEMVs and, up to 128 rows, the fused MLP, else gate, up and down GEMVs.
+    GEMVs and, up to 128 rows, the fused MLP (its tile passes above 16
+    rows), else gate, up and down GEMVs.
     Then per frame every layer's QKV step, attn_proj (+residual) and fused
     MLP; audio frames add the 4-layer decoder x 8 codebooks, 8 audio heads
     and the projection; text frames add the lm_head."""
     from uniaudio2_tpu_torch.ops.fused_mlp import FORMS
+    from uniaudio2_tpu_torch.ops.quant import SPLITK_MAX_M
 
     def gemv(w):
         return GEMV_ROWS[FORMS[type(w)]]
@@ -1239,6 +1310,8 @@ def expected_launches(cfg, params, mode: str, frames: int, prefill_rows: int):
             if prefill_rows <= 128:
                 want[mlp] += 1
                 PREFILL_SWIGLU[mlp] = PREFILL_SWIGLU.get(mlp, 0) + 1
+                if prefill_rows > SPLITK_MAX_M:
+                    want[SWIGLU_TILE] += 1
             else:
                 want[gemv(up)] += 2
                 want[gemv(down)] += 1
@@ -1259,9 +1332,12 @@ TILE_FORMS = ("int4i", "int4ig", "int4", "int4g", "int4c", "int4cg", "int8")
 
 def expected_tile(params, prefill_rows: int):
     """Launches of the tile kernel, by form, in one request over ``params``:
-    its prefill's GEMVs of the tile forms (QKV and attn_proj, and above 128
-    rows gate, up and down); no decode step has more than 16 rows."""
+    its prefill's GEMVs of the tile forms (QKV and attn_proj; above 128
+    rows gate, up and down; at 17-128 rows the fused MLP's pass 2, the
+    down-projection, counted under its form); no decode step has more than
+    16 rows."""
     from uniaudio2_tpu_torch.ops.fused_mlp import FORMS
+    from uniaudio2_tpu_torch.ops.quant import SPLITK_MAX_M
 
     want = {}
 
@@ -1276,6 +1352,8 @@ def expected_tile(params, prefill_rows: int):
             add(layer["attn_proj_w"])
             if prefill_rows > 128:
                 add(layer["fc1_w"], 2)
+                add(layer["mlp_proj_w"])
+            elif prefill_rows > SPLITK_MAX_M:
                 add(layer["mlp_proj_w"])
     return want
 
@@ -1351,8 +1429,8 @@ def phase_model(torch, dev, cfg, params):
     if got != want:
         fail(f"launch counts {got} != the path's {want}")
     check_tile("[4]", want_tile)
-    missing = [k for k in ("qkv_rope_step", "fused_swiglu", "int4i_matmul",
-                           "int8_matmul") if got[k] == 0]
+    missing = [k for k in ("qkv_rope_step", "fused_swiglu", SWIGLU_TILE,
+                           "int4i_matmul", "int8_matmul") if got[k] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     print(f"[4] peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
@@ -1524,21 +1602,22 @@ def phase_logits(torch, dev, cfg, params):
 INT4 = ("decoder", "audio_head", "projection_w")
 FORMATS = {
     "A int8": ((), False, True,
-               ("int8_matmul", "qkv_rope_step:int8", "fused_swiglu:int8+int8")),
+               ("int8_matmul", "qkv_rope_step:int8", "fused_swiglu:int8+int8",
+                SWIGLU_TILE)),
     "B int4": (INT4, False, True,
                ("int8_matmul", "int4i_matmul", "qkv_rope_step:int8",
-                "qkv_rope_step", "fused_swiglu:int8+int8", "fused_swiglu")),
+                "qkv_rope_step", "fused_swiglu:int8+int8", "fused_swiglu", SWIGLU_TILE)),
     "C int4allg": (INT4ALL, True, True,
                    ("int8_matmul", "int4i_matmul:int4ig", "qkv_rope_step:int4ig",
-                    "fused_swiglu:int4ig+int4ig")),
+                    "fused_swiglu:int4ig+int4ig", SWIGLU_TILE)),
     "D int4all, not interleaved": (
         INT4ALL, False, False,
         ("int8_matmul", "int4_matmul", "int4c_matmul", "qkv_rope_step:int4",
-         "fused_swiglu:int4+int4c")),
+         "fused_swiglu:int4+int4c", SWIGLU_TILE)),
     "E int4allg, not interleaved": (
         INT4ALL, True, False,
         ("int8_matmul", "int4g_matmul", "int4cg_matmul", "qkv_rope_step:int4g",
-         "fused_swiglu:int4g+int4cg")),
+         "fused_swiglu:int4g+int4cg", SWIGLU_TILE)),
 }
 
 
@@ -1639,7 +1718,7 @@ def bucket256_prefills(torch, cfg, params, label):
 
 def bucket64_prefills(torch, cfg, params, label, eng=None):
     """`prefill_seconds` of bench's TTS prompt alone and as a CFG pair (63
-    and 126 prefill rows: the fused MLP's tiled passes) through a bucket-64
+    and 126 prefill rows: the fused MLP's tile passes) through a bucket-64
     engine over ``params``."""
     from uniaudio2_tpu_torch.engine.decode import DecodeEngine
 
@@ -1693,6 +1772,7 @@ def prefill_seconds(torch, cfg, params, eng, label, requests):
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 kind = ("tile kernel" if "gemv_tc_kernel" in e.name
                         or "rows_kernel" in e.name else
+                        "SwiGLU tile pass 1" if "swiglu_tc_kernel" in e.name else
                         "tiled GEMV" if "gemv_kernel" in e.name else
                         "tiled SwiGLU pass 1" if "swiglu_up_kernel" in e.name
                         else "other")
@@ -2713,7 +2793,7 @@ def counted_families(counted, rows):
 
     want = dict.fromkeys(TRACED_FAMILIES, 0)
     gemvs = {fn for fn, _ in counters().values()} - {
-        fused_mlp.fused_swiglu, qkv_step.qkv_rope_step}
+        fused_mlp.fused_swiglu, fused_mlp.swiglu_tc, qkv_step.qkv_rope_step}
     splitk = {quant.int4i_matmul, quant.int4_matmul, quant.int4g_matmul,
               quant.int8_matmul}
     for fn, (launches, _) in counted.items():
@@ -2733,7 +2813,9 @@ def phase_graphs(torch, dev, cfg, params):
     """Phase 11: TTS (128 frames, bucket 64, 256 slots, bf16 cache), the CFG
     pair and ASR at batch 1; TTS and ASR at the engine's defaults (500
     frames, 768 slots, int8 KV, block-128 levels: five graphs a program),
-    inline, and TTS deferred; sampled TTS (the default topk 200 from the shared
+    inline; TTS deferred at the fewest frames that keep those policies
+    (200 frames, 512 slots, int8 KV, block-128 levels: phase 9 runs
+    deferred writes at the defaults); sampled TTS (the default topk 200 from the shared
     generator, 200 frames, 512 slots, int8 KV, block-128 levels): a
     bucket-64 prompt that runs to max_frames, then a bucket-256 prompt
     through the same program, which captures two new levels, and a CFG
@@ -2770,8 +2852,8 @@ def phase_graphs(torch, dev, cfg, params):
              lambda e: e.generate_audio(g, m, **greedy)),
             ("asr defaults inline", "text", 1, 63,
              lambda e: [e.generate_text(ag, am, **greedy)])]),
-        ({"kv_write": "deferred"}, [
-            ("tts defaults deferred", "audio", 1, 63,
+        ({"kv_write": "deferred", "max_frames": SAMPLED_FRAMES}, [
+            ("tts deferred, 200 frames", "audio", 1, 63,
              lambda e: e.generate_audio(g, m, **greedy))]),
         ({"max_frames": SAMPLED_FRAMES}, [
             ("tts, topk 200, seed 5", "audio", 1, 63,
@@ -3650,7 +3732,7 @@ def main():
     for k in launches:
         launches[k] += formats[k] + defaults[k] + batched[k] + graphs[k]
     print(f"[t] of these, the fused SwiGLU at a prefill of 17-128 rows (the "
-          f"tiled passes): {json.dumps(PREFILL_SWIGLU)}", flush=True)
+          f"tile passes): {json.dumps(PREFILL_SWIGLU)}", flush=True)
     ccfg, dec = build_codec(torch, dev)
     phase_estimator(torch, dev, ccfg, dec.params["dit"], torch.bfloat16,
                     DIT_BOUNDS, "6a")
@@ -3692,6 +3774,8 @@ def main():
     for name in counters():
         if name.startswith("qkv_rope_step"):
             meta[name] = qkv
+        elif name == SWIGLU_TILE:
+            meta[name] = ("gemv_int4_tc.cuh", mlp[1])
         elif name.startswith("fused_swiglu"):
             meta[name] = mlp
     rows = []

@@ -54,7 +54,11 @@ norm, and the K-split layout, add its row kernel), and a planted fault
 in every served form at both widths, with and without the norm and the
 residual: within 2e-2 x max|twin| (the twin rounds a, b and every scaled
 weight to bf16), one counted launch a call, the same bits from call to
-call, two kernel nodes in a captured graph. Row 14's stacked-layer kernel, with the layer index read
+call, two kernel nodes in a captured graph. Above 16 rows it runs the two
+tile passes (pass 1 `swiglu_tc_kernel`, pass 2 the tile GEMV of W3's
+layout), each counted once a call (`fused_mlp.swiglu_tc`, `quant.gemv_tc`
+under W3's form), and a K-split tree gives its interleaved copy's bits,
+h and the output. Row 14's stacked-layer kernel, with the layer index read
 on the device, is held to its twin within one bf16 ulp and to the bits
 of `gemv_int4.cu`'s tiled instance on every layer's slice.
 The lean-update kernel rounds every operation as its twin does, so the two
@@ -1001,8 +1005,8 @@ def test_int4c_tile_gemv_folds(dev, form, norm, res, out_dtype, n, m):
     """The folds the column-packed C entry points admit, at an even N
     (quantized, storage padded to 384 bytes) and an odd N (ldw 384 >
     ceil(N/2) = 301), K = 512, groups of 64 rows: f32 output on the tile
-    kernel, one launch a call; a norm prologue or a residual, which the
-    tile kernel does not fold, on the tiled instance: the entry point,
+    kernel, one launch a call; a norm prologue or a residual, which these
+    entry points do not send to the tile kernel, on the tiled instance: the entry point,
     given the tile kernel's plan, gives the tiled yardstick's bits. Within
     the twin's bound."""
     g = _gen(dev, 41 + m + n)
@@ -1258,7 +1262,7 @@ def test_fused_swiglu_served_forms(dev, up, down, width, m):
     bucket-64 prefill give it, plain and with the norm and the residual:
     within 2e-2 x max|twin|, one `fused_swiglu` count a call under its
     form, none on the GEMV wrappers or the tiled yardstick, the same bits
-    twice."""
+    twice; above 16 rows one count of each tile pass a call."""
     k, i = SWIGLU_WIDTHS[width]
     g, (w1, w2, w3) = _swiglu_weights(dev, up, down, k, i, 81 + m)
     x = _bf16(g, dev, m, k)
@@ -1271,32 +1275,83 @@ def test_fused_swiglu_served_forms(dev, up, down, width, m):
                    quant.int4c_matmul, quant.int4cg_matmul, quant.int8_matmul)
         before = [fn.launches for fn in watched]
         f0 = fused_mlp.fused_swiglu.forms.get(form, 0)
+        tile0 = (fused_mlp.swiglu_tc.launches, quant.gemv_tc.forms.get(down, 0))
         out = fused_mlp.fused_swiglu(x, w1, w2, w3, **kw)
         again = fused_mlp.fused_swiglu(x, w1, w2, w3, **kw)
         torch.cuda.synchronize()
         assert [fn.launches for fn in watched] == [before[0] + 2] + before[1:]
         assert fused_mlp.fused_swiglu.forms[form] == f0 + 2
+        tiles = 2 if m > quant.SPLITK_MAX_M else 0
+        assert (fused_mlp.swiglu_tc.launches, quant.gemv_tc.forms.get(down, 0)) \
+            == (tile0[0] + tiles, tile0[1] + tiles)
         assert torch.equal(out, again)
         _close(out, fused_mlp.fused_swiglu_plain(x, w1, w2, w3, **kw))
 
 
-@pytest.mark.parametrize("m", [1, 63])
+@pytest.mark.parametrize("m", [1, 63, 126])
 @pytest.mark.parametrize("up,down", SWIGLU_SERVED)
 def test_fused_swiglu_tiled_yardstick(dev, up, down, m):
     """The first design's tiled passes (`fused_swiglu_tiled`, the yardstick)
     at decode and prefill M: within 2e-2 x max|twin|, counted on their
-    own."""
+    own (not on `fused_swiglu` nor on the tile passes' counters)."""
     k, i = SWIGLU_WIDTHS["backbone"]
     g, (w1, w2, w3) = _swiglu_weights(dev, up, down, k, i, 91 + m)
     x = _bf16(g, dev, m, k)
     kw = dict(norm_w=_bf16(g, dev, k), residual=_bf16(g, dev, m, k, std=0.1))
-    before = (fused_mlp.fused_swiglu.launches,
-              fused_mlp.fused_swiglu_tiled.launches)
+    counted = (fused_mlp.fused_swiglu, fused_mlp.fused_swiglu_tiled,
+               fused_mlp.swiglu_tc, quant.gemv_tc)
+    before = [fn.launches for fn in counted]
     out = fused_mlp.fused_swiglu_tiled(x, w1, w2, w3, **kw)
     torch.cuda.synchronize()
-    assert (fused_mlp.fused_swiglu.launches,
-            fused_mlp.fused_swiglu_tiled.launches) == (before[0], before[1] + 1)
+    assert [fn.launches for fn in counted] == \
+        [before[0], before[1] + 1] + before[2:]
     _close(out, fused_mlp.fused_swiglu_plain(x, w1, w2, w3, **kw))
+
+
+def _swiglu_pair(dev, pair, k, i, seed):
+    """A K-split tree (gate / up K-split, down column-packed, per channel
+    or grouped) and its interleaved copy: the same levels and scales."""
+    g = _gen(dev, seed)
+    grouped = pair == "grouped"
+    up, down = ("int4g", "int4cg") if grouped else ("int4", "int4c")
+    ksplit = (_make(g, dev, up, k, i), _make(g, dev, up, k, i),
+              _make(g, dev, down, i, k))
+    return g, ksplit, tuple(quant.to_interleaved(w) for w in ksplit)
+
+
+@pytest.mark.parametrize("m", [17, 63, 126, 128])
+@pytest.mark.parametrize("width", list(SWIGLU_WIDTHS))
+@pytest.mark.parametrize("pair", ["per channel", "grouped"])
+def test_fused_swiglu_tile_passes_byte_orders(dev, pair, width, m):
+    """Above 16 rows `int4+int4c` gives `int4i+int4i` its bits and
+    `int4g+int4cg` gives `int4ig+int4ig` its bits on the same levels, plain
+    and with the norm and the residual: pass 1's h (the K-split layout read
+    in x's k order, the interleaved one's plan) and pass 2's output (the
+    column-packed and interleaved tile GEMVs, one plan)."""
+    k, i = SWIGLU_WIDTHS[width]
+    g, ksplit, inter = _swiglu_pair(dev, pair, k, i, 101 + m)
+    x = _bf16(g, dev, m, k)
+    for kw in ({}, dict(norm_w=_bf16(g, dev, k),
+                        residual=_bf16(g, dev, m, k, std=0.1))):
+        outs = []
+        for w1, w2, w3 in (ksplit, inter):
+            x2, res2, m2, k2, i2, n2, g12, g3 = fused_mlp._operands(
+                "fused_swiglu", x, w1, w2, w3, kw.get("norm_w"),
+                kw.get("residual"))
+            plan = fused_mlp.swiglu_plan(
+                m2, k2, i2, n2, g12, quant.LAYOUTS[type(w1)], g3,
+                quant.LAYOUTS[type(w3)], quant._sm_count(dev))
+            assert plan.kind == "tile"
+            outs.append(fused_mlp._tile_passes(
+                x2, w1, w2, w3, kw.get("norm_w"), 1e-5, res2, plan))
+            assert torch.equal(outs[-1][0], fused_mlp.fused_swiglu(
+                x, w1, w2, w3, **kw))
+        torch.cuda.synchronize()
+        (out_k, h_k), (out_i, h_i) = outs
+        assert torch.equal(h_k, h_i), (h_k.float() - h_i.float()).abs().max()
+        assert torch.equal(out_k, out_i), \
+            (out_k.float() - out_i.float()).abs().max()
+        _close(out_k, fused_mlp.fused_swiglu_plain(x, *ksplit, **kw))
 
 
 @pytest.mark.parametrize("up,down", SWIGLU_SERVED)

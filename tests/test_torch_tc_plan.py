@@ -24,6 +24,12 @@ sum; grouped: level x scale rounded to bf16). It is held
    through `matmul_plain`, the XLA fallback's rounding, bf16 output):
    within 2e-2 x max|twin| per channel, one bf16 ulp, 2^-7 x max|twin|,
    grouped.
+
+The same holds below for the row-packed and int8 instances (rows 1, 4, 5
+and 6 above 16 rows) and for the fused SwiGLU's two tile passes (row 2 at
+17-128 rows): their plans (a K-split tree gets its interleaved copy's, in
+both passes) and an emulation of their sums against JAX's `fused_swiglu`
+in interpret mode and the twin, with the tolerances each test states.
 """
 
 import math
@@ -34,6 +40,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from uniaudio2_tpu.ops import fused_mlp as jfused
 from uniaudio2_tpu.ops import quant as jq
 
 from uniaudio2_tpu_torch.ops import fused_mlp, quant
@@ -440,31 +447,203 @@ def test_row_wrappers_take_the_twin_on_the_cpu():
 
 
 # The fused SwiGLU (row 2) above 16 rows, up to the 128 `can_fuse` takes
-# (the bucket-64 prefill: 63 rows, 126 for a CFG pair): the first design's
-# two tiled passes, in every served form.
+# (the bucket-64 prefill: 63 rows, 126 for a CFG pair): the tile passes,
+# in every served form. Pass 1 (`swiglu_tc_kernel`) takes UP_COLS = 64
+# columns of W1 and of W2 a block, the interleaved layout's plan over 2 I
+# columns in every layout, and sums in x's k order (the K-split layout
+# too: the low nibbles of a byte row in the low half of K, the high ones
+# in the high half); pass 2 is the tile GEMV of W3's layout over h.
 SWIGLU_SERVED = {"int4i+int4i": (I4, I4), "int4ig+int4ig": (I4, I4),
                  "int4+int4c": (K4, quant.LAYOUT_C4),
                  "int4g+int4cg": (K4, quant.LAYOUT_C4),
                  "int8+int8": (quant.LAYOUT_INT8, quant.LAYOUT_INT8)}
+# the K-split trees and the interleaved trees of the same levels
+SWIGLU_PAIRS = {"int4+int4c": "int4i+int4i", "int4g+int4cg": "int4ig+int4ig"}
+SWIGLU_SHAPES = ((3072, 8192, 3072), (2048, 8192, 2048), (512, 1024, 600))
+
+
+def _swiglu_groups(form, k, i):
+    return (k // 128 if form.split("+")[0].endswith("g") else 0,
+            i // 128 if form.endswith("g") else 0)
 
 
 @pytest.mark.parametrize("m", [17, 63, 126, 128])
-@pytest.mark.parametrize("k,i,n", [(3072, 8192, 3072), (2048, 8192, 2048),
-                                   (512, 1024, 600)])
+@pytest.mark.parametrize("k,i,n", SWIGLU_SHAPES)
 @pytest.mark.parametrize("form", list(SWIGLU_SERVED))
 def test_swiglu_plan_above_the_decode_rows(form, k, i, n, m):
-    """Above 16 rows `swiglu_plan` sends every form to the tiled passes,
-    with no split-K plan."""
+    """Above 16 rows `swiglu_plan` sends every form to the tile passes:
+    pass 1 the interleaved layout's `tc_plan` over 2 I columns (64 of W1
+    and 64 of W2 a block), pass 2 W3's, both legal plans of the tile
+    kernel (`_row_legal`, `_legal`)."""
     up, down = SWIGLU_SERVED[form]
-    g12 = k // 128 if form.split("+")[0].endswith("g") else 0
-    g3 = i // 128 if form.endswith("g") else 0
-    assert fused_mlp.swiglu_plan(m, k, i, n, g12, up, g3, down, SMS) \
-        == fused_mlp.SwigluPlan("tiled", None, None)
+    g12, g3 = _swiglu_groups(form, k, i)
+    plan = fused_mlp.swiglu_plan(m, k, i, n, g12, up, g3, down, SMS)
+    assert plan == fused_mlp.SwigluPlan(
+        "tile", quant.tc_plan(m, k, 2 * i, g12, SMS, I4),
+        quant.tc_plan(m, i, n, g3, SMS, down))
+    assert plan.up.splits > 0 and plan.down.splits > 0
+    _row_legal(plan.up, m, k, 2 * i, g12, I4)
+    if g12:
+        assert plan.up.span % (k // g12) == 0      # whole groups of x's k
+    if down == quant.LAYOUT_C4:
+        _legal(plan.down, m, i, n, g3)
+    else:
+        _row_legal(plan.down, m, i, n, g3, down)
+
+
+@pytest.mark.parametrize("m", [17, 63, 126, 128])
+@pytest.mark.parametrize("k,i,n", SWIGLU_SHAPES[:2])
+@pytest.mark.parametrize("pair", list(SWIGLU_PAIRS))
+@pytest.mark.parametrize("sms", [132, 114])
+def test_swiglu_tile_plans_match_across_byte_orders(pair, k, i, n, m, sms):
+    """At every served shape the K-split pass 1 gets the interleaved one's
+    (S, span), and the column-packed pass 2 the interleaved one's: the
+    same K-slices, so the same sums in the same order."""
+    up, down = SWIGLU_SERVED[pair]
+    iup, idown = SWIGLU_SERVED[SWIGLU_PAIRS[pair]]
+    g12, g3 = _swiglu_groups(pair, k, i)
+    assert fused_mlp.swiglu_plan(m, k, i, n, g12, up, g3, down, sms) == \
+        fused_mlp.swiglu_plan(m, k, i, n, g12, iup, g3, idown, sms)
+    assert quant.tc_plan(m, i, n, g3, sms, quant.LAYOUT_C4) == \
+        quant.tc_plan(m, i, n, g3, sms, I4)
+
+
+def test_swiglu_tile_groups():
+    """Groups that are not whole k-steps of 16 rows: `can_fuse` refuses them
+    above 16 rows (and takes them at decode), `swiglu_plan` raises."""
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy((0.02 * rng.standard_normal((256, 512))).astype(
+        np.float32))
+    w3 = torch.from_numpy((0.02 * rng.standard_normal((512, 256))).astype(
+        np.float32))
+    for gs12, gs3 in ((8, 128), (128, 8)):
+        w1 = quant.to_interleaved(quant.quantize4_grouped(w, gs12))
+        d = quant.to_interleaved(quant.quantize4_grouped(w3, gs3))
+        assert fused_mlp.can_fuse(w1, w1, d, torch.zeros(16, 256))
+        assert not fused_mlp.can_fuse(w1, w1, d, torch.zeros(17, 256))
+        with pytest.raises(ValueError):
+            fused_mlp.swiglu_plan(17, 256, 512, 256, 256 // gs12, I4,
+                                  512 // gs3, I4, SMS)
+
+
+def _natural_sum(xs, w, plan):
+    """The tile kernel's split sum in x's k order, f32: the slices'
+    partials in rank order, the per-channel scale on the sum (grouped:
+    level x scale rounded to bf16 before the product)."""
+    k = xs.shape[-1]
+    lv = quant.levels(w).float()
+    if isinstance(w, quant.GROUPED):
+        g = w.scale.shape[0]
+        lv = (lv.reshape(g, k // g, -1) * w.scale[:, None, :]).reshape(k, -1)
+        lv = lv.to(torch.bfloat16).float()
+    total = torch.zeros(xs.shape[0], lv.shape[1])
+    for s in range(plan.splits):
+        k0, k1 = s * plan.span, min(k, (s + 1) * plan.span)
+        total = total + xs[:, k0:k1].float() @ lv[k0:k1]
+    return total if isinstance(w, quant.GROUPED) else total * w.scale
+
+
+def _emulate_swiglu_tile(x, w1, w2, w3, plan, norm_w=None, residual=None):
+    """The two tile passes' arithmetic, f32 out: pass 1's split sums of the
+    (normalised, as the row kernel rounds them) rows against W1 and W2 in
+    x's k order in every layout, kept in f32, h = bf16(a / (1 + exp(-a))
+    * b); pass 2's split sums of h against W3, then the residual."""
+    xs = x if norm_w is None else rms_norm(x, norm_w, 1e-5)
+    a, b = _natural_sum(xs, w1, plan.up), _natural_sum(xs, w2, plan.up)
+    h = (a / (1.0 + torch.exp(-a)) * b).to(torch.bfloat16)
+    out = _natural_sum(h, w3, plan.down)
+    return out if residual is None else out + residual.float()
+
+
+SWIGLU_CONTAINERS = {"int4i": lambda w, gs: quant.to_interleaved(quant.quantize4(w)),
+                     "int4ig": lambda w, gs: quant.to_interleaved(
+                         quant.quantize4_grouped(w, gs)),
+                     "int4": lambda w, gs: quant.quantize4(w),
+                     "int4g": quant.quantize4_grouped,
+                     "int4c": lambda w, gs: quant.quantize4_cols(w),
+                     "int4cg": quant.quantize4_cols_grouped,
+                     "int8": lambda w, gs: quant.quantize(w)}
+
+
+def _swiglu_tile_inputs(form, m, seed, k=256, i=512, n=320, group=64):
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape, std=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * std).astype(
+            np.float32))
+
+    up, down = form.split("+")
+    w1, w2 = (SWIGLU_CONTAINERS[up](rand(k, i, std=0.02), group)
+              for _ in range(2))
+    w3 = SWIGLU_CONTAINERS[down](rand(i, n, std=0.02), group)
+    x = rand(m, k).to(torch.bfloat16)
+    folds = dict(norm_w=(1.0 + 0.1 * rand(k)).to(torch.bfloat16),
+                 residual=(0.1 * rand(m, n)).to(torch.bfloat16))
+    return (w1, w2, w3), x, folds
+
+
+def _tile_plan(m, w1, w3, x):
+    k, i, n = x.shape[-1], w1.scale.shape[-1], w3.scale.shape[-1]
+    g12, g3 = (w.scale.shape[0] if w.scale.ndim == 2 else 0 for w in (w1, w3))
+    return fused_mlp.swiglu_plan(m, k, i, n, g12, quant.LAYOUTS[type(w1)], g3,
+                                 quant.LAYOUTS[type(w3)], SMS)
+
+
+@pytest.mark.parametrize("folds", ["plain", "norm+res"])
+@pytest.mark.parametrize("form", list(SWIGLU_SERVED))
+def test_swiglu_tile_passes_match_jax_and_the_twin(form, folds):
+    """The emulation of the two tile passes (M = 17 plain, 128 with the
+    norm and the residual, a real split in both passes) against JAX's
+    `fused_swiglu` (the Pallas kernel in interpret mode, bf16 in and out,
+    the same folds) and the port's twin. Against JAX the f32 sums run in
+    another order, so a few h may round to the other side (one bf16 ulp),
+    the normalised rows too, and JAX rounds its output to bf16: within
+    2^-7 x max|ref|. Against the twin, which rounds a, b and every scaled
+    weight to bf16: 2e-2 x max|twin|, the card's bound for the fused
+    kernel."""
+    m = 17 if folds == "plain" else 128
+    (w1, w2, w3), x, kw = _swiglu_tile_inputs(form, m, seed=len(form) + m)
+    if folds == "plain":
+        kw = {}
+    plan = _tile_plan(m, w1, w3, x)
+    assert plan.kind == "tile" and plan.up.splits > 1 and plan.down.splits > 1
+    emu = _emulate_swiglu_tile(x, w1, w2, w3, plan, **kw)
+
+    def to_jax(c):
+        return getattr(jq, type(c).__name__)(jnp.asarray(c.values.numpy()),
+                                             jnp.asarray(c.scale.numpy()))
+
+    jkw = {key: _jax(v) for key, v in kw.items()}
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jfused.fused_swiglu(
+            _jax(x), to_jax(w1), to_jax(w2), to_jax(w3), norm_eps=1e-5,
+            **jkw)).astype(np.float32)
+    np.testing.assert_allclose(emu.numpy(), ref, rtol=0,
+                               atol=2.0 ** -7 * np.abs(ref).max())
+    twin = fused_mlp.fused_swiglu_plain(x, w1, w2, w3, **kw)
+    tol = 2e-2 * twin.float().abs().max().item()
+    assert (emu.to(torch.bfloat16).float() - twin.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("m", [17, 63, 126, 128])
+@pytest.mark.parametrize("pair", list(SWIGLU_PAIRS))
+def test_swiglu_tile_emulation_matches_across_byte_orders(pair, m):
+    """A K-split tree and its interleaved copy (the same levels and scales,
+    `quant.to_interleaved`) get one plan and, in the emulation of the tile
+    passes, the same bits, with and without the folds."""
+    (w1, w2, w3), x, kw = _swiglu_tile_inputs(pair, m, seed=m)
+    i1, i2, i3 = (quant.to_interleaved(w) for w in (w1, w2, w3))
+    plan = _tile_plan(m, w1, w3, x)
+    assert plan == _tile_plan(m, i1, i3, x)
+    for folds in ({}, kw):
+        assert torch.equal(_emulate_swiglu_tile(x, w1, w2, w3, plan, **folds),
+                           _emulate_swiglu_tile(x, i1, i2, i3, plan, **folds))
 
 
 def test_swiglu_wrappers_take_the_twin_on_the_cpu():
     """On CPU tensors `fused_swiglu` and its tiled yardstick return the
-    twin at a decode and a prefill M and count no launch."""
+    twin at a decode and a prefill M and count no launch (nor the tile
+    passes' counters, `swiglu_tc` and `quant.gemv_tc`)."""
     rng = np.random.default_rng(9)
     w1, w2 = (quant.to_interleaved(quant.quantize4(torch.from_numpy(
         (0.02 * rng.standard_normal((256, 512))).astype(np.float32))))
@@ -475,10 +654,11 @@ def test_swiglu_wrappers_take_the_twin_on_the_cpu():
     for m in (1, 63):
         x = torch.from_numpy(rng.standard_normal((m, 256)).astype(
             np.float32)).to(torch.bfloat16)
-        fns = (fused_mlp.fused_swiglu, fused_mlp.fused_swiglu_tiled)
+        fns = (fused_mlp.fused_swiglu, fused_mlp.fused_swiglu_tiled,
+               fused_mlp.swiglu_tc, quant.gemv_tc)
         before = [fn.launches for fn in fns]
         ref = fused_mlp.fused_swiglu_plain(x, w1, w2, w3, norm_w=nw, residual=x)
-        for fn in fns:
+        for fn in fns[:2]:
             assert torch.equal(fn(x, w1, w2, w3, norm_w=nw, residual=x), ref)
         assert [fn.launches for fn in fns] == before
 

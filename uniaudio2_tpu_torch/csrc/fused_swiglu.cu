@@ -27,23 +27,37 @@
 //    in f32 to a workspace `ab` (M, 2 I) (64 KB at M = 1). Pass 2 runs over
 //    W3 (I4, C4 or INT8), staging bf16(silu(a) * b) of its K-slice where
 //    pass 1 staged bf16(n(x)), and adds the residual in the epilogue;
-//  * above that (the bucket-64 prefill: 63 rows, 126 for a CFG pair),
-//    `ua2_fused_swiglu_tiled`, the first design: two tiled passes
-//    (swiglu_up_kernel: blocks own 64 columns of I, stage the normed rows
-//    once and stream the matching W1 and W2 columns together on the CUDA
-//    cores, then write h = bf16(silu(a) * b) with a, b kept in f32; then
-//    the tiled GEMV of gemv_common.cuh over h with the s3 scale and the
-//    residual folded in the epilogue), also the yardstick at any M.
-// The rounding is the same in both: a and b in f32 (the Pallas kernel
+//  * above that (the bucket-64 prefill: 63 rows, 126 for a CFG pair; up
+//    to the 128 `fused_mlp.can_fuse` takes), `ua2_fused_swiglu_tc`: two
+//    launches of the tensor-core tile kernel of gemv_int4_tc.cuh (a norm
+//    adds its `rows_kernel` first). Pass 1 is its instance of its own,
+//    `swiglu_tc_kernel`: a block's two warpgroups take the same 64 columns
+//    of I, of W1 and of W2, and its epilogue writes h = bf16(silu(a) * b)
+//    (M, I) after the cluster's rank-order sum, with a, b in f32; K4 reads
+//    the k order x has, so it sums what I4 sums in I4's order, and the
+//    K-split and interleaved trees of the same levels get the same h.
+//    Pass 2 is the served tile GEMV over h in W3's layout (I4, C4 or
+//    INT8), the residual in its epilogue. Both plans come from the host
+//    (`fused_mlp.swiglu_plan`: I4's `quant.tc_plan` over 2 I columns, and
+//    W3's), equal for C4 and I4 at an even N, so C4 and I4 give the same
+//    output bits too;
+//  * `ua2_fused_swiglu_tiled`, the first design, the yardstick at any M:
+//    two tiled passes (swiglu_up_kernel: blocks own 64 columns of I, stage
+//    the normed rows once and stream the matching W1 and W2 columns
+//    together on the CUDA cores, then write h = bf16(silu(a) * b) with a,
+//    b kept in f32; then the tiled GEMV of gemv_common.cuh over h with the
+//    s3 scale and the residual folded in the epilogue).
+// The rounding is the same in all: a and b in f32 (the Pallas kernel
 // rounds only h), h rounded once to bf16; grouped levels are scaled in f32
 // and rounded to bf16 before the product. The column-packed form writes
 // true output columns, not the Pallas scratch's [low ++ pad][high ++ pad]
 // order, and its grouped W3 scales are scale[row / group, column] (chunk-
-// local blocks in the Pallas kernel). The split-K passes' partial sums
-// meet in rank order through distributed shared memory: no atomics, the
-// same bits every run.
+// local blocks in the Pallas kernel). The split-K and tile passes' partial
+// sums meet in rank order through distributed shared memory: no atomics,
+// the same bits every run.
 #include "gemv_common.cuh"
 #include "gemv_int4_splitk.cuh"
+#include "gemv_int4_tc.cuh"
 
 namespace {
 
@@ -234,4 +248,79 @@ extern "C" int ua2_fused_swiglu(const void* x, const void* w1, const void* s1,
   down.M = M, down.K = I, down.N = N, down.n1 = N, down.ldw = ldw3, down.G = G3;
   down.span = span3, down.eps = eps;
   return splitk_down(layout3, G3, down, splits3, s);
+}
+
+// Pass 2 of the tile passes: the tile GEMV of W3's layout, through the
+// served entry points of gemv_int8.cu and gemv_int4i.cu (with a plan of the
+// tile kernel) and, for the column-packed layout, whose entry points keep
+// a residual on the tiled template, through the tile kernel's launch.
+extern "C" int ua2_gemv_int8(const void*, const void*, const void*, const void*,
+                             const void*, void*, int, int, int, int, int, float, int, int,
+                             int, int, void*, void*);
+extern "C" int ua2_gemv_int4i(const void*, const void*, const void*, const void*,
+                              const void*, void*, int, int, int, int, int, float, int, int,
+                              int, int, void*, void*);
+
+// The fused SwiGLU above the decode rows as the host's plan says
+// (`fused_mlp.swiglu_plan`, kind "tile"): pass 1, `splits1` K-slices of
+// `span1` input rows of K, writes h (M, I) bf16, the workspace the caller
+// allocates (with a norm weight after `rows_kernel` has written the
+// normalised rows into xn (M, K) bf16, also the caller's); pass 2, the
+// tile GEMV of W3's layout over h, `splits3` slices of `span3` rows of I,
+// adds the residual. W1 and W2 are (K or K/2, I) of one layout and G12
+// groups, unpadded; W3 (I or I/2, ldw3).
+extern "C" int ua2_fused_swiglu_tc(const void* x, const void* w1, const void* s1,
+                                   const void* w2, const void* s2, const void* w3,
+                                   const void* s3, const void* norm_w,
+                                   const void* residual, void* xn, void* h, void* out,
+                                   int M, int K, int I, int N, int ldw3, int layout12,
+                                   int G12, int layout3, int G3, float eps, int splits1,
+                                   int span1, int splits3, int span3, void* stream) {
+  namespace tc = ua2::tc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (h == nullptr) return (int)cudaErrorInvalidValue;
+  int e;
+  switch (layout12 * 2 + (G12 > 0)) {
+    case ua2::INT8 * 2:
+      e = tc::launch_up<ua2::INT8, false>(x, w1, s1, w2, s2, norm_w, xn, h, M, K, I, G12,
+                                          eps, splits1, span1, s);
+      break;
+    case ua2::I4 * 2:
+      e = tc::launch_up<ua2::I4, false>(x, w1, s1, w2, s2, norm_w, xn, h, M, K, I, G12,
+                                        eps, splits1, span1, s);
+      break;
+    case ua2::I4 * 2 + 1:
+      e = tc::launch_up<ua2::I4, true>(x, w1, s1, w2, s2, norm_w, xn, h, M, K, I, G12,
+                                       eps, splits1, span1, s);
+      break;
+    case ua2::K4 * 2:
+      e = tc::launch_up<ua2::K4, false>(x, w1, s1, w2, s2, norm_w, xn, h, M, K, I, G12,
+                                        eps, splits1, span1, s);
+      break;
+    case ua2::K4 * 2 + 1:
+      e = tc::launch_up<ua2::K4, true>(x, w1, s1, w2, s2, norm_w, xn, h, M, K, I, G12,
+                                       eps, splits1, span1, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (e != (int)cudaSuccess) return e;
+  const int bn = tc::BN;      // the row-packed entry points' mt of the tile kernel
+  switch (layout3 * 2 + (G3 > 0)) {
+    case ua2::INT8 * 2:
+      return ua2_gemv_int8(h, w3, s3, nullptr, residual, out, M, I, N, ldw3, G3, eps, 0,
+                           splits3, bn, span3, nullptr, stream);
+    case ua2::I4 * 2:
+    case ua2::I4 * 2 + 1:
+      return ua2_gemv_int4i(h, w3, s3, nullptr, residual, out, M, I, N, ldw3, G3, eps, 0,
+                            splits3, bn, span3, nullptr, stream);
+    // the column-packed entry points send a residual to the tiled template
+    case ua2::C4 * 2:
+      return tc::launch<ua2::C4, false>(h, w3, s3, nullptr, residual, out, nullptr, M, I, N,
+                                        ldw3, G3, eps, 0, splits3, span3, s);
+    case ua2::C4 * 2 + 1:
+      return tc::launch<ua2::C4, true>(h, w3, s3, nullptr, residual, out, nullptr, M, I, N,
+                                       ldw3, G3, eps, 0, splits3, span3, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -2,9 +2,11 @@
 // sm_90a. Included by gemv_int4c.cu and gemv_int4cg.cu (the column-packed
 // layout, C4, per column and grouped), gemv_int4i.cu (the row-interleaved
 // layout, I4, per column and grouped), gemv_int4g.cu and gemv_int4.cu (the
-// K-split layout, K4, grouped and per column) and gemv_int8.cu (int8, one
-// level a byte, INT8, per column). A layout enters only through the W
-// stage's box, `unpack` and the epilogue's column map.
+// K-split layout, K4, grouped and per column), gemv_int8.cu (int8, one
+// level a byte, INT8, per column) and fused_swiglu.cu (the fused SwiGLU's
+// two tile passes: pass 1 its own instance, `swiglu_tc_kernel`, below;
+// pass 2 the GEMV instance of W3's layout). A layout enters only through
+// the W stage's box, `unpack` and the epilogue's column map.
 //
 //   out (M, N) = [rmsnorm(x)] (M, K) @ unpack(W) (K, N) [* scale] [+ res]
 //
@@ -13,9 +15,12 @@
 // (uniaudio2_tpu/ops/quant.py:789-916), `_pallas_int4i_matmul` (:919-1038),
 // `_pallas_int4g_matmul` (:688-786) and `_pallas_int8_matmul` (:463-565).
 // The serving path calls them at every prefill: the QKV projection (I4 /
-// K4 / INT8, with the RMSNorm folded), attn_proj (with the residual folded)
-// and, above 128 rows (the fused MLP takes up to 128), gate, up and the
-// down-projection, at M = 63 to 510.
+// K4 / INT8; the prefill normalises x itself and folds no norm, as the JAX
+// model does: `models/gpt.py` `prefill`, so only a direct call with a norm
+// runs the row kernel's norm), attn_proj (with the residual folded), the
+// fused MLP's pass 2 (17-128 rows, with the residual where one is folded)
+// and, above 128 rows, gate, up and the down-projection, at M = 63 to
+// 510.
 //
 // Bound: operations. At (M = 255, K = 8192, N = 3072) a call is 12.8 GFLOP
 // (13 us at 989 TFLOP/s) against 12.6 MB of weights (3.8 us at 3.35 TB/s);
@@ -61,7 +66,8 @@
 //       shared-memory loads and a byte permute a register, and a second x
 //       box a stage (three stages in the 227 KB, not four). The permuted
 //       copy costs one pass over x (2 M K bytes each way) and a launch,
-//       and the served QKV call writes a normalised copy anyway;
+//       and a call with a norm writes a normalised copy anyway. (The
+//       fused SwiGLU's pass 1 takes the other road: see below.)
 //  * a block is WGS = 2 consumer warpgroups (128 output columns: 64 byte
 //    columns of C4, 128 of I4 / K4 / INT8) and one producer warp. The
 //    producer keeps a ring of STAGES stages (`stages`: INT8's W box is twice
@@ -89,7 +95,7 @@
 //    under the f32 exponent of 2^23, one FADD subtracts 2^23 + 128 and one
 //    cvt packs two levels as bf16x2 (exact: |level| <= 127), as
 //    gemv_int4_splitk.cuh does;
-//  * the RMSNorm prologue (I4 / K4 / INT8; the served QKV call) is `rows_kernel`,
+//  * the RMSNorm prologue (I4 / K4 / INT8; a call that folds a norm) is `rows_kernel`,
 //    launched by the same C entry point before the tile kernel: f32 sums
 //    of squares in a fixed order, bf16(x * rsqrt(mean + eps) * w), the
 //    twin's rounding, into the scratch buffer the tile kernel then reads
@@ -107,10 +113,18 @@
 //  * one row tile of BN = 256: at the serving path's M (255 and 510) a
 //    smaller tile would only add blocks that read the weights again; rows
 //    past M are zero-filled and never written;
-//  * C4 folds neither the norm nor the residual: the serving path applies
-//    both around these GEMVs (`quant.matmul`, as the JAX package does),
-//    and its C entry points send a call that passes either to the tiled
-//    template.
+//  * C4 folds no norm, and a residual only for the fused SwiGLU's pass 2
+//    (fused_swiglu.cu launches it so): the serving path applies both
+//    around the column-packed GEMVs (`quant.matmul`, as the JAX package
+//    does), and their C entry points send a call that passes either to
+//    the tiled template;
+//  * the fused SwiGLU's pass 1 (`swiglu_tc_kernel`, after the GEMV
+//    instance) runs the same ring and cluster sum with W1's and W2's
+//    columns side by side in a block and h = bf16(silu(a) * b) in its
+//    epilogue. It reads K4 in x's own k order (each byte row twice, its
+//    low nibbles in the low half of K and its high nibbles in the high
+//    half), not on a reordered x', so that a K4 tree sums what its I4
+//    copy sums, in the same order, and the two give the same bits.
 // Not here: a persistent schedule, TMA multicast of x across a cluster of
 // column tiles, overlapping a stage's unpacking with the previous stage's
 // products inside a warpgroup (the two warpgroups of a block interleave
@@ -629,6 +643,237 @@ gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
   cluster.sync();                     // no block leaves while its tile is read
 }
 
+// The fused SwiGLU's pass 1 above the decode rows (fused_swiglu.cu): a
+// block's two consumer warpgroups take the same UP_COLS columns of I, the
+// first of W1, the second of W2, so a stage holds two (rows, UP_COLS) W
+// boxes, 64-byte swizzled: I4 BK / 2 byte rows; K4 and INT8 BK byte rows
+// (K4 reads the k order x has, so a stage in the low half of K takes the
+// low nibbles of byte rows k ... k + BK, one in the high half the high
+// nibbles of byte rows k - K/2 ...; each W byte is read twice in all).
+constexpr int UP_COLS = COLS / 2;
+__host__ __device__ constexpr int up_box(int layout) {   // bytes of one W box
+  return (layout == I4 ? BK / 2 : BK) * UP_COLS;
+}
+__host__ __device__ constexpr int up_stages(int layout) {
+  return cmin(8, (SMEM_CAP - 1024 - 16 * 8) / (X_BYTES + 2 * up_box(layout)));
+}
+__host__ __device__ constexpr int up_region(int layout) {
+  return cmax(up_stages(layout) * (X_BYTES + 2 * up_box(layout)), BN * PITCH * 4);
+}
+__host__ __device__ constexpr int up_smem(int layout) {
+  return 1024 + up_region(layout) + 16 * up_stages(layout);
+}
+static_assert(up_smem(I4) <= SMEM_CAP && up_smem(K4) <= SMEM_CAP &&
+                  up_stages(I4) == 6 && up_stages(K4) == 5 && up_stages(INT8) == 5,
+              "over the 227 KB a block may take");
+
+// h (M, I) = bf16(silu(a) * b), a = x W1 [* s1] and b = x W2 [* s2] summed
+// in f32 over the cluster's S K-slices in rank order, the scales per
+// column on the sum or, grouped, on the levels (rounded to bf16 before the
+// product, by group k / (K/G) for every layout). Every layout feeds wgmma
+// the A registers of I4: a thread's A rows g and g + 8 are the columns cl
+// and cl + 8 of its warpgroup's UP_COLS, and the register of (row, k pair
+// 2t, 2t + 1) is one I4 byte (row 2t in its low nibble) or, for INT8, the
+// two levels. So K4 sums the same k-steps in the same order as I4, and the
+// two layouts give the same bits from the same levels. x is the normalised
+// scratch copy for a call with a norm (`rows_kernel<I4>`).
+//
+// Grid: (I / UP_COLS column tiles, S K-slices of `span` input rows, row
+// tiles of BN), launched as clusters of (1, S, 1).
+template <int LAYOUT, bool GROUPED>
+__global__ void __launch_bounds__(THREADS, 1)
+swiglu_tc_kernel(const __grid_constant__ CUtensorMap tx,
+                 const __grid_constant__ CUtensorMap tw1,
+                 const __grid_constant__ CUtensorMap tw2, const float* __restrict__ s1,
+                 const float* __restrict__ s2, __nv_bfloat16* __restrict__ h, int M,
+                 int K, int I, int G, int span) {
+  static_assert(LAYOUT != C4, "gate / up are int8, row-interleaved or K-split");
+  static_assert(!(GROUPED && LAYOUT == INT8), "int8 has per-channel scales only");
+  constexpr int XB = X_BYTES;
+  constexpr int BOX = up_box(LAYOUT);
+  constexpr int WB = 2 * BOX;
+  constexpr int STAGES = up_stages(LAYOUT);
+  constexpr int REGION = up_region(LAYOUT);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int half = K / 2;
+  const int col0 = blockIdx.x * UP_COLS;
+  const int k_begin = blockIdx.y * span;
+  const int steps = (min(K, k_begin + span) - k_begin + BK - 1) / BK;
+  const int m0 = blockIdx.z * BN;
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int lane = threadIdx.x & 31;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const uint32_t x_s = base;                          // stage s at + s XB
+  const uint32_t w_s = base + STAGES * XB;            // stage s at + s WB: W1, W2
+  float* part = reinterpret_cast<float*>(gbase);      // BN x PITCH, after the loop
+  const uint32_t bars = base + REGION;                // full[s], then empty[s]
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (STAGES + s), CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * WGS) {
+    // the producer: stage j holds input rows k = k_begin + 64 j ...: byte
+    // rows k / 2 (I4), k mod K/2 (K4), k (INT8)
+    if (lane == 0) {
+      for (int j = 0; j < steps; ++j) {
+        const int s = j % STAGES;
+        const uint32_t full = bars + 8 * s;
+        if (j >= STAGES) mbar_wait(bars + 8 * (STAGES + s), ((j / STAGES) - 1) & 1);
+        mbar_expect_tx(full, XB + WB);
+        const int k = k_begin + j * BK;
+        const int r = LAYOUT == I4 ? k / 2 : LAYOUT == K4 && k >= half ? k - half : k;
+        tma_load(x_s + s * XB, &tx, full, k, m0);
+        tma_load(w_s + s * WB, &tw1, full, col0, r);
+        tma_load(w_s + s * WB + BOX, &tw2, full, col0, r);
+      }
+    }
+  } else {
+    const int wg = warp >> 2, u = warp & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int cl = 16 * u + g;                        // and cl + 8
+    const int c = col0 + cl;
+    const float* sc = wg == 0 ? s1 : s2;
+    // byte (row R, column cl) of a box of UP_COLS-byte rows, 64-byte
+    // swizzled, is at R UP_COLS + ((u ^ ((R >> 1) & 3)) << 4) + g:
+    //  I4: byte rows t (w_off) and t + 4 (w_off4) of a k-step's 8;
+    //  K4 / INT8: rows 2t (w_off), 2t + 1, 2t + 8, 2t + 9 of a k-step's 16,
+    //  all four under the same XOR t.
+    // Each warp's 32 loads fall in distinct banks.
+    const int w_off = LAYOUT == I4 ? t * UP_COLS + ((u ^ (t >> 1)) << 4) + g
+                                   : 2 * t * UP_COLS + ((u ^ t) << 4) + g;
+    const int w_off4 = (t + 4) * UP_COLS + ((u ^ (t >> 1) ^ 2) << 4) + g;
+    const unsigned char* wsm = gbase + STAGES * XB + wg * BOX;
+
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    const int gs = GROUPED ? K / G : 1;
+    for (int j = 0; j < steps; ++j) {
+      const int s = j % STAGES;
+      const int k0 = k_begin + j * BK;
+      // grouped: sa[kk] the scale of column c, sb[kk] of c + 8, of k-step kk
+      float sa[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (GROUPED) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int gi = min((k0 + 16 * kk) / gs, G - 1);
+          sa[kk] = __ldg(sc + (size_t)gi * I + c);
+          sb[kk] = __ldg(sc + (size_t)gi * I + c + 8);
+        }
+      }
+      const bool high = LAYOUT == K4 && k0 >= half;
+      mbar_wait(bars + 8 * s, (j / STAGES) & 1);
+      uint32_t a[4][4];
+      const unsigned char* wp = wsm + s * WB;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // K4 / INT8: p the bytes of rows 2t and 2t + 8, r of rows 2t + 1
+        // and 2t + 9, each row's columns cl and cl + 8
+        unsigned p = 0, r = 0;
+        if constexpr (LAYOUT != I4) {
+          const unsigned char* q = wp + kk * 16 * UP_COLS + w_off;
+          p = q[0] | (unsigned)q[8] << 8 | (unsigned)q[8 * UP_COLS] << 16 |
+              (unsigned)q[8 * UP_COLS + 8] << 24;
+          r = q[UP_COLS] | (unsigned)q[UP_COLS + 8] << 8 | (unsigned)q[9 * UP_COLS] << 16 |
+              (unsigned)q[9 * UP_COLS + 8] << 24;
+        }
+        if constexpr (LAYOUT == INT8) {
+          const unsigned lo = __byte_perm(p, r, 0x5140) ^ 0x80808080u;
+          const unsigned hi = __byte_perm(p, r, 0x7362) ^ 0x80808080u;
+          a[kk][0] = int8_levels(lo, 0);
+          a[kk][1] = int8_levels(lo, 2);
+          a[kk][2] = int8_levels(hi, 0);
+          a[kk][3] = int8_levels(hi, 2);
+          continue;
+        }
+        // the I4 bytes of (column cl, k 2t and 2t + 1), (cl + 8, the same),
+        // (cl, 2t + 8 and 2t + 9), (cl + 8, the same); K4's from the nibbles
+        // of this half of K, row 2t's in the low nibble
+        unsigned b0, b1, b2, b3;
+        if constexpr (LAYOUT == I4) {
+          const unsigned char* q = wp + kk * 8 * UP_COLS;
+          b0 = q[w_off], b1 = q[w_off + 8], b2 = q[w_off4], b3 = q[w_off4 + 8];
+        } else {
+          const unsigned v = high ? ((p >> 4) & 0x0F0F0F0Fu) | (r & 0xF0F0F0F0u)
+                                  : (p & 0x0F0F0F0Fu) | ((r << 4) & 0xF0F0F0F0u);
+          b0 = v & 0xFFu, b1 = (v >> 8) & 0xFFu, b2 = (v >> 16) & 0xFFu, b3 = v >> 24;
+        }
+        if constexpr (GROUPED) {
+          a[kk][0] = byte_levels_scaled(b0, sa[kk], sa[kk]);
+          a[kk][1] = byte_levels_scaled(b1, sb[kk], sb[kk]);
+          a[kk][2] = byte_levels_scaled(b2, sa[kk], sa[kk]);
+          a[kk][3] = byte_levels_scaled(b3, sb[kk], sb[kk]);
+        } else {
+          a[kk][0] = byte_levels(b0);
+          a[kk][1] = byte_levels(b1);
+          a[kk][2] = byte_levels(b2);
+          a[kk][3] = byte_levels(b3);
+        }
+      }
+      fence_regs(a);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc, a[kk], sw128_desc(x_s + s * XB + 32 * kk, 16, 1024));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      mbar_arrive(bars + 8 * (STAGES + s));
+    }
+
+    // the block's partial tile: row = activation row; column: a's cl and
+    // cl + 8 for the first warpgroup, b's UP_COLS + cl ... for the second
+    consumers_sync();
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float* dst = part + (8 * n + 2 * t + e) * PITCH + UP_COLS * wg + cl;
+        dst[0] = acc[4 * n + e];
+        dst[8] = acc[4 * n + 2 + e];
+      }
+  }
+
+  // rank r finishes activation rows r, r + S, ... of the tile: a and b
+  // summed over the ranks in rank order, the scales, one rounding of h
+  __syncwarp();
+  cluster.sync();
+  const int rows = (BN - rank + S - 1) / S;
+  for (int i = threadIdx.x; i < rows * UP_COLS; i += THREADS) {
+    const int r = rank + S * (i / UP_COLS), jc = i % UP_COLS;
+    const int row = m0 + r, col = col0 + jc;
+    if (row >= M) continue;
+    float pa[MAX_SPLITS], pb[MAX_SPLITS];
+#pragma unroll
+    for (int q = 0; q < MAX_SPLITS; ++q) {
+      const float* src = cluster.map_shared_rank(part, q < S ? q : 0) + r * PITCH + jc;
+      pa[q] = q < S ? src[0] : 0.f;
+      pb[q] = q < S ? src[UP_COLS] : 0.f;
+    }
+    float va = 0.f, vb = 0.f;
+#pragma unroll
+    for (int q = 0; q < MAX_SPLITS; ++q)
+      if (q < S) va += pa[q], vb += pb[q];
+    if (!GROUPED) {
+      va *= __ldg(s1 + col);
+      vb *= __ldg(s2 + col);
+    }
+    h[(size_t)row * I + col] = __float2bfloat16(va / (1.f + expf(-va)) * vb);
+  }
+  cluster.sync();
+}
+
 // The activations a row-packed or int8 call's tile kernel reads, one block a row:
 // with a norm weight the row RMS-normalised (f32 sum of squares in a fixed
 // order, rsqrt(mean + eps)), times the weight and rounded to bf16, as the
@@ -726,7 +971,7 @@ inline bool plan_ok(int layout, int M, int K, int N, int ldw, int G, int splits,
 // The launch: x (M, K) bf16 and w (K, ldw) (C4, INT8) or (K/2, ldw) (I4,
 // K4) int8, both 16-byte aligned; residual (M, N) bf16 or NULL; for K4 and
 // for a call with a norm weight (I4, K4, INT8), xn, (M, K) bf16 and 16-byte aligned,
-// takes the activations `rows_kernel` writes (C4 folds neither). Returns
+// takes the activations `rows_kernel` writes (C4 folds no norm). Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a plan or an operand
 // the kernel does not take or a tensor map cuTensorMapEncodeTiled refuses.
 template <int LAYOUT, bool GROUPED>
@@ -737,7 +982,7 @@ int launch(const void* x, const void* w, const void* scale, const void* nw,
   const bool staged = ROWS && (nw != nullptr || LAYOUT == K4);
   if (GROUPED != (G > 0) || !plan_ok(LAYOUT, M, K, N, ldw, G, splits, span) ||
       reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
-      (!ROWS && (nw != nullptr || res != nullptr)) ||
+      (!ROWS && nw != nullptr) ||
       (staged && (xn == nullptr || reinterpret_cast<uintptr_t>(xn) % 16)))
     return (int)cudaErrorInvalidValue;
   cudaError_t e;
@@ -788,6 +1033,74 @@ int launch(const void* x, const void* w, const void* scale, const void* nw,
   e = cudaLaunchKernelEx(&cfg, kernel, tx, tw, static_cast<const float*>(scale),
                          static_cast<const __nv_bfloat16*>(res), out, M, K, N, G,
                          out_f32, span);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The fused SwiGLU's pass 1: x (M, K) bf16, w1 and w2 (K/2, I) (I4, K4) or
+// (K, I) (INT8) int8, all 16-byte aligned and unpadded; s1, s2 (I,) or
+// (G, I) f32; h (M, I) bf16 out. With a norm weight `rows_kernel<I4>`
+// first writes bf16(rmsnorm(x) * nw) in x's k order into xn (M, K). The
+// plan is `splits` K-slices of `span` input rows (`fused_mlp.swiglu_plan`:
+// I4's `quant.tc_plan` over 2 I columns for every layout). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a plan or an operand
+// the kernel does not take.
+template <int LAYOUT, bool GROUPED>
+int launch_up(const void* x, const void* w1, const void* s1, const void* w2,
+              const void* s2, const void* nw, void* xn, void* h, int M, int K, int I,
+              int G, float eps, int splits, int span, cudaStream_t stream) {
+  const int rows = LAYOUT == INT8 ? K : K / 2;       // byte rows of W1, W2
+  if (GROUPED != (G > 0) || splits < 1 || splits > MAX_SPLITS || span < BK ||
+      span % BK || (long long)splits * span < K || (long long)(splits - 1) * span >= K ||
+      M < 1 || K % (2 * BK) || I < UP_COLS || I % UP_COLS ||
+      (G > 0 && (K % G || (K / G) % 16 || (LAYOUT == K4 && G % 2))) ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w1) % 16 ||
+      reinterpret_cast<uintptr_t>(w2) % 16 ||
+      (nw != nullptr && (xn == nullptr || reinterpret_cast<uintptr_t>(xn) % 16)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (nw != nullptr) {
+    rows_kernel<I4><<<M, ua2::THREADS, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(nw),
+        static_cast<__nv_bfloat16*>(xn), K, eps);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  CUtensorMap tx, tw1, tw2;
+  const int box_rows = up_box(LAYOUT) / UP_COLS;
+  if (!map2d(&tx, nw != nullptr ? xn : x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, M, K, K * 2,
+             BN, BK, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !map2d(&tw1, w1, CU_TENSOR_MAP_DATA_TYPE_UINT8, rows, I, I, box_rows, UP_COLS,
+             CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !map2d(&tw2, w2, CU_TENSOR_MAP_DATA_TYPE_UINT8, rows, I, I, box_rows, UP_COLS,
+             CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  constexpr int SMEM = up_smem(LAYOUT);
+  auto kernel = swiglu_tc_kernel<LAYOUT, GROUPED>;
+  static bool ready[64] = {};
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64 || !ready[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) ready[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(I / UP_COLS, splits, (M + BN - 1) / BN);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, tx, tw1, tw2, static_cast<const float*>(s1),
+                         static_cast<const float*>(s2), static_cast<__nv_bfloat16*>(h), M,
+                         K, I, G, span);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

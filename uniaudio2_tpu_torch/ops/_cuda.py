@@ -74,6 +74,10 @@ _SIGNATURES = {
     # ldw3, layout12, G12, layout3, G3, eps, splits1, span1, splits3, span3,
     # stream (`fused_mlp.swiglu_plan`)
     "ua2_fused_swiglu": [_P] * 11 + [_I] * 9 + [_F] + [_I] * 4 + [_P],
+    # x, w1, s1, w2, s2, w3, s3, norm_w, residual, xn, h, out, M, K, I, N,
+    # ldw3, layout12, G12, layout3, G3, eps, splits1, span1, splits3, span3,
+    # stream: the two tile passes above 16 rows (`fused_mlp.swiglu_plan`)
+    "ua2_fused_swiglu_tc": [_P] * 12 + [_I] * 9 + [_F] + [_I] * 4 + [_P],
     # x, w1, s1, w2, s2, w3, s3, norm_w, residual, h, out, M, K, I, N,
     # ldw3, layout12, G12, layout3, G3, eps, stream: the two tiled passes
     "ua2_fused_swiglu_tiled": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

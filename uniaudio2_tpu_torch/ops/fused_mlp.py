@@ -15,11 +15,18 @@ f32 into a workspace (M x 2I, 64 KB at M = 1 and I = 8192), pass 2 is the
 W3 GEMV over h = bf16(silu(a) * b) with the s3 scale and the residual. Up
 to 16 rows (the frame loop) both passes are the split-K cluster kernel of
 ``csrc/gemv_int4_splitk.cuh``, pass 2 staging h itself; above that (the
-bucket-64 prefill's 63 or 126 rows) the first design's two tiled passes
-(``h`` computed in pass 1), which `fused_swiglu_tiled` launches at any M
-as the yardstick. No atomics, so the sum order is fixed. The Pallas kernel's column-packed
-output order ``[low columns ++ pad][high columns ++ pad]`` is its scratch
-layout; pass 2 writes the true columns directly.
+bucket-64 prefill's 63 or 126 rows) ``ua2_fused_swiglu_tc``, two launches
+of the tensor-core tile kernel of ``csrc/gemv_int4_tc.cuh``: pass 1 its
+instance of its own (``swiglu_tc_kernel``, W1's and W2's columns side by
+side in a block, writing h; the K-split layout read in x's k order, so it
+sums what the interleaved layout sums in the same order), pass 2 the
+served tile GEMV of W3's layout over h. `fused_swiglu_tiled` launches the
+first design's two tiled passes at any M, the yardstick. No atomics, so
+the sum order is fixed by the plan; a K-split tree and its interleaved
+copy (the same levels) get the same bits above 16 rows. The Pallas
+kernel's column-packed output order ``[low columns ++ pad][high columns
+++ pad]`` is its scratch layout; pass 2 writes the true columns
+directly.
 
 The plain twin follows the JAX package's composed path (`gpt._mlp_block`):
 `quant.matmul` fallback for gate and up (each rounded to ``x.dtype``),
@@ -30,14 +37,14 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
 from uniaudio2_tpu_torch.ops import _cuda, quant
 from uniaudio2_tpu_torch.ops.norms import rms_norm
 from uniaudio2_tpu_torch.ops.quant import (
-    LAYOUT_C4, LAYOUTS, QuantizedLinear,
+    LAYOUT_C4, LAYOUT_I4, LAYOUTS, QuantizedLinear,
     QuantizedLinear4, QuantizedLinear4G, QuantizedLinearC4,
     QuantizedLinearC4G, QuantizedLinearI4, QuantizedLinearI4G, check_operand,
     check_weight, matmul_plain,
@@ -58,8 +65,11 @@ def can_fuse(w1, w2, w3, x: torch.Tensor) -> bool:
     groups per nibble half and per 128 rows of W3; besides, a column-packed
     grouped W3 whose groups are whole steps of 16 rows, the split-K pass 2
     reading a step's rows under one scale (the JAX package fuses groups of
-    2-8 rows too; here such a tree takes the unfused GEMVs). Row-major
-    values only."""
+    2-8 rows too; here such a tree takes the unfused GEMVs), and above
+    `quant.SPLITK_MAX_M` rows grouped gate / up and down whose groups are
+    whole k-steps of 16 rows, which the tile passes read under one scale
+    (the JAX package fuses smaller ones; here they take the unfused
+    GEMVs). Row-major values only."""
     interleaved = isinstance(w1, (QuantizedLinearI4, QuantizedLinearI4G))
     if not isinstance(w1, (QuantizedLinear, QuantizedLinear4,
                            QuantizedLinear4G, QuantizedLinearI4,
@@ -99,7 +109,17 @@ def can_fuse(w1, w2, w3, x: torch.Tensor) -> bool:
             return False
     if isinstance(w3, QuantizedLinearC4G) and (i // w3.scale.shape[-2]) % 16:
         return False
+    if math.prod(x.shape[:-1]) > quant.SPLITK_MAX_M and not _tile_groups(
+            k, w1.scale.shape[-2] if w1.scale.ndim == 2 else 0,
+            i, w3.scale.shape[-2] if w3.scale.ndim == 2 else 0):
+        return False
     return i % 256 == 0
+
+
+def _tile_groups(k: int, g12: int, i: int, g3: int) -> bool:
+    """Whether the tile passes take these scale groups (0: per channel):
+    each a whole number of k-steps of 16 rows."""
+    return not (g12 and (k // g12) % 16) and not (g3 and (i // g3) % 16)
 
 
 def fused_swiglu_plain(x, w1, w2, w3, *, norm_w=None, norm_eps=1e-5,
@@ -116,11 +136,12 @@ class SwigluPlan(NamedTuple):
     """How one fused SwiGLU call is launched. ``kind`` "splitk" (up to
     `quant.SPLITK_MAX_M` rows: the split-K kernel twice, ``up`` and
     ``down`` `quant.GemvPlan`s of pass 1 over W1 | W2 and pass 2 over W3)
-    or "tiled" (the first design's two tiled passes; no plans)."""
+    or "tile" (above: the tile kernel twice, ``up`` and ``down``
+    `quant.TcPlan`s)."""
 
     kind: str
-    up: Optional[tuple]
-    down: Optional[tuple]
+    up: tuple
+    down: tuple
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,9 +154,21 @@ def swiglu_plan(m: int, k: int, i: int, n: int, g12: int, layout12: int,
     `quant.gemv_plan` of pass 1 (n = 2 I: W1's column tiles, then W2's)
     and of pass 2; raises for a column-packed W3 with groups of fewer than
     16 rows (a step of 16 rows must lie in one group; `can_fuse` refuses
-    them). Above that the tiled passes."""
+    them). Above that the tile passes: pass 1 takes the interleaved
+    layout's `quant.tc_plan` over 2 I columns (UP_COLS of W1 and of W2 a
+    block) in every layout, so that a K-split gate / up sums over the same
+    K-slices as its interleaved copy; pass 2 W3's `quant.tc_plan`, equal
+    for the column-packed and interleaved layouts at an even N. Raises for
+    groups that are not whole k-steps of 16 rows (`can_fuse` refuses
+    them)."""
     if m > quant.SPLITK_MAX_M:
-        return SwigluPlan("tiled", None, None)
+        if not _tile_groups(k, g12, i, g3):
+            raise ValueError(f"fused_swiglu: groups of {k // max(g12, 1)} / "
+                             f"{i // max(g3, 1)} rows; the tile passes take "
+                             f"whole k-steps of 16")
+        return SwigluPlan("tile",
+                          quant.tc_plan(m, k, 2 * i, g12, sms, LAYOUT_I4),
+                          quant.tc_plan(m, i, n, g3, sms, layout3))
     if g3 and layout3 == LAYOUT_C4 and (i // g3) % 16:
         raise ValueError(f"fused_swiglu: W3 groups of {i // g3} rows; the "
                          f"split-K kernel takes whole steps of 16")
@@ -229,6 +262,33 @@ def _passes(x2, w1, w2, w3, norm_w, norm_eps, res2, plan):
     return out
 
 
+def _tile_passes(x2, w1, w2, w3, norm_w, norm_eps, res2, plan):
+    """One call of ``ua2_fused_swiglu_tc`` (the two tile passes) with the
+    "tile" `SwigluPlan` ``plan``, on operands `_operands` has checked;
+    returns the output and h, pass 1's (M, I) bf16 workspace."""
+    dev = x2.device
+    m, k = x2.shape
+    i, n = w1.scale.shape[-1], w3.scale.shape[-1]
+    if any(t.data_ptr() % 16 for t in (x2, w1.values, w2.values, w3.values)):
+        raise ValueError("fused_swiglu: x and the weights must be 16-byte "
+                         "aligned")
+    xn = None if norm_w is None else torch.empty_like(x2)
+    h = torch.empty((m, i), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    err = _cuda.lib().ua2_fused_swiglu_tc(
+        _cuda.ptr(x2), _cuda.ptr(w1.values), _cuda.ptr(w1.scale),
+        _cuda.ptr(w2.values), _cuda.ptr(w2.scale), _cuda.ptr(w3.values),
+        _cuda.ptr(w3.scale), _cuda.ptr(norm_w), _cuda.ptr(res2),
+        _cuda.ptr(xn), _cuda.ptr(h), _cuda.ptr(out), m, k, i, n,
+        w3.values.shape[-1],
+        LAYOUTS[type(w1)], w1.scale.shape[0] if w1.scale.ndim == 2 else 0,
+        LAYOUTS[type(w3)], w3.scale.shape[0] if w3.scale.ndim == 2 else 0,
+        float(norm_eps), plan.up.splits, plan.up.span, plan.down.splits,
+        plan.down.span, _cuda.stream_of(x2))
+    _cuda.check(err, "ua2_fused_swiglu_tc")
+    return out, h
+
+
 def fused_swiglu(
     x: torch.Tensor,
     w1,
@@ -243,10 +303,12 @@ def fused_swiglu(
     folds a leading RMSNorm (``x`` is then the un-normed activation);
     ``residual`` (the output's shape) folds the residual add: together, the
     transformer's ``x + mlp(rmsnorm(x))``. One call is one launch of
-    ``ua2_fused_swiglu`` (the two split-K passes) up to 16 rows and of the
-    tiled passes above, as `swiglu_plan` says; ``.forms`` counts calls by
-    "<gate/up>+<down>" form ("int4i+int4i", "int4g+int4cg", "int8+int8",
-    ...)."""
+    ``ua2_fused_swiglu`` (the two split-K passes) up to 16 rows and of
+    ``ua2_fused_swiglu_tc`` (the two tile passes) above, as `swiglu_plan`
+    says; ``.forms`` counts calls by "<gate/up>+<down>" form
+    ("int4i+int4i", "int4g+int4cg", "int8+int8", ...). A call of the tile
+    passes also counts pass 1 on `swiglu_tc` and pass 2 on `quant.gemv_tc`
+    under W3's form."""
     lead = x.shape[:-1]
     n = w3.scale.shape[-1]
     if x.device.type == "cpu":
@@ -257,8 +319,10 @@ def fused_swiglu(
     layout12, layout3 = LAYOUTS[type(w1)], LAYOUTS[type(w3)]
     plan = swiglu_plan(m, k, i, n, g12, layout12, g3, layout3,
                        quant._sm_count(dev))
-    if plan.kind == "tiled":
-        out = _tiled(x2, w1, w2, w3, norm_w, norm_eps, res2)
+    if plan.kind == "tile":
+        out, _ = _tile_passes(x2, w1, w2, w3, norm_w, norm_eps, res2, plan)
+        _cuda.count(swiglu_tc)
+        _cuda.count(quant.gemv_tc, FORMS[type(w3)])
     else:
         out = _passes(x2, w1, w2, w3, norm_w, norm_eps, res2, plan)
     _cuda.count(fused_swiglu, f"{FORMS[type(w1)]}+{FORMS[type(w3)]}")
@@ -269,8 +333,7 @@ def fused_swiglu_tiled(x, w1, w2, w3, *, norm_w=None, norm_eps=1e-5,
                        residual=None):
     """`fused_swiglu` through the first design's two tiled passes at any M
     (``ua2_fused_swiglu_tiled``), counted on its own by form: the yardstick
-    the split-K passes are timed against (`fused_swiglu` runs the same
-    passes above 16 rows, counted as its own launches)."""
+    the split-K and tile passes are timed against."""
     lead = x.shape[:-1]
     n = w3.scale.shape[-1]
     if x.device.type == "cpu":
@@ -282,5 +345,7 @@ def fused_swiglu_tiled(x, w1, w2, w3, *, norm_w=None, norm_eps=1e-5,
     return out.reshape(*lead, n)
 
 
+# the tile passes' pass-1 kernel (`swiglu_tc_kernel`), one a call above 16 rows
+swiglu_tc = _cuda.Counter("swiglu_tc")
 _cuda.reset_count(fused_swiglu)
 _cuda.reset_count(fused_swiglu_tiled)
