@@ -355,7 +355,7 @@ def phase_build():
            else "already built from these sources")
     print(f"[2] {Path(lib).name} ready in {time.perf_counter() - t0:.2f} s "
           f"({how})", flush=True)
-    kernel, flash, flash32, tile, up, splitk = "", {}, {}, {}, {}, {}
+    kernel, flash, flash32, tile, up, splitk, ring = "", {}, {}, {}, {}, {}, {}
     for line in _cuda.build_info["log"].splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
@@ -366,7 +366,8 @@ def phase_build():
                 (flash32, r"flash_f32_(tc|simt)_kernelILi(\d+)EE"),
                 (tile, r"gemv_tc_kernelILi(\d)ELb(\d)E"),
                 (up, r"swiglu_tc_kernelILi(\d)ELb(\d)E"),
-                (splitk, r"gemv_splitk_kernelILi(\d)ELb(\d)ELi(\d)E")):
+                (splitk, r"gemv_splitk_kernelILi(\d)ELb(\d)ELi(\d)E"),
+                (ring, r"gemv_stream_kernelILi(\d)ELi(\d+)ELi(\d+)ELi(\d)ELi(\d)E")):
             form = re.search(pattern, kernel)
             got = form and re.search(
                 r"Used (\d+) registers|(\d+) bytes spill stores", line)
@@ -398,6 +399,15 @@ def phase_build():
         print(f"[2] gemv_splitk_kernel<layout {names[layout]}, grouped "
               f"{grouped}, {modes[mode]}>: {got.get('registers')} registers, "
               f"{got.get('spill stores', 0)} bytes of spill stores", flush=True)
+    unpacks = {"0": "shift", "1": "magic"}
+    for (layout, tn, bk, stages, unpack), got in sorted(ring.items()):
+        print(f"[2] gemv_stream_kernel<layout {names[layout]}, TN {tn}, BK {bk}, "
+              f"{stages} stages, {unpacks[unpack]}> (rows 11 and 13's TMA "
+              f"ring): {got.get('registers')} registers, "
+              f"{got.get('spill stores', 0)} bytes of spill stores", flush=True)
+    if _cuda.build_info["log"] and len(ring) != 11:
+        fail(f"ptxas reported {len(ring)} of the 11 TMA-ring kernels (row "
+             f"11's I4 form, row 13's ten K4 instances)")
     if _cuda.build_info["log"] and (len(flash), len(flash32), len(tile),
                                     len(up), len(splitk)) != (4, 4, 7, 5, 21):
         fail(f"ptxas reported {len(flash)} of the 4 bf16 flash kernels, "
@@ -485,8 +495,8 @@ def phase_kernels(torch, dev):
     and, at the kernel's reference case, the kernel's and the twin's time,
     the bound on the card and the library call's time (or None)."""
     from uniaudio2_tpu_torch.ops import (
-        flash_attention, fused_mlp, int4_native, int4_stacked, int4_sweep,
-        qkv_step, quant, splitk_gemv,
+        _cuda, flash_attention, fused_mlp, int4_native, int4_stacked,
+        int4_stream, int4_sweep, qkv_step, quant, splitk_gemv,
     )
     from uniaudio2_tpu_torch.probes import (
         FlushedTimer, int4_native_probe, int4_tinygemm, profile_gemv,
@@ -1020,10 +1030,47 @@ def phase_kernels(torch, dev):
               lambda: torch._weight_int8pack_mm(x, w_lib, s_lib),
               row=(k, n) == (3072, 8192), rtol=RTOL_GROUPED)
         del w, w_lib
-    # row 11, the conversion-free unpack, at the int4 probe's shapes and the
-    # batched path's M; row: (3072, 8192) at M = 1, row-major. Twin: one
-    # bf16 ulp; the tiled instance of the production interleaved kernel,
-    # which it was written against: the same bits.
+    def ring_case(row, label, k, n, m, run, simt, splitk, library, times):
+        """Rows 11 and 13's TMA-ring kernel timed beside its first design
+        (the lesser of its kept forms ``simt``: {name: fn}), the split-K
+        wrapper of the same function and bits and the library call
+        (kernel, the others, kernel: the lesser of the kernel's two), with
+        the plan and the share of the bound, kept in ``times``."""
+        ms = timer(run)
+        simt_ms = {name: timer(fn) for name, fn in simt.items()}
+        splitk_ms, lib_ms = timer(splitk), timer(library)
+        ms = min(ms, timer(run))
+        best = min(simt_ms, key=simt_ms.get)
+        bound_ms = bound(2 * m * (k + n) + 4 * n + k * n // 2, 2 * m * k * n)[0]
+        times[(label, k, n, m)] = (ms, simt_ms[best], splitk_ms, lib_ms)
+        first = next(iter(simt_ms))
+        print(f"[3] {row} ring {label} {k}->{n} M={m}: TMA ring {ms:.4f} ms, "
+              f"first design {simt_ms[first]:.4f} ms {first} (x"
+              f"{simt_ms[first] / ms:.2f}), its fastest kept form "
+              f"{simt_ms[best]:.4f} ms {best} (x{simt_ms[best] / ms:.2f}), "
+              f"split-K {splitk_ms:.4f} ms (x{splitk_ms / ms:.2f}), library "
+              f"{lib_ms:.4f} ms (x{lib_ms / ms:.2f}); bound {bound_ms:.4f} ms, "
+              f"{bound_ms / ms:.1%} of it", flush=True)
+
+    def faster_line(row, times):
+        slower = [key for key, (ms, simt_ms, _, _) in times.items()
+                  if ms >= simt_ms]
+        print(f"[3] {row}: the TMA ring faster than its first design at "
+              f"{len(times) - len(slower)} of {len(times)} timed cases; not at "
+              f"{slower}", flush=True)
+
+    # row 11, the TMA-ring split-K kernel (I4, its default form), at the
+    # int4 probe's shapes and the batched path's M; row: (3072, 8192) at
+    # M = 1, row-major. Twin: one bf16 ulp; the two byte orders the same
+    # bits; at M <= 16 the bits of quant.int4i_matmul (the split-K kernel
+    # on the same plan). The first design (`int4_native_matmul_simt`) the
+    # bits of gemv_int4i.cu's tiled instance, which it was written against.
+    # Timed beside the first design, the split-K wrapper and the library at
+    # (256, 512) (the design's fixed cost) and (3072, 8192), M = 1 and 16.
+    native_times = {}
+    tiny = torch.zeros(1, device=dev)
+    print(f"[3] the timer's floor, one launch of a one-element fill: "
+          f"{timer(lambda: tiny.zero_()):.4f} ms", flush=True)
     for k, n in int4_native_probe.SHAPES:
         w = quant.to_interleaved(quant.quantize4(
             torch.randn((k, n), generator=gen, device=dev) * 0.02))
@@ -1042,47 +1089,102 @@ def phase_kernels(torch, dev):
                        2 * m * k * n),
                       (lambda: torch._weight_int4pack_mm(x, wp, group, sz))
                       if row else None, row=row, rtol=RTOL_GROUPED)
-            same = torch.equal(int4_native.int4_native_matmul(
-                x, w.values, w.scale),
-                quant.int4i_matmul_tiled(x, w.values, w.scale))
-            print(f"[3] int4_native_gemv (K, N) = ({k}, {n}) M={m}: the "
-                  f"bits of gemv_int4i.cu's tiled instance: {same}", flush=True)
-            if not same:
-                fail("int4_native_gemv does not sum in the order of "
-                     "gemv_int4i.cu's tiled instance")
-    # row 13, the K-split GEMV's twelve tile forms at the backbone's qkv and
-    # the audio head (a partial last tile), M = 1 and 16; row: the fastest
-    # form at (3072, 5120), M = 1 (rechecked as the row).
+            out = int4_native.int4_native_matmul(x, w.values, w.scale)
+            bits = {"chunk-major": torch.equal(out, int4_native.int4_native_matmul(
+                        x, chunked, w.scale)),
+                    "split-K": torch.equal(out, quant.int4i_matmul(
+                        x, w.values, w.scale)),
+                    "first design = tiled": torch.equal(
+                        int4_native.int4_native_matmul_simt(x, w.values, w.scale),
+                        quant.int4i_matmul_tiled(x, w.values, w.scale))}
+            print(f"[3] int4_native_gemv (K, N) = ({k}, {n}) M={m}: the same "
+                  f"bits: {json.dumps(bits)}", flush=True)
+            if not all(bits.values()):
+                fail(f"int4_native_gemv (K, N) = ({k}, {n}) M={m}: the bits "
+                     f"differ: {bits}")
+            if (k, n) != (512, 1024) and m in (1, 16):
+                ring_case("int4_native_gemv", "row-major", k, n, m,
+                          lambda: int4_native.int4_native_matmul(
+                              x, w.values, w.scale),
+                          {"simt": lambda: int4_native.int4_native_matmul_simt(
+                              x, w.values, w.scale)},
+                          lambda: quant.int4i_matmul(x, w.values, w.scale),
+                          lambda: torch._weight_int4pack_mm(x, wp, group, sz),
+                          native_times)
+    faster_line("int4_native_gemv", native_times)
+    # row 13, the K-split GEMV's twelve forms at the backbone's qkv and the
+    # audio head (a partial last tile), M = 1 and 16: every form and the
+    # first design's kept forms against the twin; form 0 the bits of
+    # quant.int4_matmul (the split-K K4 kernel on the same plan), the first
+    # design's form 0 those of gemv_int4.cu's tiled instance; the host's
+    # shared-memory reckoning against the header's. Every form timed at
+    # (3072, 5120), M = 1; row: the fastest form there (rechecked as the
+    # row). Form 0 timed beside the first design's kept forms, the split-K
+    # wrapper and the library at both shapes and M.
     int4_sweep.check_forms()
-    fastest = {}
+    fastest, sweep_times = {}, {}
+    lib = _cuda.lib()
     for name, k, n in (sweep_gemv_blocks.SHAPES[0], sweep_gemv_blocks.SHAPES[3]):
         w = quant.quantize4(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+        wp, group, sz = int4_tinygemm(w)
         for m in (1, 16):
             x = bf16(m, k)
+            case = (nbytes(x, w.scale) + k * n // 2 + 2 * m * n, 2 * m * k * n)
             for i, form in enumerate(int4_sweep.FORMS):
+                splits, span = int4_stream.stream_plan(m, k, n, sms, form)
+                smem = int4_stream.smem_bytes(form, m, span)
+                if smem != lib.ua2_gemv_int4_stream_smem(
+                        form.tn, form.bk, form.stages, m, span):
+                    fail(f"int4_stream.smem_bytes disagrees with the header "
+                         f"at {form.name} M={m}")
                 check("int4_sweep_gemv", f"{name} {k}->{n} M={m} {form.name}",
                       lambda: int4_sweep.int4_sweep_matmul(x, w.values,
                                                            w.scale, i),
                       lambda: int4_sweep.int4_sweep_matmul_plain(
-                          x, w.values, w.scale),
-                      (nbytes(x, w.scale) + k * n // 2 + 2 * m * n,
-                       2 * m * k * n), rtol=RTOL_GROUPED)
+                          x, w.values, w.scale), case, rtol=RTOL_GROUPED)
                 if (name, m) == ("bb_qkv", 1):
                     fastest[i] = timer(lambda: int4_sweep.int4_sweep_matmul(
                         x, w.values, w.scale, i))
+            for i, form in enumerate(int4_sweep.SIMT_FORMS):
+                out = int4_sweep.int4_sweep_matmul_simt(x, w.values, w.scale, i)
+                ref = int4_sweep.int4_sweep_matmul_plain(x, w.values, w.scale)
+                err = (out.float() - ref.float()).abs().max().item()
+                if err > RTOL_GROUPED * ref.float().abs().max().item():
+                    fail(f"int4_sweep_matmul_simt {form.name} {name} M={m}: "
+                         f"max_abs_err {err:.4g}")
+            bits = {"form 0 = split-K": torch.equal(
+                        int4_sweep.int4_sweep_matmul(x, w.values, w.scale),
+                        quant.int4_matmul(x, w.values, w.scale)),
+                    "first design form 0 = tiled": torch.equal(
+                        int4_sweep.int4_sweep_matmul_simt(x, w.values, w.scale),
+                        quant.int4_matmul_tiled(x, w.values, w.scale))}
+            print(f"[3] int4_sweep_gemv {name} {k}->{n} M={m}: the same bits: "
+                  f"{json.dumps(bits)}", flush=True)
+            if not all(bits.values()):
+                fail(f"int4_sweep_gemv {name} M={m}: the bits differ: {bits}")
+            ring_case("int4_sweep_gemv", name, k, n, m,
+                      lambda: int4_sweep.int4_sweep_matmul(x, w.values, w.scale),
+                      {f.name: (lambda i=i: int4_sweep.int4_sweep_matmul_simt(
+                          x, w.values, w.scale, i))
+                       for i, f in enumerate(int4_sweep.SIMT_FORMS)},
+                      lambda: quant.int4_matmul(x, w.values, w.scale),
+                      lambda: torch._weight_int4pack_mm(x, wp, group, sz),
+                      sweep_times)
             if name == "bb_qkv" and m == 1:
                 best = min(fastest, key=fastest.get)
-                wp, group, sz = int4_tinygemm(w)
+                print(f"[3] int4_sweep_gemv {name} M=1 forms (ms): "
+                      f"{json.dumps({int4_sweep.FORMS[i].name: t for i, t in fastest.items()})}",
+                      flush=True)
                 check("int4_sweep_gemv",
                       f"{name} {k}->{n} M=1 {int4_sweep.FORMS[best].name} (fastest)",
                       lambda: int4_sweep.int4_sweep_matmul(x, w.values,
                                                            w.scale, best),
                       lambda: int4_sweep.int4_sweep_matmul_plain(
-                          x, w.values, w.scale),
-                      (nbytes(x, w.scale) + k * n // 2 + 2 * n, 2 * k * n),
+                          x, w.values, w.scale), case,
                       lambda: torch._weight_int4pack_mm(x, wp, group, sz),
                       row=True, rtol=RTOL_GROUPED)
                 results["int4_sweep_gemv"]["form"] = int4_sweep.FORMS[best].name
+    faster_line("int4_sweep_gemv", sweep_times)
     # row 14, the stacked-layer GEMV with the layer index read on the card,
     # on the scan-slice probe's (28, 3072, 8192) stack: every layer the bits
     # of the production K-split kernel on its slice; row: layer 27, against
@@ -3683,8 +3785,13 @@ def phase_probes(torch):
           f"{len(native)} int4 native lines, {len(sweep)} sweep lines, "
           f"{len(scan)} scan-slice forms; launches {json.dumps(launches)}",
           flush=True)
-    if not all(line["bit_identical_to_int4i_tiled"] for line in native) or not all(
-            line["form0_bit_identical_to_int4_tiled"] for line in sweep):
+    # the TMA ring: the split-K kernel's bits at M <= 16 (every probe row
+    # is); the first designs: the tiled instances'
+    if not all(line["bit_identical_to_int4i_splitk"]
+               and line["simt_bit_identical_to_int4i_tiled"] for line in native) \
+            or not all(line["form0_bit_identical_to_int4_splitk"]
+                       and line["simt_form0_bit_identical_to_int4_tiled"]
+                       for line in sweep):
         fail("an int4 probe kernel left the production kernel's order")
     if not all(launches.values()):
         fail(f"a probe kernel was never launched: {launches}")

@@ -33,14 +33,16 @@ with the host's plan: every form at both model widths and M = 1-17 within
 2e-2 x max|twin|, bit-identical from call to call, one kernel node in a
 captured graph; the first design, `qkv_rope_step_tiled`, within the same
 bound.
-The two int4 probe kernels (rows 11 and 13: the conversion-free unpack
-and the twelve tile forms of the K-split GEMV) add exact f32 products in
-another order than their twins and round once: one bf16 ulp
-(RTOL_GROUPED). With the production template's tiles they sum in its
-order, so the native kernel gives the tiled instance of `gemv_int4i.cu`
-its bits (`int4i_matmul_tiled`; at decode `int4i_matmul` launches the
-split-K kernel, which sums in another order) and sweep form 0 the tiled
-instance of `gemv_int4.cu` (`int4_matmul_tiled`) its bits.
+The two int4 probe kernels (rows 11 and 13: the TMA-ring split-K GEMV of
+`csrc/gemv_int4_stream.cuh`, row 11 in its default form, row 13 in twelve
+forms) add exact f32 products in another order than their twins and
+round once: one bf16 ulp (RTOL_GROUPED). On the split-K kernel's plan
+they sum in its order, so at M <= 16 row 11 gives `int4i_matmul`'s bits
+(row-major and chunk-major alike) and row 13's form 0 `int4_matmul`'s,
+and every form on form 0's slices form 0's bits. Their first designs
+(`int4_native_matmul_simt`, `int4_sweep_matmul_simt`: CUDA-core FMAs in
+the tiled template's order) give the tiled instances' bits
+(`int4i_matmul_tiled`, `int4_matmul_tiled`).
 Rows 1, 5 and 6 at decode (M <= 16) run the split-K cluster kernel with the
 host's plan (`quant.gemv_plan`): held to their twins with the bounds
 above at the decode shapes and at the prefill's M (the tensor-core tile
@@ -73,8 +75,8 @@ import pytest
 import torch
 
 from uniaudio2_tpu_torch.ops import (
-    _cuda, flash_attention, fused_mlp, int4_native, int4_stacked, int4_sweep,
-    lean_update, qkv_step, quant, splitk_gemv,
+    _cuda, flash_attention, fused_mlp, int4_native, int4_stacked, int4_stream,
+    int4_sweep, lean_update, qkv_step, quant, splitk_gemv,
 )
 from uniaudio2_tpu_torch.probes import int4_native_probe
 from uniaudio2_tpu_torch.train import lean_opt
@@ -574,13 +576,16 @@ def test_int8_splitk_gemv(dev, k, n):
     assert torch.equal(out, again)                  # fixed-order sums
 
 
+NATIVE_SHAPES = [(256, 512), (512, 1024), (3072, 8192), (2048, 12300)]
+
+
 @pytest.mark.parametrize("m", [1, 8, 16, 21])
-@pytest.mark.parametrize("k,n", [(256, 512), (512, 1024), (3072, 8192),
-                                 (2048, 12300)])
+@pytest.mark.parametrize("k,n", NATIVE_SHAPES)
 def test_int4_native_gemv(dev, k, n, m):
-    """Row 11's kernel: its twin within one bf16 ulp, the tiled instance
-    of the production row-interleaved kernel to the bit, row-major and
-    chunk-major alike."""
+    """Row 11's kernel (the TMA-ring split-K GEMV): its twin within one
+    bf16 ulp, row-major and chunk-major bit for bit, and at M <= 16 the
+    split-K kernel's bits (`quant.int4i_matmul`, the same plan); one
+    counted launch a call."""
     g = _gen(dev, k + m)
     w = _i4(g, dev, k, n)
     x = _bf16(g, dev, m, k)
@@ -590,6 +595,28 @@ def test_int4_native_gemv(dev, k, n, m):
         x, int4_native_probe.chunk_major(w.values, 512), w.scale)
     torch.cuda.synchronize()
     assert int4_native.int4_native_matmul.launches == before + 2
+    _close(out, int4_native.int4_native_matmul_plain(x, w.values, w.scale),
+           rtol=RTOL_GROUPED)
+    assert torch.equal(out, chunked)
+    if m <= quant.SPLITK_MAX_M:
+        assert torch.equal(out, quant.int4i_matmul(x, w.values, w.scale))
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 21])
+@pytest.mark.parametrize("k,n", NATIVE_SHAPES)
+def test_int4_native_gemv_simt(dev, k, n, m):
+    """Row 11's first design: its twin within one bf16 ulp, the tiled
+    instance of the production row-interleaved kernel to the bit, row-major
+    and chunk-major alike; counted on its own."""
+    g = _gen(dev, k + m)
+    w = _i4(g, dev, k, n)
+    x = _bf16(g, dev, m, k)
+    before = int4_native.int4_native_matmul_simt.launches
+    out = int4_native.int4_native_matmul_simt(x, w.values, w.scale)
+    chunked = int4_native.int4_native_matmul_simt(
+        x, int4_native_probe.chunk_major(w.values, 512), w.scale)
+    torch.cuda.synchronize()
+    assert int4_native.int4_native_matmul_simt.launches == before + 2
     _close(out, int4_native.int4_native_matmul_plain(x, w.values, w.scale),
            rtol=RTOL_GROUPED)
     assert torch.equal(out, chunked)
@@ -671,23 +698,49 @@ def test_int4_sweep_form_table(dev):
 @pytest.mark.parametrize("m", [1, 8, 16, 21])
 @pytest.mark.parametrize("form", range(len(int4_sweep.FORMS)))
 def test_int4_sweep_gemv(dev, form, m):
-    """Row 13's kernel in every form at the backbone's qkv and the audio
-    head (N = 12300, a partial last tile): its twin within one bf16 ulp;
-    form 0 the tiled instance of `gemv_int4.cu` to the bit (at M <= 16
-    `int4_matmul` launches the split-K kernel, which sums in another
-    order)."""
+    """Row 13's kernel (the TMA-ring split-K GEMV) in every form at the
+    backbone's qkv and the audio head (N = 12300, a partial last tile): its
+    twin within one bf16 ulp; a form on form 0's slices gives form 0's
+    bits, and form 0 at M <= 16 the split-K K4 kernel's
+    (`quant.int4_matmul`, the same plan); one counted launch a call."""
+    g = _gen(dev, form + m)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    f = int4_sweep.FORMS[form]
+    for k, n in ((3072, 5120), (2048, 12300)):
+        w = quant.quantize4(torch.randn((k, n), generator=g, device=dev) * 0.02)
+        x = _bf16(g, dev, m, k)
+        before = int4_sweep.int4_sweep_matmul.forms.get(f.name, 0)
+        out = int4_sweep.int4_sweep_matmul(x, w.values, w.scale, form)
+        torch.cuda.synchronize()
+        assert int4_sweep.int4_sweep_matmul.forms[f.name] == before + 1
+        _close(out, int4_sweep.int4_sweep_matmul_plain(x, w.values, w.scale),
+               rtol=RTOL_GROUPED)
+        plan = int4_stream.stream_plan(m, k, n, sms, f)
+        if plan == int4_stream.stream_plan(m, k, n, sms, int4_stream.DEFAULT):
+            assert torch.equal(out, int4_sweep.int4_sweep_matmul(
+                x, w.values, w.scale, int4_sweep.PRODUCTION))
+        if form == int4_sweep.PRODUCTION and m <= quant.SPLITK_MAX_M:
+            assert torch.equal(out, quant.int4_matmul(x, w.values, w.scale))
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 21])
+@pytest.mark.parametrize("form", range(len(int4_sweep.SIMT_FORMS)))
+def test_int4_sweep_gemv_simt(dev, form, m):
+    """Row 13's first design in its kept forms at the backbone's qkv and
+    the audio head: its twin within one bf16 ulp; form 0 the tiled
+    instance of `gemv_int4.cu` to the bit; counted on its own."""
     g = _gen(dev, form + m)
     for k, n in ((3072, 5120), (2048, 12300)):
         w = quant.quantize4(torch.randn((k, n), generator=g, device=dev) * 0.02)
         x = _bf16(g, dev, m, k)
-        name = int4_sweep.FORMS[form].name
-        before = int4_sweep.int4_sweep_matmul.forms.get(name, 0)
-        out = int4_sweep.int4_sweep_matmul(x, w.values, w.scale, form)
+        name = int4_sweep.SIMT_FORMS[form].name
+        before = int4_sweep.int4_sweep_matmul_simt.forms.get(name, 0)
+        out = int4_sweep.int4_sweep_matmul_simt(x, w.values, w.scale, form)
         torch.cuda.synchronize()
-        assert int4_sweep.int4_sweep_matmul.forms[name] == before + 1
+        assert int4_sweep.int4_sweep_matmul_simt.forms[name] == before + 1
         _close(out, int4_sweep.int4_sweep_matmul_plain(x, w.values, w.scale),
                rtol=RTOL_GROUPED)
-        if form == int4_sweep.PRODUCTION:
+        if form == 0:
             assert torch.equal(out, quant.int4_matmul_tiled(x, w.values,
                                                             w.scale))
 
@@ -794,9 +847,12 @@ def test_wrappers_raise_on_unsupported_input(dev):
         int4_native.int4_native_matmul(
             x, w.values.reshape(128, 2, 128)[:, :, :100].permute(1, 0, 2)
             .contiguous(), w.scale[:200])
+    with pytest.raises(ValueError):             # rows of 72 bytes: no TMA map
+        int4_sweep.int4_sweep_matmul(x, w.values[:, :72].contiguous(),
+                                     w.scale[:72], form=2)
     with pytest.raises(ValueError):             # rows of 64 bytes, 128-wide tiles
-        int4_sweep.int4_sweep_matmul(x, w.values[:, :64].contiguous(),
-                                     w.scale[:64], form=2)
+        int4_sweep.int4_sweep_matmul_simt(x, w.values[:, :64].contiguous(),
+                                          w.scale[:64], form=1)
     w8 = quant.quantize(torch.randn((64, 40), generator=g, device=dev))
     with pytest.raises(ValueError):             # M = 2: a batch-1 kernel
         splitk_gemv.int8_splitk_gemv(_bf16(g, dev, 2, 64), w8.values, w8.scale)

@@ -98,12 +98,24 @@ _SIGNATURES = {
                         _F, _F, _F, _F, _F, _F, _P],
     # x, w, scale, partial, out, K, N, ldw, splits, chunk, stream
     "ua2_gemv_int8_splitk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, w, scale, out, M, K, N, ldw, bn (0 = row-major), stream
-    "ua2_gemv_int4_native": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # form, x, w, scale, out, M, K, N, ldw, stream
-    "ua2_gemv_int4_sweep": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # form, int[4] out: cols, unroll, mt, unpack
+    # x, w, scale, out, M, K, N, ldw (the padded width), bn (0 = row-major),
+    # splits, span (`int4_stream.stream_plan`), stream: the TMA-ring kernel
+    "ua2_gemv_int4_native": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # int[5] out: its form (tn, bk, stages, slice rule, unpack)
+    "ua2_gemv_int4_native_form": [_P],
+    # x, w, scale, out, M, K, N, ldw (0 for chunk-major), bn, stream: the
+    # first design
+    "ua2_gemv_int4_native_simt": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # form, x, w, scale, out, M, K, N, ldw, splits, span, stream
+    "ua2_gemv_int4_sweep": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # form, int[5] out: tn, bk, stages, slice rule, unpack
     "ua2_gemv_int4_sweep_form": [_I, _P],
+    # tn, bk, stages, M, span: the TMA-ring kernel's dynamic shared bytes
+    "ua2_gemv_int4_stream_smem": [_I, _I, _I, _I, _I],
+    # form, x, w, scale, out, M, K, N, ldw, stream: the first design's forms
+    "ua2_gemv_int4_sweep_simt": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # form, int[4] out: cols, unroll, mt, unpack
+    "ua2_gemv_int4_sweep_simt_form": [_I, _P],
     # x, w, scale, layer, out, M, K, N, ldw, w_stride, s_stride, L, stream
     "ua2_gemv_int4_stacked": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I,
                               _P],

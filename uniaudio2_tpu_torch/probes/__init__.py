@@ -4,15 +4,16 @@ the production int8 kernel, a bf16 product and an int8 x int8 product),
 `profile_attention` (the causal GQA flash kernel at the backbone's prefill
 shape and the DiT's kernel, against the production einsum path and SDPA),
 `int4_native_probe` (row 1's GEMV with a conversion-free unpack) and
-`sweep_gemv_blocks` (row 5's K-split GEMV in twelve tile forms, at M = 1,
-8 and 16); and, with no TPU counterpart, `gemv_splitk_sweep` (rows 1 and
+`sweep_gemv_blocks` (row 5's K-split GEMV in twelve forms, at M = 1, 8 and
+16), both on the TMA-ring split-K GEMV; and, with no TPU counterpart, `gemv_splitk_sweep` (rows 1 and
 6's split-K GEMV at every legal number of K-slices, against the host's
 plan), `tc_splits_sweep` (the tensor-core tile kernel of rows 1, 6, 7
 and 8 likewise), `swiglu_splits_sweep` (row 2's two split-K passes likewise),
 `splitk_ab` (rows 1, 5 and 6's split-K GEMVs through this checkout's
 kernel library and another checkout's, in one process) and
 `int8_read_pattern` (the lm_head's bytes read in row 4's access patterns,
-no arithmetic). Each prints the
+no arithmetic) and `stream_breakdown` (rows 11 and 13's TMA ring rebuilt
+with its arithmetic or its staging taken out). Each prints the
 card's name and power limit beside its numbers."""
 
 import statistics
