@@ -65,8 +65,9 @@ caught):
    and float32 SDPA) in float32; its causal GQA form at the backbone prefill's (1, 24, 8, T, 128)
    with T = 2048 and 1000, each with the host's plan (tile, stages,
    blocks) and the shares of the operations bound that the kernel and
-   SDPA reach; the split-K int8 GEMV at the GEMV probe's six
-   shapes), with the median CUDA-event time of each (L2 flushed before
+   SDPA reach; the int8 GEMV probe's kernel, the TMA ring's int8 form,
+   at the GEMV probe's six shapes, to the production int8 kernel's bits
+   and beside its two-pass first design), with the median CUDA-event time of each (L2 flushed before
    every launch, as the decode loop finds it), the bound on the card and,
    where one PyTorch call computes the same function, that call's time;
 4. the full `UnifiedModelConfig()` (28x3072 backbone, 3 + 2 expert layers,
@@ -198,9 +199,9 @@ caught):
 
 Phase 3 also holds the fused lean-update kernel to its twin at full-width
 leaf shapes (bit-identical, bf16 g and p), and the stacked-layer int4
-GEMV (the layer index read on the card) to its twin and to the bits of
-the production K-split kernel's tiled instance on every layer of a
-(28, 3072, 8192) stack.
+GEMV (the TMA ring, the layer index read on the card) to its twin and to
+the bits of the production K-split kernel (the split-K kernel) on every
+layer of a (28, 3072, 8192) stack, NaN past it, beside its first design.
 
 At the end the five probe scripts run (`uniaudio2_tpu_torch/probes/`: the
 split-K int8 GEMV against the production int8 kernel, a bf16 product and
@@ -367,7 +368,7 @@ def phase_build():
                 (tile, r"gemv_tc_kernelILi(\d)ELb(\d)E"),
                 (up, r"swiglu_tc_kernelILi(\d)ELb(\d)E"),
                 (splitk, r"gemv_splitk_kernelILi(\d)ELb(\d)ELi(\d)E"),
-                (ring, r"gemv_stream_kernelILi(\d)ELi(\d+)ELi(\d+)ELi(\d)ELi(\d)E")):
+                (ring, r"gemv_stream_kernelILi(\d)ELi(\d+)ELi(\d+)ELi(\d)ELi(\d)ELb(\d)E")):
             form = re.search(pattern, kernel)
             got = form and re.search(
                 r"Used (\d+) registers|(\d+) bytes spill stores", line)
@@ -400,14 +401,16 @@ def phase_build():
               f"{grouped}, {modes[mode]}>: {got.get('registers')} registers, "
               f"{got.get('spill stores', 0)} bytes of spill stores", flush=True)
     unpacks = {"0": "shift", "1": "magic"}
-    for (layout, tn, bk, stages, unpack), got in sorted(ring.items()):
+    for (layout, tn, bk, stages, unpack, stacked), got in sorted(ring.items()):
         print(f"[2] gemv_stream_kernel<layout {names[layout]}, TN {tn}, BK {bk}, "
-              f"{stages} stages, {unpacks[unpack]}> (rows 11 and 13's TMA "
+              f"{stages} stages, {unpacks[unpack]}"
+              f"{', stacked' if stacked == '1' else ''}> (rows 11-14's TMA "
               f"ring): {got.get('registers')} registers, "
               f"{got.get('spill stores', 0)} bytes of spill stores", flush=True)
-    if _cuda.build_info["log"] and len(ring) != 11:
-        fail(f"ptxas reported {len(ring)} of the 11 TMA-ring kernels (row "
-             f"11's I4 form, row 13's ten K4 instances)")
+    if _cuda.build_info["log"] and len(ring) != 13:
+        fail(f"ptxas reported {len(ring)} of the 13 TMA-ring kernels (row "
+             f"11's I4 form, row 12's INT8 form, row 13's ten K4 instances, "
+             f"row 14's stacked K4 instance)")
     if _cuda.build_info["log"] and (len(flash), len(flash32), len(tile),
                                     len(up), len(splitk)) != (4, 4, 7, 5, 21):
         fail(f"ptxas reported {len(flash)} of the 4 bf16 flash kernels, "
@@ -1016,32 +1019,21 @@ def phase_kernels(torch, dev):
                 q, k, v, is_causal=True, enable_gqa=True),
             row=t == 2048, per_row=True)
         flash_plan_line((b, h, g, t, hd), case, ms, lib_ms)
-    # the split-K int8 GEMV at the GEMV probe's six shapes; row: (3072, 8192).
-    # Kernel and twin add exact products in f32 in another order: one bf16
-    # ulp. The library call takes bf16 scales.
-    for k, n in profile_gemv.SHAPES + profile_gemv.MORE_SHAPES:
-        w = quant.quantize(torch.randn((k, n), generator=gen, device=dev) * 0.02)
-        x = bf16(1, k)
-        w_lib, s_lib = w.values[:, :n].T.contiguous(), w.scale.to(torch.bfloat16)
-        check("int8_splitk_gemv", f"(K, N) = ({k}, {n}) M=1",
-              lambda: splitk_gemv.int8_splitk_gemv(x, w.values, w.scale),
-              lambda: splitk_gemv.int8_splitk_gemv_plain(x, w.values, w.scale),
-              (nbytes(x, w.scale) + k * n + 2 * n, 2 * k * n),
-              lambda: torch._weight_int8pack_mm(x, w_lib, s_lib),
-              row=(k, n) == (3072, 8192), rtol=RTOL_GROUPED)
-        del w, w_lib
-    def ring_case(row, label, k, n, m, run, simt, splitk, library, times):
-        """Rows 11 and 13's TMA-ring kernel timed beside its first design
+    def ring_case(row, label, k, n, m, run, simt, splitk, library, times,
+                  w_bytes=None):
+        """Rows 11-14's TMA-ring kernel timed beside its first design
         (the lesser of its kept forms ``simt``: {name: fn}), the split-K
         wrapper of the same function and bits and the library call
         (kernel, the others, kernel: the lesser of the kernel's two), with
-        the plan and the share of the bound, kept in ``times``."""
+        the share of the bound (``w_bytes`` of weights: K N / 2 unless
+        given), kept in ``times``."""
         ms = timer(run)
         simt_ms = {name: timer(fn) for name, fn in simt.items()}
         splitk_ms, lib_ms = timer(splitk), timer(library)
         ms = min(ms, timer(run))
         best = min(simt_ms, key=simt_ms.get)
-        bound_ms = bound(2 * m * (k + n) + 4 * n + k * n // 2, 2 * m * k * n)[0]
+        w_bytes = k * n // 2 if w_bytes is None else w_bytes
+        bound_ms = bound(2 * m * (k + n) + 4 * n + w_bytes, 2 * m * k * n)[0]
         times[(label, k, n, m)] = (ms, simt_ms[best], splitk_ms, lib_ms)
         first = next(iter(simt_ms))
         print(f"[3] {row} ring {label} {k}->{n} M={m}: TMA ring {ms:.4f} ms, "
@@ -1058,6 +1050,54 @@ def phase_kernels(torch, dev):
         print(f"[3] {row}: the TMA ring faster than its first design at "
               f"{len(times) - len(slower)} of {len(times)} timed cases; not at "
               f"{slower}", flush=True)
+
+    # row 12, the int8 GEMV probe on the TMA ring's int8 form (one launch)
+    # at the GEMV probe's six shapes; row: (3072, 8192).
+    # Kernel and twin add exact products in f32 in another order: one bf16
+    # ulp. On the split-K plan (N <= 8192: the wide-N rule never fires) the
+    # bits of quant.int8_matmul; the two-pass first design within one bf16
+    # ulp of the twin. Timed beside the first design, the split-K wrapper
+    # and the library (bf16 scales) at every shape; the host's
+    # shared-memory reckoning against the header's at (3072, 8192).
+    int8_times = {}
+    lib = _cuda.lib()
+    for k, n in profile_gemv.SHAPES + profile_gemv.MORE_SHAPES:
+        w = quant.quantize(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+        x = bf16(1, k)
+        w_lib, s_lib = w.values[:, :n].T.contiguous(), w.scale.to(torch.bfloat16)
+        ring = lambda: splitk_gemv.int8_splitk_gemv(x, w.values, w.scale)
+        plain = lambda: splitk_gemv.int8_splitk_gemv_plain(x, w.values, w.scale)
+        library = lambda: torch._weight_int8pack_mm(x, w_lib, s_lib)
+        case = (nbytes(x, w.scale) + k * n + 2 * n, 2 * k * n)
+        check("int8_splitk_gemv", f"(K, N) = ({k}, {n}) M=1", ring, plain,
+              case, library, row=(k, n) == (3072, 8192), rtol=RTOL_GROUPED)
+        ref = plain()
+        err = (splitk_gemv.int8_splitk_gemv_twopass(x, w.values, w.scale).float()
+               - ref.float()).abs().max().item()
+        if err > RTOL_GROUPED * ref.float().abs().max().item():
+            fail(f"int8_splitk_gemv_twopass ({k}, {n}): max_abs_err {err:.4g}")
+        bits = {"split-K": torch.equal(ring(), quant.int8_matmul(
+            x, w.values, w.scale))}
+        print(f"[3] int8_splitk_gemv (K, N) = ({k}, {n}) M=1: the same bits: "
+              f"{json.dumps(bits)}", flush=True)
+        if not all(bits.values()):
+            fail(f"int8_splitk_gemv ({k}, {n}): the bits differ: {bits}")
+        if (k, n) == (3072, 8192):
+            form = splitk_gemv.FORM
+            _, span = int4_stream.stream_plan(1, k, n, sms, form,
+                                              quant.LAYOUT_INT8)
+            if int4_stream.smem_bytes(form, 1, span, quant.LAYOUT_INT8) != \
+                    lib.ua2_gemv_int4_stream_smem(form.tn, 2 * form.bk,
+                                                  form.stages, 1, span):
+                fail("int4_stream.smem_bytes disagrees with the header at "
+                     "int8")
+        ring_case("int8_splitk_gemv", "", k, n, 1, ring,
+                  {"two-pass": lambda: splitk_gemv.int8_splitk_gemv_twopass(
+                      x, w.values, w.scale)},
+                  lambda: quant.int8_matmul(x, w.values, w.scale), library,
+                  int8_times, w_bytes=k * n)
+        del w, w_lib
+    faster_line("int8_splitk_gemv", int8_times)
 
     # row 11, the TMA-ring split-K kernel (I4, its default form), at the
     # int4 probe's shapes and the batched path's M; row: (3072, 8192) at
@@ -1185,37 +1225,57 @@ def phase_kernels(torch, dev):
                       row=True, rtol=RTOL_GROUPED)
                 results["int4_sweep_gemv"]["form"] = int4_sweep.FORMS[best].name
     faster_line("int4_sweep_gemv", sweep_times)
-    # row 14, the stacked-layer GEMV with the layer index read on the card,
-    # on the scan-slice probe's (28, 3072, 8192) stack: every layer the bits
-    # of the production K-split kernel on its slice; row: layer 27, against
-    # the twin (one bf16 ulp) and the library on the layer's slice.
+    # row 14, the stacked-layer GEMV on the TMA ring over one map of the
+    # stack, the layer index read on the card, on the scan-slice probe's
+    # (28, 3072, 8192) stack: every layer the bits of quant.int4_matmul
+    # (the split-K kernel on the same plan) on its slice, NaN for the index
+    # past the stack; the first design the bits of gemv_int4.cu's tiled
+    # instance and NaN likewise; row: layer 27, against the twin (one bf16
+    # ulp) and the library on the layer's slice, timed beside the first
+    # design, the split-K wrapper and the library.
     stacked, layers = profile_scan_slice.weights(dev)
     n_layers, k = stacked.values.shape[0], 2 * stacked.values.shape[1]
     n = stacked.scale.shape[1]
-    index = torch.arange(n_layers, dtype=torch.int32, device=dev)
+    index = torch.arange(n_layers + 1, dtype=torch.int32, device=dev)
     x = bf16(1, k)
     same = [torch.equal(int4_stacked.int4_stacked_matmul(x, stacked,
                                                          index[l:l + 1]),
-                        quant.int4_matmul_tiled(x, w.values, w.scale))
+                        quant.int4_matmul(x, w.values, w.scale))
             for l, w in enumerate(layers)]
+    simt_same = [torch.equal(int4_stacked.int4_stacked_matmul_simt(
+                                 x, stacked, index[l:l + 1]),
+                             quant.int4_matmul_tiled(x, w.values, w.scale))
+                 for l, w in enumerate(layers)]
+    past = [bool(torch.isnan(fn(x, stacked, index[n_layers:]).float()).all())
+            for fn in (int4_stacked.int4_stacked_matmul,
+                       int4_stacked.int4_stacked_matmul_simt)]
     print(f"[3] int4_stacked_gemv (L, K, N) = ({n_layers}, {k}, {n}) M=1: "
-          f"the bits of gemv_int4.cu's tiled instance on every layer's slice: "
-          f"{all(same)} ({sum(same)} of {n_layers})", flush=True)
-    if not all(same):
-        fail("int4_stacked_gemv does not give the bits of gemv_int4.cu's "
-             "tiled instance")
+          f"the split-K kernel's bits on every layer's slice: {all(same)} "
+          f"({sum(same)} of {n_layers}); the first design the tiled "
+          f"instance's: {all(simt_same)} ({sum(simt_same)} of {n_layers}); "
+          f"NaN past the stack: {past}", flush=True)
+    if not (all(same) and all(simt_same) and all(past)):
+        fail("int4_stacked_gemv: the bits differ or an index past the stack "
+             "gave numbers")
     last = n_layers - 1
     wp, group, sz = int4_tinygemm(layers[last])
+    ring = lambda: int4_stacked.int4_stacked_matmul(x, stacked,
+                                                    index[last:last + 1])
+    library = lambda: torch._weight_int4pack_mm(x, wp, group, sz)
     check("int4_stacked_gemv",
-          f"(L, K, N) = ({n_layers}, {k}, {n}) M=1 layer {last}",
-          lambda: int4_stacked.int4_stacked_matmul(x, stacked,
-                                                   index[last:last + 1]),
+          f"(L, K, N) = ({n_layers}, {k}, {n}) M=1 layer {last}", ring,
           lambda: int4_stacked.int4_stacked_matmul_plain(x, stacked,
                                                          index[last:last + 1]),
           (nbytes(x, layers[last].scale, index[:1]) + k * n // 2 + 2 * n,
-           2 * k * n),
-          lambda: torch._weight_int4pack_mm(x, wp, group, sz),
-          row=True, rtol=RTOL_GROUPED)
+           2 * k * n), library, row=True, rtol=RTOL_GROUPED)
+    stacked_times = {}
+    ring_case("int4_stacked_gemv", f"layer {last}", k, n, 1, ring,
+              {"simt": lambda: int4_stacked.int4_stacked_matmul_simt(
+                  x, stacked, index[last:last + 1])},
+              lambda: quant.int4_matmul(x, layers[last].values,
+                                        layers[last].scale),
+              library, stacked_times)
+    faster_line("int4_stacked_gemv", stacked_times)
     del stacked, layers, wp
     lean_cases(torch, dev, gen, timer, results)
     return results
@@ -3786,13 +3846,15 @@ def phase_probes(torch):
           f"{len(scan)} scan-slice forms; launches {json.dumps(launches)}",
           flush=True)
     # the TMA ring: the split-K kernel's bits at M <= 16 (every probe row
-    # is); the first designs: the tiled instances'
+    # is; the GEMV probe raises itself when its int8 ring leaves the
+    # production int8 kernel's bits); the first designs: the tiled
+    # instances'
     if not all(line["bit_identical_to_int4i_splitk"]
                and line["simt_bit_identical_to_int4i_tiled"] for line in native) \
             or not all(line["form0_bit_identical_to_int4_splitk"]
                        and line["simt_form0_bit_identical_to_int4_tiled"]
                        for line in sweep):
-        fail("an int4 probe kernel left the production kernel's order")
+        fail("a probe kernel left the production kernel's order")
     if not all(launches.values()):
         fail(f"a probe kernel was never launched: {launches}")
     return launches

@@ -56,7 +56,7 @@ from uniaudio2_tpu.ops import fused_mlp as jfused
 from uniaudio2_tpu.ops import qkv_step as jqkv
 from uniaudio2_tpu.ops import quant as jq
 
-from uniaudio2_tpu_torch.ops import _cuda, fused_mlp, qkv_step, quant
+from uniaudio2_tpu_torch.ops import _cuda, fused_mlp, int4_stream, qkv_step, quant
 from uniaudio2_tpu_torch.ops.norms import rms_norm
 from uniaudio2_tpu_torch.probes import gemv_splitk_sweep, qkv_splits_sweep, splitk_ab
 
@@ -363,6 +363,37 @@ def test_splitk_ab_calls_each_build_with_its_own_arguments(form, scratch,
     assert len(args) == len(Entry.argtypes) and args[-1] == 7
     assert args[13:16] == (plan.splits, plan.mt, plan.span)
     assert (len(args) == 18) == scratch and (not scratch or args[16] is None)
+
+
+@pytest.mark.parametrize("form", list(splitk_ab.RING))
+def test_splitk_ab_launches_the_ring_with_its_plan(form, monkeypatch):
+    """`probes/splitk_ab.py` launches the TMA ring's entry points (rows 11
+    and 13, in the default form) with every argument their signature
+    names: the operands, the plan of `int4_stream.stream_plan`, then the
+    stream."""
+    name = splitk_ab.RING[form]
+    calls = []
+
+    class Entry:
+        argtypes = _cuda._SIGNATURES[name]
+
+        def __call__(self, *args):
+            calls.append(args)
+            return 0
+
+    lib = type("Lib", (), {name: Entry()})()
+    monkeypatch.setattr(splitk_ab._cuda, "stream_of", lambda t: 7)
+    gen = torch.Generator().manual_seed(3)
+    k, n, m = 256, 128, splitk_ab.cases(form)[0][-1][-1]
+    w = gemv_splitk_sweep.weight(form.removeprefix("ring-"), k, n, gen, "cpu")
+    x = torch.randn((m, k), generator=gen).to(torch.bfloat16)
+    plan = splitk_ab.plan_of(form, w, m, k, n, SMS)
+    assert plan == int4_stream.stream_plan(m, k, n, SMS)
+    splitk_ab.launch(lib, form, w, x, plan, None,
+                     torch.empty((m, n), dtype=torch.bfloat16))
+    (args,) = calls
+    assert len(args) == len(Entry.argtypes) and args[-1] == 7
+    assert args[-3:-1] == plan and (m, k, n) in {args[i:i + 3] for i in (4, 5)}
 
 
 @pytest.mark.parametrize("rows", [2, 4, 8, 16, 32, 64, 128])

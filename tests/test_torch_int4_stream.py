@@ -1,13 +1,16 @@
-"""The host side of the TMA-ring split-K int4 GEMV (rows 11 and 13:
-`ops/int4_stream.py`, `ops/int4_native.py`, `ops/int4_sweep.py`), on the
-CPU: the plan of every form at the two probes' shapes and the batched
-path's M, the legality of every TMA box and tensor map, the shared memory
-a block takes, the form tables against the C source's, and the wrappers'
-refusals, which run before any launch (on meta tensors here).
+"""The host side of the TMA-ring split-K GEMV (rows 11, 12 and 13:
+`ops/int4_stream.py`, `ops/int4_native.py`, `ops/splitk_gemv.py`,
+`ops/int4_sweep.py`; row 14's stacked wrapper in
+`tests/test_torch_scan_slice.py`), on the CPU: the plan of every form at
+the probes' shapes and the batched path's M (row 12's int8 form: the
+split-K kernel's INT8 plan, whole steps of 16 rows), the legality of every
+TMA box and tensor map, the shared memory a block takes, the form tables
+and constants against the C source's, and the wrappers' refusals, which
+run before any launch (on meta tensors here).
 
 The kernel itself runs on the card only (`tests/test_torch_kernels_cuda.py`,
 `chip_smoke.py` phase 3); its twins are held to the Pallas functions in
-`tests/test_torch_probes_int4.py`.
+`tests/test_torch_probes_int4.py` and `tests/test_torch_probes.py`.
 """
 
 import re
@@ -16,14 +19,22 @@ from pathlib import Path
 import pytest
 import torch
 
-from uniaudio2_tpu_torch.ops import int4_native, int4_stream, int4_sweep, quant
-from uniaudio2_tpu_torch.probes import int4_native_probe, sweep_gemv_blocks
+from uniaudio2_tpu_torch.ops import (
+    int4_native, int4_stream, int4_sweep, quant, splitk_gemv,
+)
+from uniaudio2_tpu_torch.probes import (
+    int4_native_probe, profile_gemv, sweep_gemv_blocks,
+)
 
 CSRC = Path(int4_stream.__file__).resolve().parents[1] / "csrc"
 SMS = 132                                   # the H100 SXM's SMs
 SHAPES = sorted(set(int4_native_probe.SHAPES)
                 | {(k, n) for _, k, n in sweep_gemv_blocks.SHAPES})
 ROWS = (1, 8, 16)
+# row 12: the GEMV probe's six shapes and the card tests' three edges
+INT8_SHAPES = list(profile_gemv.SHAPES + profile_gemv.MORE_SHAPES) + [
+    (256, 700), (96, 40), (2080, 1300)]
+INT8 = quant.LAYOUT_INT8
 
 
 def _padded(n: int) -> int:
@@ -70,6 +81,31 @@ def test_stream_plan(form, k, n, m):
     assert int4_stream.smem_bytes(form, m, span) <= int4_stream.SMEM_CAP
 
 
+@pytest.mark.parametrize("k,n", INT8_SHAPES)
+def test_int8_stream_plan(k, n):
+    """Row 12's int8 form at M = 1: slices of whole steps of 8 pairs (16
+    byte rows) cover the K/2 pairs, none empty, at most 8, and are
+    `quant.gemv_plan`'s INT8 slices (so the split-K kernel's order,
+    `quant.int8_matmul`'s bits: at N <= 8192 the wide-N rule never fires);
+    a box of 2 bk byte rows is one the tensor map takes; a block's shared
+    memory fits."""
+    form = splitk_gemv.FORM
+    rows = k // 2
+    splits, span = int4_stream.stream_plan(1, k, n, SMS, form, INT8)
+    assert 1 <= splits <= 8 and span % quant.SPLITK_STEP == 0
+    assert splits * span >= rows and (splits - 1) * span < rows
+    plan = quant.gemv_plan(1, k, n, 0, INT8, SMS)
+    assert plan == quant.gemv_plan(1, k, n, 0, INT8, SMS, wide=True)
+    assert (splits, span) == (plan.splits, plan.span)
+    assert 2 * form.bk <= int4_stream.BOX_MAX
+    assert form.bk % (int4_stream.STEP * int4_stream.CONSUMER_WARPS) == 0
+    assert form.unpack == "magic"
+    assert int4_stream.smem_bytes(form, 1, span, INT8) <= int4_stream.SMEM_CAP
+    # a stage of bk pairs is an int4 stage of 2 bk byte rows
+    assert int4_stream.smem_bytes(form, 1, span, INT8) == \
+        int4_stream.smem_bytes(form._replace(bk=2 * form.bk), 1, span)
+
+
 def test_stream_plan_names_the_split_k_defaults():
     """Form 0 is row 11's default: 64 columns, the plan's slices, the
     conversion-free unpack; twelve forms of unique names."""
@@ -81,6 +117,8 @@ def test_stream_plan_names_the_split_k_defaults():
     assert len({f.name for f in int4_sweep.FORMS}) == 12
     assert len({f.name for f in int4_sweep.SIMT_FORMS}) == len(
         int4_sweep.SIMT_FORMS)
+    # row 12: its form is rows 11 and 14's, on the plan's slices
+    assert splitk_gemv.FORM == int4_stream.DEFAULT
 
 
 def _c_table(text: str, name: str) -> list:
@@ -88,27 +126,43 @@ def _c_table(text: str, name: str) -> list:
     return re.findall(r"\{([^{}]*?),\s*\w+(?:::\w+)*<", body)
 
 
-@pytest.mark.parametrize("table", ["FORMS", "SIMT_FORMS"])
+def _ring_form(source: str) -> tuple:
+    """(TN, BK, STAGES) of the one form a C source names in its `namespace
+    ring` (the conversion-free unpack, the plan's slices)."""
+    ring = re.search(r"namespace ring \{\s*constexpr int TN = (\d+), BK = (\d+), "
+                     r"STAGES = (\d+), UNPACK = \w+::MAGIC;",
+                     (CSRC / source).read_text())
+    return tuple(int(v) for v in ring.groups())
+
+
+@pytest.mark.parametrize("table", ["FORMS", "SIMT_FORMS", "INT8 ring"])
 def test_form_tables_in_the_c_order(table):
-    """`FORMS` and `SIMT_FORMS` hold the C tables' forms in their order
-    (`int4_sweep.check_forms` asks the built library the same on the
-    card)."""
-    text = (CSRC / "gemv_int4_sweep.cu").read_text()
-    names = {"PLAN": 0, "ONE": 1, "DOUBLE": 2, "G": 1, "H": 0, "PS": 0,
-             "PG": 1}
-    rows = [tuple(names.get(v.strip(), None) if not v.strip().isdigit()
-                  else int(v) for v in row.split(","))
-            for row in _c_table(text, table)]
-    if table == "FORMS":
-        assert rows == [f.params for f in int4_sweep.FORMS]
+    """`FORMS` and `SIMT_FORMS` (row 13) hold the C tables' forms in their
+    order (`int4_sweep.check_forms` asks the built library the same on the
+    card); row 12's `splitk_gemv.FORM` is the one its C source launches;
+    rows 11 and 14 name the default form."""
+    if table == "INT8 ring":
+        assert _ring_form("gemv_int8_splitk.cu") == splitk_gemv.FORM[:3]
+        assert "launch<ua2::INT8, ring::TN" in (
+            CSRC / "gemv_int8_splitk.cu").read_text()
     else:
-        assert rows == [(f.cols, f.unroll, f.mt,
-                         int4_stream.UNPACKS.index(f.unpack))
-                        for f in int4_sweep.SIMT_FORMS]
+        text = (CSRC / "gemv_int4_sweep.cu").read_text()
+        names = {"PLAN": 0, "ONE": 1, "DOUBLE": 2, "G": 1, "H": 0, "PS": 0,
+                 "PG": 1}
+        rows = [tuple(names.get(v.strip(), None) if not v.strip().isdigit()
+                      else int(v) for v in row.split(","))
+                for row in _c_table(text, table)]
+        if table == "FORMS":
+            assert rows == [f.params for f in int4_sweep.FORMS]
+        else:
+            assert rows == [(f.cols, f.unroll, f.mt,
+                             int4_stream.UNPACKS.index(f.unpack))
+                            for f in int4_sweep.SIMT_FORMS]
     native = (CSRC / "gemv_int4_native.cu").read_text()
     tn, bk, stages = (int(re.search(rf"\b{v} = (\d+)", native).group(1))
                       for v in ("TN", "BK", "STAGES"))
     assert (tn, bk, stages) == int4_stream.DEFAULT[:3]
+    assert _ring_form("gemv_int4_stacked.cu") == int4_stream.DEFAULT[:3]
 
 
 def _meta(*shape, dtype):
@@ -130,21 +184,38 @@ REFUSED_CHUNKED = {
     "chunk of 100": ((1, 256, BF), (2, 128, 100, I8), (200, F32)),
     "chunk of 96": ((1, 256, BF), (2, 128, 96, I8), (192, F32)),
 }
+# row 12: (1, K) @ (K, ldw) int8, K in whole steps of 16 rows
+REFUSED_INT8 = {
+    "int8 stride 72 bytes": ((1, 256, BF), (256, 72, I8), (72, F32)),
+    "int8 K not steps of 16": ((1, 264, BF), (264, 512, I8), (512, F32)),
+    "int8 x float32": ((1, 256, F32), (256, 512, I8), (512, F32)),
+    "int8 values uint8": ((1, 256, BF), (256, 512, torch.uint8), (512, F32)),
+    "int8 scale bf16": ((1, 256, BF), (256, 512, I8), (512, BF)),
+    "int8 rows short of N": ((1, 256, BF), (256, 512, I8), (520, F32)),
+    "int8 K rows wrong": ((1, 256, BF), (128, 512, I8), (512, F32)),
+    "int8 M = 2": ((2, 256, BF), (256, 512, I8), (512, F32)),
+    "int8 chunk-major": ((1, 256, BF), (2, 256, 256, I8), (512, F32)),
+}
+WRAPPERS = {"native": int4_native.int4_native_matmul,
+            "sweep": int4_sweep.int4_sweep_matmul,
+            "int8": splitk_gemv.int8_splitk_gemv,
+            "int8 twopass": splitk_gemv.int8_splitk_gemv_twopass}
 
 
 @pytest.mark.parametrize("wrapper,case", [
     (w, c) for w in ("native", "sweep") for c in REFUSED]
-    + [("native", c) for c in REFUSED_CHUNKED])     # row 13: row-major only
+    + [("native", c) for c in REFUSED_CHUNKED]      # row 13: row-major only
+    + [("int8", c) for c in REFUSED_INT8]
+    + [("int8 twopass", c) for c in ("int8 stride 72 bytes", "int8 M = 2",
+                                     "int8 x float32", "int8 chunk-major")])
 def test_wrappers_refuse(wrapper, case):
     """A CUDA-side call on operands the kernel does not take raises
     ValueError before any launch (meta tensors: nothing is built)."""
-    xs, vs, ss = {**REFUSED, **REFUSED_CHUNKED}[case]
+    xs, vs, ss = {**REFUSED, **REFUSED_CHUNKED, **REFUSED_INT8}[case]
     x, values, scale = _meta(*xs[:-1], dtype=xs[-1]), \
         _meta(*vs[:-1], dtype=vs[-1]), _meta(*ss[:-1], dtype=ss[-1])
-    fn = (int4_native.int4_native_matmul if wrapper == "native"
-          else int4_sweep.int4_sweep_matmul)
     with pytest.raises(ValueError):
-        fn(x, values, scale)
+        WRAPPERS[wrapper](x, values, scale)
 
 
 def test_refusal_precedes_the_plan():

@@ -19,8 +19,12 @@ The grouped-scale GEMVs (`int4ig`, `int4g`, `int4cg`) scale and round each
 weight to bf16 before the product exactly as their twins do, so without a
 residual the two differ only in the order of the f32 sum and land within
 one bf16 ulp of each other: 2^-7 x max|twin| (RTOL_GROUPED).
-The split-K int8 GEMV and its twin add exact f32 products in another
-order and round once, so they too agree within RTOL_GROUPED; the causal
+Row 12, the int8 probe GEMV, runs the TMA ring's int8 form in one launch:
+on `quant.gemv_plan`'s slices it sums in the split-K kernel's order and
+gives `quant.int8_matmul`'s bits; its kernels and twin add exact f32
+products in another order and round once, so they too agree within
+RTOL_GROUPED, the
+two-pass first design (`int8_splitk_gemv_twopass`) likewise; the causal
 GQA flash form keeps the flash kernel's 2e-2. Both flash forms are held
 row by row (each query row to 2e-2 x its own max|twin|): a causal row i
 averages i + 1 values and is ~sqrt(1 / i) the size of row 0. The float32
@@ -60,9 +64,13 @@ call, two kernel nodes in a captured graph. Above 16 rows it runs the two
 tile passes (pass 1 `swiglu_tc_kernel`, pass 2 the tile GEMV of W3's
 layout), each counted once a call (`fused_mlp.swiglu_tc`, `quant.gemv_tc`
 under W3's form), and a K-split tree gives its interleaved copy's bits,
-h and the output. Row 14's stacked-layer kernel, with the layer index read
-on the device, is held to its twin within one bf16 ulp and to the bits
-of `gemv_int4.cu`'s tiled instance on every layer's slice.
+h and the output. Row 14's stacked-layer kernel, the TMA ring with the
+layer index read on the device, is held to its twin within one bf16 ulp
+and, at M <= 16, to `quant.int4_matmul`'s bits on every layer's slice
+(the split-K kernel on the same plan), a layer whose last box reads the
+next layer's extreme bytes included; a captured launch whose index the
+device advances gives each layer's call; its first design
+(`int4_stacked_matmul_simt`) the bits of `gemv_int4.cu`'s tiled instance.
 The lean-update kernel rounds every operation as its twin does, so the two
 must agree to the bit. `quant.matmul`'s bf16 tensor-core product (the
 training forward's) is held to its float32 form: both sum in float32 in
@@ -558,8 +566,10 @@ def test_flash_attention_causal_gqa(dev, b, h, g_, t, hd):
                                  (3072, 5120), (3072, 3072), (2048, 4096),
                                  (256, 700), (96, 40), (2080, 1300)])
 def test_int8_splitk_gemv(dev, k, n):
-    """The split-K GEMV against its twin: both sum exact f32 products in
-    another order and round once, so one bf16 ulp, 2^-7 x max|twin|."""
+    """Row 12 (the TMA ring's int8 form, one launch) against its twin: both
+    sum exact f32 products in another order and round once, so one bf16
+    ulp, 2^-7 x max|twin|; on the split-K plan `quant.int8_matmul`'s bits;
+    the two-pass first design within one bf16 ulp of the twin."""
     g = _gen(dev, 7)
     w = quant.quantize(torch.randn((k, n), generator=g, device=dev) * 0.02)
     x = _bf16(g, dev, 1, k)
@@ -570,10 +580,17 @@ def test_int8_splitk_gemv(dev, k, n):
     ref = splitk_gemv.int8_splitk_gemv_plain(x, w.values, w.scale)
     assert out.shape == ref.shape == (1, n) and out.dtype == torch.bfloat16
     _close(out, ref, rtol=RTOL_GROUPED)
-    # the same function as the production int8 kernel, within its bound
+    # the same function as the production int8 kernel, within its bound,
+    # and on the same plan its bits
     _close(out, quant.int8_matmul_plain(x, w.values, w.scale))
+    assert torch.equal(out, quant.int8_matmul(x, w.values, w.scale))
     again = splitk_gemv.int8_splitk_gemv(x, w.values, w.scale)
     assert torch.equal(out, again)                  # fixed-order sums
+    before = splitk_gemv.int8_splitk_gemv_twopass.launches
+    two = splitk_gemv.int8_splitk_gemv_twopass(x, w.values, w.scale)
+    torch.cuda.synchronize()
+    assert splitk_gemv.int8_splitk_gemv_twopass.launches == before + 1
+    _close(two, ref, rtol=RTOL_GROUPED)
 
 
 NATIVE_SHAPES = [(256, 512), (512, 1024), (3072, 8192), (2048, 12300)]
@@ -864,29 +881,98 @@ def test_wrappers_raise_on_unsupported_input(dev):
             torch.ones(256, device=dev), 1.0, 1e-3, b1=0.9, wd=0.0, eps=1e-8)
 
 
-@pytest.mark.parametrize("m", [1, 2, 8])
-@pytest.mark.parametrize("layers,k,n", [(4, 3072, 8192), (3, 256, 512),
-                                        (2, 2048, 12300)])
-def test_int4_stacked_gemv(dev, layers, k, n, m):
-    """Row 14 on every layer of a stack: within one bf16 ulp of its twin and
-    the bits of `gemv_int4.cu`'s tiled instance on the layer's slice; an
-    index past the stack gives NaN, not another layer."""
-    gen = _gen(dev, layers + k + m)
+STACK_SHAPES = [(4, 3072, 8192), (3, 256, 512), (2, 2048, 12300),
+                (3, 2080, 1300)]
+
+
+def _stack(gen, dev, layers, k, n):
+    """A stack of ``layers`` K-split layers whose last holds only the
+    extreme level -8 (bytes 0x88): the layer before it ends on boxes that
+    reach into those rows where K/2 is no multiple of the box (K = 2080)."""
     ws = [quant.quantize4(torch.randn((k, n), generator=gen, device=dev) * 0.02)
           for _ in range(layers)]
+    ws[-1] = quant.QuantizedLinear4(torch.full_like(ws[-1].values, -120),
+                                    ws[-1].scale)
     st = quant.QuantizedLinear4(torch.stack([w.values for w in ws]),
                                 torch.stack([w.scale for w in ws]))
+    return ws, st
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 21])
+@pytest.mark.parametrize("layers,k,n", STACK_SHAPES)
+def test_int4_stacked_gemv(dev, layers, k, n, m):
+    """Row 14 (the TMA ring over one map of the stack) on every layer:
+    within one bf16 ulp of its twin and, at M <= 16, the bits of the
+    split-K kernel (`quant.int4_matmul`) on the layer's slice; above 16
+    rows tiles of 16 rows, held to the twin; an index past the stack gives
+    NaN, not another layer; one counted launch a call."""
+    gen = _gen(dev, layers + k + m)
+    ws, st = _stack(gen, dev, layers, k, n)
     x = _bf16(gen, dev, m, k)
     index = torch.arange(layers + 1, dtype=torch.int32, device=dev)
+    before = int4_stacked.int4_stacked_matmul.launches
     for l in range(layers):
         out = int4_stacked.int4_stacked_matmul(x, st, index[l:l + 1])
         ref = int4_stacked.int4_stacked_matmul_plain(x, st, l)
-        prod = quant.int4_matmul_tiled(x, ws[l].values, ws[l].scale)
         torch.cuda.synchronize()
         _close(out, ref, RTOL_GROUPED)
-        assert torch.equal(out, prod)
+        if m <= quant.SPLITK_MAX_M:
+            assert torch.equal(out, quant.int4_matmul(x, ws[l].values,
+                                                      ws[l].scale))
     past = int4_stacked.int4_stacked_matmul(x, st, index[layers:])
     assert bool(torch.isnan(past.float()).all())
+    assert int4_stacked.int4_stacked_matmul.launches == before + layers + 1
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("layers,k,n", STACK_SHAPES)
+def test_int4_stacked_gemv_simt(dev, layers, k, n, m):
+    """Row 14's first design: its twin within one bf16 ulp, the bits of
+    `gemv_int4.cu`'s tiled instance on every layer's slice, NaN past the
+    stack; counted on its own."""
+    gen = _gen(dev, layers + k + m)
+    ws, st = _stack(gen, dev, layers, k, n)
+    x = _bf16(gen, dev, m, k)
+    index = torch.arange(layers + 1, dtype=torch.int32, device=dev)
+    before = int4_stacked.int4_stacked_matmul_simt.launches
+    for l in range(layers):
+        out = int4_stacked.int4_stacked_matmul_simt(x, st, index[l:l + 1])
+        torch.cuda.synchronize()
+        _close(out, int4_stacked.int4_stacked_matmul_plain(x, st, l),
+               RTOL_GROUPED)
+        assert torch.equal(out, quant.int4_matmul_tiled(x, ws[l].values,
+                                                        ws[l].scale))
+    past = int4_stacked.int4_stacked_matmul_simt(x, st, index[layers:])
+    assert bool(torch.isnan(past.float()).all())
+    assert int4_stacked.int4_stacked_matmul_simt.launches == before + layers + 1
+
+
+def test_int4_stacked_graph_walks_the_stack(dev):
+    """One captured launch of row 14 and a device increment of its index,
+    replayed once a layer: each replay gives that layer's eager call (the
+    tensor map is captured by value, the index read at replay)."""
+    layers, k, n = 4, 2080, 1300
+    gen = _gen(dev, 140)
+    _, st = _stack(gen, dev, layers, k, n)
+    x = _bf16(gen, dev, 2, k)
+    index = torch.arange(layers, dtype=torch.int32, device=dev)
+    eager = [int4_stacked.int4_stacked_matmul(x, st, index[l:l + 1])
+             for l in range(layers)]
+    layer = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = torch.empty((2, n), dtype=torch.bfloat16, device=dev)
+
+    def step():
+        out.copy_(int4_stacked.int4_stacked_matmul(x, st, layer))
+        layer.copy_((layer + 1) % layers)
+
+    graph, per_replay = _cuda.capture_graph(step)
+    assert per_replay[int4_stacked.int4_stacked_matmul][0] == 1
+    layer.zero_()
+    for l in range(layers):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager[l]), l
+    assert int(layer.item()) == 0
 
 
 def _same_tokens(a, b):

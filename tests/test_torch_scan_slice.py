@@ -11,6 +11,9 @@ three chains (`uniaudio2_tpu_torch/probes/profile_scan_slice.py`'s forms)
 run on the same weights, JAX's `quantize4` of ``PRNGKey(i)`` normals
 converted through `convert/from_jax.py`, through the CPU twins.
 
+The wrappers of row 14 (the TMA ring and its first design) refuse what
+their kernels do not take before any plan or launch (meta tensors).
+
 Tolerance: one bf16 ulp of the output's range a layer, L x 2^-7 x
 max|jax| for a chain of L layers. Twin and Pallas body add exact f32
 products in f32 in another order and round once a layer; the XLA fallback
@@ -34,7 +37,7 @@ from jax.experimental.pallas import tpu as pltpu
 from uniaudio2_tpu.ops import quant as jquant
 
 from uniaudio2_tpu_torch.convert.from_jax import convert_params
-from uniaudio2_tpu_torch.ops import int4_stacked
+from uniaudio2_tpu_torch.ops import int4_stacked, quant
 from uniaudio2_tpu_torch.probes import profile_scan_slice as probe
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -141,6 +144,46 @@ def test_twin_matches_jax_matmul_per_layer(port_weights, layer):
         assert got.dtype == torch.bfloat16 and got.shape == (2, N)
         assert np.abs(got.float().numpy() - ref).max() <= \
             ULP * np.abs(ref).max()
+
+
+def _meta(*shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+BF, I8, F32, I32 = torch.bfloat16, torch.int8, torch.float32, torch.int32
+# (x, values, scale, layer): each one thing the kernels do not take; the
+# layer None is the int 0
+REFUSED = {
+    "layer an int": ((1, 256, BF), (3, 128, 512, I8), (3, 512, F32), None),
+    "layer int64": ((1, 256, BF), (3, 128, 512, I8), (3, 512, F32),
+                    (1, torch.int64)),
+    "layer two elements": ((1, 256, BF), (3, 128, 512, I8), (3, 512, F32),
+                           (2, I32)),
+    "ldw 96": ((1, 256, BF), (3, 128, 96, I8), (3, 96, F32), (1, I32)),
+    "values 2-D": ((1, 256, BF), (128, 512, I8), (3, 512, F32), (1, I32)),
+    "scale of 2 layers": ((1, 256, BF), (3, 128, 512, I8), (2, 512, F32),
+                          (1, I32)),
+    "K/2 rows wrong": ((1, 256, BF), (3, 64, 512, I8), (3, 512, F32),
+                       (1, I32)),
+    "x float32": ((1, 256, F32), (3, 128, 512, I8), (3, 512, F32), (1, I32)),
+    "scale bf16": ((1, 256, BF), (3, 128, 512, I8), (3, 512, BF), (1, I32)),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
+@pytest.mark.parametrize("fn", [int4_stacked.int4_stacked_matmul,
+                                int4_stacked.int4_stacked_matmul_simt],
+                         ids=lambda f: f.__name__)
+def test_wrappers_refuse_before_the_plan(fn, case):
+    """A card-side call on operands the kernels do not take raises
+    ValueError before any plan or launch (meta tensors: nothing is built,
+    no card is asked for its SMs)."""
+    xs, vs, ss, ls = REFUSED[case]
+    stacked = quant.QuantizedLinear4(_meta(*vs[:-1], dtype=vs[-1]),
+                                     _meta(*ss[:-1], dtype=ss[-1]))
+    layer = 0 if ls is None else _meta(ls[0], dtype=ls[1])
+    with pytest.raises(ValueError):
+        fn(_meta(*xs[:-1], dtype=xs[-1]), stacked, layer)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(port_weights):

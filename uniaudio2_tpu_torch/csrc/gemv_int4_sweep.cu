@@ -109,7 +109,8 @@ extern "C" int ua2_gemv_int4_sweep(int form, const void* x, const void* w,
 }
 
 // Dynamic shared bytes of a launch of (tn, bk, stages) at M rows and slices
-// of `span` byte rows (what `int4_stream.smem_bytes` mirrors).
+// of `span` (pair) rows, bk the byte rows of a box (2 bk of an int8 form:
+// what `int4_stream.smem_bytes` mirrors).
 extern "C" int ua2_gemv_int4_stream_smem(int tn, int bk, int stages, int M, int span) {
   return st::smem_bytes(tn, bk, stages, M, span);
 }

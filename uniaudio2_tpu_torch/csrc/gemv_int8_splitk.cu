@@ -1,13 +1,10 @@
-// Batch-1 per-channel int8 GEMV as a multiply and K-reduction, split over
-// K across blocks, for sm_90a.
+// Batch-1 per-channel int8 GEMV, split over K, for sm_90a.
 //
 // Replaces: `_vpu_gemv_kernel` / `vpu_gemv` (scripts/profile_gemv.py:65-98),
 // the TPU probe that computes the int8 GEMV on the vector unit instead of the
 // matrix unit to ask whether the production kernel's layout of the reduction
 // holds it back. Its H100 question: can an M = 1 int8 GEMV fill the 132 SMs
-// and reach the 3.35 TB/s at the probe's shapes, where the production kernel
-// (gemv_common.cuh, two columns a lane, no split-K) has 128 blocks for
-// (3072, 8192)?
+// and reach the 3.35 TB/s at the probe's shapes?
 //
 //   out (1, N) = bf16( sum_k x[k] * W[k, n]  (f32)  * scale[n] ),  n < N
 //
@@ -16,24 +13,31 @@
 // x[k] * W[k, n] is exact in f32 (8 + 7 significant bits), as in the
 // interpret-mode Pallas kernel, and the sums are f32.
 //
-// Bound: the weight bytes, K * N (read once), against 3.35 TB/s; the
-// 2 * K * N operations are 200x below the card's f32 rate.
+// Bound: the weight bytes, K * N (read once), against 3.35 TB/s: 25.2 MB at
+// (3072, 8192), 7.5 us; the 2 * K * N operations are far below the tensor
+// cores' rate.
 //
-// Design:
+// Design: the TMA-ring split-K GEMV of gemv_int4_stream.cuh, INT8, in one
+// form (`namespace ring` below): the bytes by TMA into a ring one producer
+// thread keeps full, four consumer warps on `mma.sync` in the split-K
+// kernel's INT8 steps (16 byte rows a step, the conversion-free unpack), x
+// staged once in 16-byte loads, the cluster's partials added in rank order
+// through distributed shared memory: one launch, no workspace. On
+// `quant.gemv_plan`'s slices (K % 16 == 0; N <= 8192 never takes the
+// wide-N rule) it gives `quant.int8_matmul`'s bits.
+//
+// The first design stays as the yardstick, `ua2_gemv_int8_splitk_twopass`:
 //  * pass 1, grid (N / 128 column tiles, S splits of K): a block of 256
 //    threads owns 128 columns and a chunk of K rows; a thread owns 16
 //    adjacent columns (one 16-byte load a row) and every 32nd row of the
-//    chunk, four rows loaded before any is used; a warp reads four rows of
-//    128 contiguous bytes per load instruction; the levels become floats
-//    by a byte permute and one subtraction (`fma16`);
-//  * S is chosen by the host (`ua2_gemv_int8_splitk` takes it) so that the
-//    grid has at least four blocks for each of the 132 SMs at every probe
-//    shape; the chunk is a multiple of 32 rows;
-//  * the 32 row lanes' sums meet in shared memory and are added in a fixed
-//    order; each block writes one f32 partial per column to a (S, N_tiles *
-//    128) workspace, with no atomics;
+//    chunk, four rows loaded before any is used; the levels become floats
+//    by a byte permute and one subtraction (`fma16`), FMAs on the CUDA
+//    cores; each block writes one f32 partial per column to a (S, N_tiles
+//    * 128) workspace, with no atomics;
 //  * pass 2 adds the S partials of a column in split order, scales and
 //    rounds to bf16 once, so every run gives the same bits.
+#include "gemv_int4_stream.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -117,15 +121,36 @@ __global__ void splitk_finish(const float* __restrict__ partial,
   out[n] = __float2bfloat16_rn(s * scale[n]);
 }
 
+namespace st = ua2::stream;
+
+// The ring's form, chosen by the (3072, 8192) time among eight (PERF.md):
+// 64-column tiles, boxes of 64 pairs of rows (128 byte rows), a 4-stage
+// ring, `quant.gemv_plan`'s slices, the conversion-free unpack
+// (`ops/splitk_gemv.py` FORM).
+namespace ring {
+constexpr int TN = 64, BK = 64, STAGES = 4, UNPACK = st::MAGIC;
+}
+
 }  // namespace
 
-// x (1, K) bf16, w (K, ldw) int8, scale (N,) f32, partial (splits,
-// ceil(N / 128) * 128) f32 scratch, out (1, N) bf16; K rows split into
-// `splits` chunks of `chunk` rows (chunk % 32 == 0, splits * chunk >= K).
-// Returns cudaGetLastError() (cudaErrorInvalidValue for a bad plan or ldw).
+// x (M, K) bf16, w (K, ldw) int8, scale (N,) f32, out (M, N) bf16 on the
+// ring, `splits` K-slices of `span` pairs of rows (`int4_stream.stream_plan`,
+// INT8).
 extern "C" int ua2_gemv_int8_splitk(const void* x, const void* w, const void* scale,
-                                    void* partial, void* out, int K, int N, int ldw,
-                                    int splits, int chunk, void* stream) {
+                                    void* out, int M, int K, int N, int ldw, int splits,
+                                    int span, void* stream) {
+  return st::launch<ua2::INT8, ring::TN, ring::BK, ring::STAGES, ring::UNPACK>(
+      x, w, scale, out, M, K, N, ldw, 0, splits, span, static_cast<cudaStream_t>(stream));
+}
+
+// The first design. x (1, K) bf16, w (K, ldw) int8, scale (N,) f32,
+// partial (splits, ceil(N / 128) * 128) f32 scratch, out (1, N) bf16; K
+// rows split into `splits` chunks of `chunk` rows (chunk % 32 == 0,
+// splits * chunk >= K). Returns cudaGetLastError() (cudaErrorInvalidValue
+// for a bad plan or ldw).
+extern "C" int ua2_gemv_int8_splitk_twopass(const void* x, const void* w, const void* scale,
+                                            void* partial, void* out, int K, int N, int ldw,
+                                            int splits, int chunk, void* stream) {
   if (K <= 0 || N <= 0 || ldw < N || ldw % COLS || chunk <= 0 || chunk % LANES ||
       splits <= 0 || (long long)splits * chunk < K)
     return (int)cudaErrorInvalidValue;

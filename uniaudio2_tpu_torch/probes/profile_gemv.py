@@ -13,16 +13,20 @@ TPU names in brackets):
   bf16_matmul (xla_bf16)                torch.matmul in bf16 (2x the bytes)
   int_mm      (xla_int8)                x quantized to int8 per call, then
                                         torch._int_mm (M padded to 32)
-  splitk      (vpu)                     the split-K kernel, gemv_int8_splitk.cu
+  splitk      (vpu)                     row 12's kernel, gemv_int8_splitk.cu:
+                                        the TMA ring's int8 form, one launch
+  splitk_twopass                        its first design (two passes, an f32
+                                        workspace)
 
 Each is timed as the JAX script times it: ``UA2_GEMV_ITERS`` (default 400)
 dependent calls in a chain (the output, cut or tiled to K and scaled by
 1e-3, is the next input), here between two CUDA events, and reported as GB/s
 of weight bytes (K x N_pad; K x N x 2 for bf16) beside the byte bound at
 3.35 TB/s. ``UA2_GEMV_ALL=1`` adds three shapes. Before timing, the
-split-K kernel is held against its twin (one bf16 ulp, 2^-7 x max|twin|) and
-the production kernel against its own (2e-2 x max|twin|). The two variables
-choose shapes and iterations only.
+split-K kernels are held against their twin (one bf16 ulp, 2^-7 x
+max|twin|), row 12's to the production kernel's bits (the same split-K
+plan and order) and the production kernel against its own twin (2e-2 x
+max|twin|). The two variables choose shapes and iterations only.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import os
 
 import torch
 
-from uniaudio2_tpu_torch.ops import quant, splitk_gemv
+from uniaudio2_tpu_torch.ops import int4_stream, quant, splitk_gemv
 from uniaudio2_tpu_torch.probes import PEAK_BYTES
 
 SHAPES = ((3072, 8192), (8192, 3072), (2048, 8192))
@@ -82,20 +86,25 @@ def int_mm_step(w):
 
 
 def check(x, w):
-    """The split-K kernel against its twin and the production kernel
-    against its own, on ``x``. Returns the two relative errors."""
+    """Row 12's kernel and its first design against their twin, row 12's
+    against the production kernel's bits, and the production kernel
+    against its own twin, on ``x``. Returns the three relative errors."""
     out = splitk_gemv.int8_splitk_gemv(x, w.values, w.scale)
+    two = splitk_gemv.int8_splitk_gemv_twopass(x, w.values, w.scale)
     ref = splitk_gemv.int8_splitk_gemv_plain(x, w.values, w.scale)
     prod = quant.int8_matmul(x, w.values, w.scale)
     prod_ref = quant.int8_matmul_plain(x, w.values, w.scale)
     torch.cuda.synchronize()
-    e1 = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
-    e2 = ((prod.float() - prod_ref.float()).abs().max()
-          / prod_ref.float().abs().max()).item()
-    if e1 > 2.0 ** -7 or e2 > 2e-2:
-        raise AssertionError(f"GEMV check failed: split-K {e1:.3e}, "
-                             f"production {e2:.3e}")
-    return e1, e2
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    e1, e2, e3 = rel(out, ref), rel(prod, prod_ref), rel(two, ref)
+    if e1 > 2.0 ** -7 or e3 > 2.0 ** -7 or e2 > 2e-2 or not torch.equal(out, prod):
+        raise AssertionError(f"GEMV check failed: split-K {e1:.3e} (the "
+                             f"production bits: {torch.equal(out, prod)}), "
+                             f"two-pass {e3:.3e}, production {e2:.3e}")
+    return e1, e2, e3
 
 
 def main(device: str = "cuda", n_iter: int = 0):
@@ -112,7 +121,7 @@ def main(device: str = "cuda", n_iter: int = 0):
         w = quant.quantize(torch.randn((k, n), generator=gen, device=dev) * 0.02)
         wb = quant.dequantize(w).to(torch.bfloat16)        # (k, n)
         npad = w.values.shape[-1]
-        e_splitk, e_prod = check(
+        e_splitk, e_prod, e_two = check(
             torch.randn((1, k), generator=gen, device=dev).to(torch.bfloat16), w)
         x = torch.ones((1, k), dtype=torch.bfloat16, device=dev)
         steps = {
@@ -123,6 +132,8 @@ def main(device: str = "cuda", n_iter: int = 0):
             "splitk": (lambda x: splitk_gemv.int8_splitk_gemv(x, w.values,
                                                               w.scale),
                        k * npad),
+            "splitk_twopass": (lambda x: splitk_gemv.int8_splitk_gemv_twopass(
+                x, w.values, w.scale), k * npad),
         }
         us, gbps, bound_us = {}, {}, {}
         for name, (step, n_bytes) in steps.items():
@@ -130,10 +141,14 @@ def main(device: str = "cuda", n_iter: int = 0):
             us[name] = ms * 1e3
             gbps[name] = n_bytes / ms / 1e6
             bound_us[name] = n_bytes / PEAK_BYTES * 1e6
-        splits, chunk = splitk_gemv.plan(k, n)
         line = {"shape": [k, n], "GBps": gbps, "us_per_call": us,
-                "bound_us": bound_us, "splitk_plan": [splits, chunk],
-                "splitk_vs_twin": e_splitk, "int8_matmul_vs_twin": e_prod}
+                "bound_us": bound_us,
+                "splitk_plan": list(int4_stream.stream_plan(
+                    1, k, n, quant._sm_count(dev), splitk_gemv.FORM,
+                    quant.LAYOUT_INT8)),
+                "twopass_plan": list(splitk_gemv.plan(k, n)),
+                "splitk_vs_twin": e_splitk, "twopass_vs_twin": e_two,
+                "int8_matmul_vs_twin": e_prod}
         print(json.dumps(line), flush=True)
         lines.append(line)
         del w, wb

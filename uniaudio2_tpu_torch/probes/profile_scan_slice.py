@@ -16,10 +16,9 @@ A 28-layer serial chain ``x = (gemv(x, layer)[:, :K]) * 1e-3`` at
 ``quantize4`` of seeded normals, in four forms:
 
 * ``scan``: views of one stacked container (`gpt.index_leaf`, no copy)
-  through the tiled instance of row 5's kernel (`quant.int4_matmul_tiled`,
-  the body row 14 shares; at M = 1 `quant.int4_matmul` launches the
-  split-K kernel, which sums in another order);
-* ``unrolled``: 28 separate containers through the same tiled instance;
+  through row 5's kernel (`quant.int4_matmul`: at M = 1 the split-K
+  kernel, whose plan and order row 14's TMA ring shares);
+* ``unrolled``: 28 separate containers through the same kernel;
 * ``prefetch``: row 14's kernel on the stack, the index taken from a
   device ``arange(L)``;
 * ``one_layer_graph``: a CUDA graph of ONE layer of row 14's kernel plus
@@ -78,11 +77,11 @@ class Forms:
 
     def scan(self, l):
         w = gpt.index_leaf(self.stacked, l)
-        return quant.int4_matmul_tiled(self.x, w.values, w.scale)
+        return quant.int4_matmul(self.x, w.values, w.scale)
 
     def unrolled(self, l):
         w = self.layers[l]
-        return quant.int4_matmul_tiled(self.x, w.values, w.scale)
+        return quant.int4_matmul(self.x, w.values, w.scale)
 
     def prefetch(self, l):
         return int4_stacked.int4_stacked_matmul(self.x, self.stacked,

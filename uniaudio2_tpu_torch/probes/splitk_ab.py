@@ -1,25 +1,29 @@
-"""Rows 1, 5 and 6's split-K GEMVs through two builds of the kernel library
-in one process, on the H100: this checkout's and another checkout's (for
-instance the parent commit, unpacked with ``git archive`` into an ignored
-directory), so that a change to `csrc/gemv_int4_splitk.cuh` is timed
+"""Rows 1, 5 and 6's split-K GEMVs and rows 11 and 13's TMA ring through
+two builds of the kernel library in one process, on the H100: this
+checkout's and another checkout's (for instance the parent commit,
+unpacked with ``git archive`` into an ignored directory), so that a change
+to `csrc/gemv_int4_splitk.cuh` or `csrc/gemv_int4_stream.cuh` is timed
 against its parent on the same card, in the same process, on the same
 tensors.
 
-    python -m uniaudio2_tpu_torch.probes.splitk_ab OTHER_CHECKOUT
+    python -m uniaudio2_tpu_torch.probes.splitk_ab OTHER_CHECKOUT [FORM ...]
 
 The other checkout builds its own library (in its own ``build/``) in a
 subprocess, which also reports its C entry points' argument counts (an
 older checkout's K-split entry point takes no scratch pointer for the tile
 kernel; a form whose entry point there takes no plan at all, as int8's
 before it had a split-K instance, is left out).
-For each form, each decode shape of `gemv_splitk_sweep.CASES` and M = 1, 2
-and 16, at this checkout's plan (`quant.gemv_plan`): the two libraries'
-outputs, compared bit for bit, then `ROUNDS` rounds that time this
-library's launch and the other's (L2 flushed before each launch), in the
-order this, other, other, this, and the fastest time of each. One JSON
-line per case, then one per form with this library's time over the
-other's, mean, least and most. Calls the C entry points directly; no
-launch is counted.
+The forms are the split-K kernel's (`gemv_splitk_sweep.FORMS`, at each
+decode shape of its `CASES` and M = 1, 2 and 16, on `quant.gemv_plan`) and
+the ring's default form (`RING`: row 11's interleaved entry point and row
+13's form 0, at `RING_CASES` and M = 1 and 16, on
+`int4_stream.stream_plan`), all of them unless named on the command line.
+For each case, at this checkout's plan: the two libraries' outputs,
+compared bit for bit, then `ROUNDS` rounds that time this library's launch
+and the other's (L2 flushed before each launch), in the order this, other,
+other, this, and the fastest time of each. One JSON line per case, then
+one per form with this library's time over the other's, mean, least and
+most. Calls the C entry points directly; no launch is counted.
 """
 
 from __future__ import annotations
@@ -31,11 +35,18 @@ import sys
 
 import torch
 
-from uniaudio2_tpu_torch.ops import _cuda, quant
+from uniaudio2_tpu_torch.ops import _cuda, int4_stream, quant
 from uniaudio2_tpu_torch.probes.gemv_splitk_sweep import CASES, ENTRY, FORMS, weight
 
 ROWS = (1, 2, 16)
 ROUNDS = 3
+# the TMA ring's default form through row 11's and row 13's entry points
+RING = {"ring-int4i": "ua2_gemv_int4_native", "ring-int4": "ua2_gemv_int4_sweep"}
+# (label, K, N): row 11 at its probe's row shape, row 13 at the backbone's
+# qkv and the audio head (a partial last tile)
+RING_CASES = {"ring-int4i": (("native", 3072, 8192),),
+              "ring-int4": (("bb_qkv", 3072, 5120), ("audio_head", 2048, 12300))}
+RING_ROWS = (1, 16)
 
 _OTHER = """
 import json
@@ -56,7 +67,7 @@ def other_library(root: str):
     info = json.loads(out.strip().splitlines()[-1])
     lib = ctypes.CDLL(info["lib"])
     planned = set()
-    for name in set(ENTRY.values()):
+    for name in set(ENTRY.values()) | set(RING.values()):
         args = _cuda._SIGNATURES[name]
         if info["args"].get(name, 0) < len(args) - 1:
             continue                     # no plan arguments there
@@ -65,13 +76,42 @@ def other_library(root: str):
         fn.argtypes = args if info["args"][name] == len(args) else \
             args[:-2] + args[-1:]
         fn.restype = ctypes.c_int
-    return lib, tuple(f for f in FORMS if ENTRY[f] in planned)
+    return lib, tuple(f for f in FORMS + tuple(RING)
+                      if {**ENTRY, **RING}[f] in planned)
+
+
+def cases(form):
+    """(label, K, N, residual, f32 out, rows) of ``form``'s cases."""
+    if form in RING:
+        return tuple((label, k, n, False, False, RING_ROWS)
+                     for label, k, n in RING_CASES[form])
+    return tuple(c + (ROWS,) for c in CASES)
+
+
+def plan_of(form, w, m, k, n, sms):
+    """This checkout's plan of a case: the ring's (splits, span), or
+    `quant.gemv_plan`."""
+    if form in RING:
+        return int4_stream.stream_plan(m, k, n, sms)
+    g = w.scale.shape[0] if w.scale.ndim == 2 else 0
+    return quant.gemv_plan(m, k, n, g, quant.LAYOUTS[type(w)], sms)
 
 
 def launch(lib, form, w, x, plan, residual, out):
-    """One launch of ``form``'s split-K GEMV from ``lib`` with ``plan``."""
+    """One launch of ``form``'s GEMV from ``lib`` with ``plan``."""
     m, k = x.shape
     n = w.scale.shape[-1]
+    if form in RING:
+        entry = RING[form]
+        args = [_cuda.ptr(x), _cuda.ptr(w.values), _cuda.ptr(w.scale),
+                _cuda.ptr(out), m, k, n, w.values.shape[1]]
+        if form == "ring-int4i":
+            args.append(0)                     # row-major bytes
+        else:
+            args.insert(0, 0)                  # form 0
+        _cuda.check(getattr(lib, entry)(*args, *plan, _cuda.stream_of(x)),
+                    entry)
+        return
     g = w.scale.shape[0] if w.scale.ndim == 2 else 0
     fn = getattr(lib, ENTRY[form])
     args = [_cuda.ptr(x), _cuda.ptr(w.values), _cuda.ptr(w.scale), None,
@@ -83,13 +123,14 @@ def launch(lib, form, w, x, plan, residual, out):
     _cuda.check(fn(*args, _cuda.stream_of(x)), ENTRY[form])
 
 
-def main(other_root: str, device: str = "cuda"):
-    """Run the comparison; print one JSON line per case and a summary per
-    form, and return the cases."""
+def main(other_root: str, only=(), device: str = "cuda"):
+    """Run the comparison (of the forms named in ``only``, or all); print
+    one JSON line per case and a summary per form, and return the cases."""
     from uniaudio2_tpu_torch.probes import FlushedTimer, card
 
     dev = torch.device(device)
     other, forms = other_library(other_root)
+    forms = tuple(f for f in forms if not only or f in only)
     libs = {"this": _cuda.lib(), "other": other}
     gen = torch.Generator(device=dev).manual_seed(9)
     timer = FlushedTimer(dev)
@@ -98,16 +139,15 @@ def main(other_root: str, device: str = "cuda"):
                       "other": other_root, "forms": forms}), flush=True)
     lines = []
     for form in forms:
-        for label, k, n, res, f32 in CASES:
-            w = weight(form, k, n, gen, dev)
-            g = w.scale.shape[0] if w.scale.ndim == 2 else 0
-            for m in ROWS:
+        for label, k, n, res, f32, rows in cases(form):
+            w = weight(form.removeprefix("ring-"), k, n, gen, dev)
+            for m in rows:
                 x = torch.randn((m, k), generator=gen, device=dev).to(
                     torch.bfloat16)
                 r = (torch.randn((m, n), generator=gen, device=dev) * 0.1).to(
                     torch.bfloat16) if res else None
                 dtype = torch.float32 if f32 else torch.bfloat16
-                plan = quant.gemv_plan(m, k, n, g, quant.LAYOUTS[type(w)], sms)
+                plan = plan_of(form, w, m, k, n, sms)
                 outs = {who: torch.empty((m, n), dtype=dtype, device=dev)
                         for who in libs}
                 for who, lib in libs.items():
@@ -120,7 +160,7 @@ def main(other_root: str, device: str = "cuda"):
                             libs[who], form, w, x, plan, r, outs[who])) * 1e3)
                 best = {who: min(t) for who, t in us.items()}
                 line = {"form": form, "shape": label, "K": k, "N": n, "M": m,
-                        "splits": plan.splits,
+                        "splits": plan[0] if form in RING else plan.splits,
                         "same_bits": torch.equal(outs["this"], outs["other"]),
                         "us": best, "this_over_other": best["this"] / best["other"]}
                 print(json.dumps(line), flush=True)
@@ -138,4 +178,4 @@ def main(other_root: str, device: str = "cuda"):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], tuple(sys.argv[2:]))
