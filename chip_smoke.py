@@ -148,10 +148,10 @@ caught):
 11. (run after phase 10) the frame loop through captured CUDA graphs,
    the engine's default on the card, against the eager loop
    (``graph=False``) on phase 4's tree: TTS (128 frames, bucket 64,
-   256 slots), the CFG pair and ASR; TTS and ASR at the engine's defaults
-   (500 frames, 768 slots, int8 KV, block-128 levels: five of the six
-   levels read, so five graphs a program), inline, and TTS deferred at
-   200 frames (512 slots, the same policies); 8 ASR
+   256 slots), the CFG pair and ASR; TTS at the engine's defaults (500
+   frames, 768 slots, int8 KV, block-128 levels: five of the six levels
+   read, so five graphs a program), inline, TTS deferred and greedy ASR
+   at 200 frames (512 slots, the same policies); 8 ASR
    rows (greedy and with per-row seeds at topk 5) and 8 TTS rows (64
    frames); each request once each way: the same tokens,
    and every kernel form's launches equal to the tree's count over the
@@ -182,6 +182,23 @@ caught):
    (d) TTS end to end as scripts/bench_tts_e2e.py times it on the TPU:
    int4all `generate_audio` for 175 frames, then the codec decode of 125
    semantic frames; RTF = (stage 1 + stage 2) / 10 s;
+12. (run after phase 6, on phase 4's tree and phase 6's codec) audio in:
+   the full `EncoderConfig()` (Whisper-medium 24 x 1024, WavLM-base 12 x
+   768, BEST-RQ 24 x 1024, reasoning 5 x 768, 8 x 4096 and 8 x 8192
+   codebooks) with seeded random float32 weights tokenizes a seeded
+   synthetic 10 s clip at 24 kHz from a wav file under build/ (two 30 s
+   windows in one batch): reason (8, 51) and semantic (8, 126), every id in
+   its codebook, the same ids from a second call; encode seconds and each
+   stage's device ms (CUDA events); then a witness at cut depth (every
+   tower at one layer, full width, the same weights) on the card against
+   the CPU: the tower features within WITNESS_RTOL, the reason and rec ids
+   identical but for certified ties, printed, and a planted fault (the
+   resampler's up phases reversed) that must fail; then `prepare_asr` of
+   the tokens and greedy `generate_text` on phase 4's tree (a bucket-256
+   prefill, 64 frames) eagerly and through the frame graphs, the same
+   tokens, launches against the tree's count, and the wav -> text wall
+   seconds; then `detokenize` of the codes through phase 6's decoder:
+   finite samples, flash launches = steps x layers (one window);
 7. training at full `UnifiedModelConfig()` width (the serving model and
    the codec freed first), seeded random bf16 weights, `adamw_lean`:
    (a) `build_train_step` (grad clip 1.0, per-layer remat, chunked CE) on
@@ -230,6 +247,13 @@ attention, GEMMs, convolutions, the rest) and the top kernels.
 runs phases 1-2, then phase 7a's train step (after a warm-up step) under
 torch.profiler, and prints the device time by kernel class and the top
 kernels.
+
+    python3 chip_smoke.py --asr WAV
+
+runs phases 1-2, then transcribes the wav file with phase 4's int4all tree
+and the full encoder (random weights from their seeds): the reason and
+semantic token shapes, the greedy text ids and the seconds of each stage,
+as one JSON line.
 
 """
 
@@ -2973,15 +2997,17 @@ def counted_families(counted, rows):
 
 def phase_graphs(torch, dev, cfg, params):
     """Phase 11: TTS (128 frames, bucket 64, 256 slots, bf16 cache), the CFG
-    pair and ASR at batch 1; TTS and ASR at the engine's defaults (500
-    frames, 768 slots, int8 KV, block-128 levels: five graphs a program),
-    inline; TTS deferred at the fewest frames that keep those policies
+    pair and ASR at batch 1; TTS at the engine's defaults (500 frames, 768
+    slots, int8 KV, block-128 levels: five graphs a program), inline; TTS
+    deferred at the fewest frames that keep those policies
     (200 frames, 512 slots, int8 KV, block-128 levels: phase 9 runs
     deferred writes at the defaults); sampled TTS (the default topk 200 from the shared
     generator, 200 frames, 512 slots, int8 KV, block-128 levels): a
     bucket-64 prompt that runs to max_frames, then a bucket-256 prompt
     through the same program, which captures two new levels, and a CFG
-    pair; 8 ASR rows greedy and with per-row seeds and 8 TTS rows (64
+    pair, then greedy ASR (200 frames through the same policies: phase 9
+    serves ASR at the defaults, phase 12 runs ASR graph against eager at
+    512 slots too); 8 ASR rows greedy and with per-row seeds and 8 TTS rows (64
     frames): each once with ``graph=False`` and once through the graphs.
     Gates: the same tokens, and every kernel form's launches equal to the
     tree's count over the frames run (replays included); two planted
@@ -3011,9 +3037,7 @@ def phase_graphs(torch, dev, cfg, params):
              lambda e: [e.generate_text(ag, am, **greedy)])]),
         ({}, [
             ("tts defaults inline", "audio", 1, 63,
-             lambda e: e.generate_audio(g, m, **greedy)),
-            ("asr defaults inline", "text", 1, 63,
-             lambda e: [e.generate_text(ag, am, **greedy)])]),
+             lambda e: e.generate_audio(g, m, **greedy))]),
         ({"kv_write": "deferred", "max_frames": SAMPLED_FRAMES}, [
             ("tts deferred, 200 frames", "audio", 1, 63,
              lambda e: e.generate_audio(g, m, **greedy))]),
@@ -3023,7 +3047,9 @@ def phase_graphs(torch, dev, cfg, params):
             ("tts, topk 200, seed 5, bucket-256 prompt", "audio", 1, 255,
              lambda e: e.generate_audio(lg, lm, seed=5)),
             ("tts_cfg, topk 200, seed 6", "audio", 2, 126,
-             lambda e: e.generate_audio(g, m, seed=6, **pair))]),
+             lambda e: e.generate_audio(g, m, seed=6, **pair)),
+            ("asr, 200 frames", "text", 1, 63,
+             lambda e: [e.generate_text(ag, am, **greedy)])]),
         (batch, [
             ("asr x8", "text", 8, 8 * 63,
              lambda e: e.generate_text_batch(asr8, **greedy)),
@@ -3810,6 +3836,414 @@ def profile_train(torch, dev):
         print(f"[P]   {ms:10.3f} ms  {kind(name)[:12]:12s} {name[:110]}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: audio in
+# ---------------------------------------------------------------------------
+# The full EncoderConfig() with seeded random float32 weights tokenizes a
+# seeded synthetic 10 s clip at 24 kHz from a wav file (two 30 s windows in
+# one batch); phase 4's int4all tree transcribes the tokens (ASR) through
+# the frame graphs and eagerly; phase 6's codec decodes them back.
+AUDIO_SECONDS = 10.0
+ASR_FRAMES = 64
+ASR_PROMPT = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11)     # bench's ASR task prompt
+# The cut-depth witness: every tower cut to one layer at full width, the
+# same weights, one encode of the clip's two windows on the card (TF32 off)
+# and on the CPU, both float32: each tower's features within
+# max|card - cpu| <= WITNESS_RTOL x max|cpu|. Both sides keep every product
+# in f32 and sum in another order (cuBLAS / cuDNN against oneDNN) over at
+# most 4096 terms, through a log-mel, a GroupNorm and one layer: ~1e-6
+# expected, the bound set before the first reading ~1000x above that. On
+# the H100 the sound run reads 1.7e-6 (Whisper) to 4.7e-6 (BEST-RQ); the
+# planted fault (the resampler's up phases in reverse order) 0.40 and 0.43
+# on the Whisper and WavLM features (PERF.md). Ids must be identical, but for a
+# certified tie: an id whose CPU distance lies within twice the measured
+# distance error of the CPU's best (the features' error seen in distance
+# space); a tie excuses the later quantizers of its frame and, in the
+# reasoning RVQ, the rec frames its 5 Hz frame conditions.
+WITNESS_RTOL = 1e-3
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def build_encoder(torch, dev):
+    from uniaudio2_tpu_torch.codec.encoder import EncoderConfig, init_encode_params
+
+    cfg = EncoderConfig()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(21)
+    params = init_encode_params(gen, cfg, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(params))
+    w, wl, s, r = cfg.whisper, cfg.wavlm, cfg.ssl, cfg.reasoning
+    rec = params["rvq_phone"]["codebooks"].shape[1]
+    print(f"[12] full EncoderConfig encode params (Whisper {w.n_layers} x "
+          f"{w.d_model}, WavLM {wl.num_layers} x {wl.hidden_size}, BEST-RQ "
+          f"{s.num_layers} x {s.hidden_size}, reasoning {r.depth} x {r.dim}, "
+          f"{r.num_quantizers} x {r.codebook_size} and 8 x {rec} codebooks): "
+          f"{n / 1e9:.3f} B parameters, "
+          f"{(torch.cuda.memory_allocated() - before) / 2 ** 30:.2f} GiB float32, "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, params
+
+
+def synthetic_clip(sr, seconds, seed=12):
+    """Six seeded tones under a slow swell, plus a little noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    x = sum(a * np.sin(2 * np.pi * f * t + p) for f, a, p in zip(
+        rng.uniform(80, 4000, 6), rng.uniform(0.02, 0.1, 6),
+        rng.uniform(0, 2 * np.pi, 6)))
+    x = x * (0.6 + 0.4 * np.sin(2 * np.pi * 0.5 * t))
+    return (x + 0.01 * rng.standard_normal(t.shape)).astype(np.float32)
+
+
+def tower_ms(torch, cfg, ccfg, params, windows):
+    """CUDA-event ms of each stage of one encode of ``windows``."""
+    from uniaudio2_tpu_torch.codec import (
+        encoder, mel, reasoning, ssl_encoder, wavlm_encoder, whisper_encoder,
+    )
+
+    dev = params["reasoning"]["cls_token"].device
+    wav = torch.as_tensor(windows, device=dev)
+    ms = {}
+
+    def timed(name, fn):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms[name] = round(start.elapsed_time(end), 3)
+        return out
+
+    with torch.no_grad():
+        wav16 = timed("resample", lambda: mel.resample(wav, ccfg.sample_rate, 16000))
+        mels = timed("log_mel", lambda: mel.log_mel_spectrogram(
+            wav16, cfg.whisper.n_mels)[:, : 2 * cfg.whisper.max_positions])
+        timed("whisper", lambda: whisper_encoder.forward(
+            params["whisper"], cfg.whisper, mels))
+        timed("bestrq", lambda: ssl_encoder.acoustic_semantic_features(
+            params["ssl"], cfg.ssl, wav, layers=cfg.ssl_layers))
+        wavlm_in = torch.cat([wav16, wav16.new_zeros((wav16.shape[0], 160))], -1)
+        timed("wavlm", lambda: wavlm_encoder.phone_features(
+            params["wavlm"], cfg.wavlm, wavlm_in))
+        feats = timed("towers_total", lambda: encoder.tower_features(
+            params, cfg, ccfg, wav))
+        _, reason_q = timed("reasoning", lambda: reasoning.encode(
+            params["reasoning"], cfg.reasoning, feats["whisper"], feats["bestrq_sem"]))
+        timed("fusion_rvq", lambda: encoder.fuse_and_quantize(
+            params, feats["whisper"], feats["wavlm"], feats["bestrq_ac"],
+            feats["bestrq_sem"], reason_q))
+    return ms
+
+
+def cut_encoder(cfg, params):
+    """Every tower cut to its first layer (the reasoning transformer to its
+    first block), the same weights: WavLM's phone features the mean of the
+    embedding and layer 0, BEST-RQ's both outputs layer 0."""
+    from dataclasses import replace
+
+    def first(tree, key):
+        return dict(tree, **{key: {k: v[:1] for k, v in tree[key].items()}})
+
+    cut_cfg = replace(
+        cfg, whisper=replace(cfg.whisper, n_layers=1),
+        wavlm=replace(cfg.wavlm, num_layers=1, phone_layers=(0, 2)),
+        ssl=replace(cfg.ssl, num_layers=1),
+        reasoning=replace(cfg.reasoning, depth=1), ssl_layers=(0, 0))
+    cut = dict(params, whisper=first(params["whisper"], "layers"),
+               wavlm=first(params["wavlm"], "layers"),
+               ssl=first(params["ssl"], "layers"),
+               reasoning=first(params["reasoning"], "blocks"))
+    return cut_cfg, cut
+
+
+def encode_recorded(torch, cfg, ccfg, params, wav):
+    """One encode of ``wav``: the tower features, the reason and rec codes
+    and the input of every `rvq.encode` (reasoning, phone, semantic,
+    acoustic), all on the CPU."""
+    from uniaudio2_tpu_torch.codec import encoder, rvq
+
+    inputs, real = [], rvq.encode
+
+    def record(p, x):
+        inputs.append(x)
+        return real(p, x)
+
+    with torch.no_grad(), mock.patch.object(rvq, "encode", record):
+        feats = encoder.tower_features(params, cfg, ccfg, wav)
+        reason, rec = encoder.encode_features(params, cfg, feats)
+    return ({k: v.cpu() for k, v in feats.items()}, reason.cpu(), rec.cpu(),
+            [x.cpu() for x in inputs])
+
+
+def certify(torch, label, p, x_card, x_cpu, got, ref, excused):
+    """The card's ids ``got`` against the CPU's ``ref`` (..., T, Q) of one
+    RVQ with parameters ``p`` (on the CPU), walking both residual streams:
+    a difference at a frame not in ``excused`` must be a certified tie.
+    Returns (ties, frames excused after this RVQ, problems)."""
+    from uniaudio2_tpu_torch.codec import rvq
+
+    r_c = x_card @ p["project_in_w"] + p["project_in_b"]
+    r_p = x_cpu @ p["project_in_w"] + p["project_in_b"]
+    excused = excused.clone()
+    ties, problems = [], []
+    for q, cb in enumerate(p["codebooks"]):
+        d_c, d_p = rvq.distances(r_c, cb), rvq.distances(r_p, cb)
+        live = ~excused
+        err = float((d_c - d_p).abs()[live].max()) if live.any() else 0.0
+        for pos in torch.nonzero((got[..., q] != ref[..., q]) & live).tolist():
+            pos = tuple(pos)
+            row = d_p[pos]
+            gap = float(row[int(got[pos][q])] - row[int(ref[pos][q])])
+            entry = (f"{label} frame {pos} quantizer {q}: card {int(got[pos][q])}, "
+                     f"cpu {int(ref[pos][q])}, distance gap {gap:.3e}, measured "
+                     f"distance error {err:.3e}")
+            (ties if gap <= 2 * err else problems).append(entry)
+            excused[pos] = True
+        r_c = r_c - cb[got[..., q].long()]
+        r_p = r_p - cb[ref[..., q].long()]
+    return ties, excused, problems
+
+
+def witness_verdict(torch, cut_cpu, got, ref):
+    """(tower errors, certified ties, problems) of a card encode ``got``
+    against the CPU's ``ref`` (`encode_recorded`)."""
+    feats, reason, rec, x_card = got
+    feats_r, reason_r, rec_r, x_cpu = ref
+    problems = []
+    errs = {}
+    for name, v in feats_r.items():
+        if feats[name].shape != v.shape:
+            problems.append(f"{name} features {tuple(feats[name].shape)} != "
+                            f"{tuple(v.shape)}")
+            continue
+        errs[name] = float((feats[name] - v).abs().max() / v.abs().max())
+        if not errs[name] <= WITNESS_RTOL:
+            problems.append(f"{name} features off by {errs[name]:.3e} x max|cpu|")
+    if reason.shape != reason_r.shape or rec.shape != rec_r.shape:
+        problems.append(f"code shapes {tuple(reason.shape)} {tuple(rec.shape)} "
+                        f"against {tuple(reason_r.shape)} {tuple(rec_r.shape)}")
+    if problems:
+        return errs, [], problems
+    rvqs = [cut_cpu["reasoning"]["rvq"], cut_cpu["rvq_phone"],
+            cut_cpu["rvq_semantic"], cut_cpu["rvq_acoustic"]]
+    ties, bad, excused_reason = [], [], torch.zeros(reason.shape[:2], dtype=torch.bool)
+    t, e, b = certify(torch, "reason", rvqs[0], x_card[0], x_cpu[0], reason,
+                      reason_r, excused_reason)
+    ties += t
+    bad += b
+    # a rec frame j is conditioned by reason frame floor(j / 2.5)
+    j = torch.arange(rec.shape[1])
+    excused_rec = e[:, (j / 2.5).floor().long().clamp(max=e.shape[1] - 1)]
+    cols = ((0, 1), (1, 2), (2, 8))
+    for name, p, xc, xp, (lo, hi) in zip(("phone", "semantic", "acoustic"),
+                                         rvqs[1:], x_card[1:], x_cpu[1:], cols):
+        n = min(xc.shape[1], rec.shape[1])
+        t, _, b = certify(torch, name, p, xc[:, :n], xp[:, :n], rec[:, :n, lo:hi],
+                          rec_r[:, :n, lo:hi], excused_rec[:, :n])
+        ties += t
+        bad += b
+    return errs, ties, problems + bad
+
+
+def reversed_phases(kernel_fn):
+    """The planted fault: the resampler's ``up`` phases in reverse order."""
+    def fn(*args):
+        kernel, width = kernel_fn(*args)
+        return kernel[::-1].copy(), width
+    return fn
+
+
+def phase_audio_witness(torch, dev, cfg, ccfg, params, windows):
+    """The cut-depth witness and its planted fault (see WITNESS_RTOL)."""
+    from uniaudio2_tpu_torch.codec import mel
+
+    cut_cfg, cut = cut_encoder(cfg, params)
+    cut_cpu = to_cpu(cut)
+    wav = torch.from_numpy(windows)
+    t0 = time.perf_counter()
+    ref = encode_recorded(torch, cut_cfg, ccfg, cut_cpu, wav)
+    cpu_s = time.perf_counter() - t0
+    got = encode_recorded(torch, cut_cfg, ccfg, cut, wav.to(dev))
+    errs, ties, problems = witness_verdict(torch, cut_cpu, got, ref)
+    print(f"[12] witness, every tower at one layer, full width, card vs CPU "
+          f"({cpu_s:.1f} s of CPU): features max|diff| / max|cpu| "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} "
+          f"(bound {WITNESS_RTOL}); reason {tuple(got[1].shape)} and rec "
+          f"{tuple(got[2].shape)} ids: {len(ties)} certified tie(s), "
+          f"{(got[1] != ref[1]).sum().item() + (got[2] != ref[2]).sum().item()} "
+          f"ids differ in all", flush=True)
+    for tie in ties:
+        print(f"[12] certified tie: {tie}", flush=True)
+    if problems:
+        fail(f"audio-in witness: {problems}")
+    with mock.patch.object(mel, "_resample_kernel",
+                           reversed_phases(mel._resample_kernel)):
+        bad = encode_recorded(torch, cut_cfg, ccfg, cut, wav.to(dev))
+    errs, _, problems = witness_verdict(torch, cut_cpu, bad, ref)
+    print(f"[12] planted fault (the resampler's up phases reversed): features "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}; "
+          f"{'rejected' if problems else 'PASSED'}: {problems[:3]}", flush=True)
+    if not problems:
+        fail("the audio-in witness passed the reversed resampler phases")
+
+
+def phase_audio_in(torch, dev, cfg, params, ccfg, dec):
+    """Phase 12: tokenize a wav file at full width, twice; each stage's
+    device ms; the cut-depth witness; ASR from the tokens through the
+    graphs and eagerly, launches against the tree's count; detokenize
+    through phase 6's decoder. Returns the launches by row."""
+    import numpy as np
+    from uniaudio2_tpu_torch.codec import dit
+    from uniaudio2_tpu_torch.codec.tokenizer import ReasoningCodecTokenizer, save_wav
+    from uniaudio2_tpu_torch.engine import tasks
+    from uniaudio2_tpu_torch.engine.decode import DecodeEngine, pick_bucket
+    from uniaudio2_tpu_torch.ops import _cuda
+    from uniaudio2_tpu_torch.ops import flash_attention as fa
+
+    enc_cfg, enc_params = build_encoder(torch, dev)
+    tok = ReasoningCodecTokenizer(enc_params, None, enc_cfg, ccfg)
+    tok.decoder = dec                                 # phase 6's codec
+    sr = ccfg.sample_rate
+    root = ROOT / "build" / "smoke_audio"
+    root.mkdir(parents=True, exist_ok=True)
+    path = str(root / "clip.wav")
+    save_wav(path, synthetic_clip(sr, AUDIO_SECONDS), sr)
+    tok.tokenize(path)                              # warm-up (cuDNN, cuBLAS)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(tok.tokenize(path))
+        runs[-1] += (time.perf_counter() - t0,)
+    (reason, semantic, encode_s), (reason2, semantic2, encode2_s) = runs
+    want = ((8, int(AUDIO_SECONDS * ccfg.reason_hz) + 1),
+            (8, int(AUDIO_SECONDS * ccfg.rec_hz) + 1))
+    windows = tok.windows(synthetic_clip(sr, AUDIO_SECONDS))
+    print(f"[12] tokenize a {AUDIO_SECONDS:.0f} s clip at {sr} Hz from "
+          f"{Path(path).relative_to(ROOT)} ({windows.shape[0]} windows of "
+          f"{windows.shape[1]} samples, one batch): reason {reason.shape} "
+          f"semantic {semantic.shape} in {encode_s:.3f} s (again {encode2_s:.3f} s)",
+          flush=True)
+    if (reason.shape, semantic.shape) != want:
+        fail(f"tokenize shapes {reason.shape} {semantic.shape} != {want}")
+    if (reason.min() < 0 or reason.max() >= ccfg.reason_codebook_size
+            or semantic.min() < 0 or semantic.max() >= ccfg.rec_codebook_size):
+        fail("tokenize: an id outside its codebook")
+    if not (np.array_equal(reason, reason2) and np.array_equal(semantic, semantic2)):
+        fail("two tokenizations of the same clip differ")
+    print(f"[12] encode device ms by stage (CUDA events, both windows): "
+          f"{json.dumps(tower_ms(torch, enc_cfg, ccfg, enc_params, windows))}",
+          flush=True)
+    phase_audio_witness(torch, dev, enc_cfg, ccfg, enc_params, windows)
+
+    grid, mask = tasks.prepare_asr(np.asarray(ASR_PROMPT), reason.T, semantic.T,
+                                   cfg.tokens)
+    bucket = pick_bucket(grid.shape[0])
+    if bucket != 256:
+        fail(f"the ASR grid ({grid.shape[0]} rows) is not in bucket 256")
+    reset_counts()
+    want, want_tile, outs = dict.fromkeys(counters(), 0), {}, []
+    engines = {}
+    for graph in (False, True):
+        eng = engines[graph] = DecodeEngine(params, cfg, max_frames=ASR_FRAMES,
+                                            graph=graph)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(eng.generate_text(grid, mask, topk=1))
+        dt = time.perf_counter() - t0
+        add_to(want, expected_launches(cfg, params, "text", eng.last_frames_run,
+                                       bucket - 1))
+        add_to(want_tile, expected_tile(params, bucket - 1))
+        print(f"[12] ASR, {'graphs' if graph else 'eager'}: grid {grid.shape[0]} "
+              f"rows (bucket {bucket}), {eng.last_steps} frames in {dt:.3f} s"
+              f"{f', {eng.capture_seconds:.3f} s of it capture' if graph else ''}; "
+              f"text {outs[-1].shape}", flush=True)
+    # wav file -> text once more, on the captured programs
+    eng = engines[True]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r, s = tok.tokenize(path)
+    g, m = tasks.prepare_asr(np.asarray(ASR_PROMPT), r.T, s.T, cfg.tokens)
+    text = eng.generate_text(g, m, topk=1)
+    wall = time.perf_counter() - t0
+    add_to(want, expected_launches(cfg, params, "text", eng.last_frames_run,
+                                   bucket - 1))
+    add_to(want_tile, expected_tile(params, bucket - 1))
+    print(f"[12] wav -> text wall {wall:.3f} s ({len(text)} text ids, "
+          f"{eng.last_steps} frames)", flush=True)
+    if not (same_tokens(outs[0], outs[1]) and same_tokens(outs[1], text)):
+        fail("ASR from audio: graph and eager tokens differ")
+    got = read_counts()
+    print(f"[12] launches {json.dumps(nonzero(got))} expected "
+          f"{json.dumps(nonzero(want))}", flush=True)
+    if got != want:
+        fail(f"phase 12 launch counts {got} != the path's {want}")
+    check_tile("[12]", want_tile)
+    del engines, eng, enc_params, tok.enc_params
+    torch.cuda.empty_cache()
+
+    _cuda.reset_count(fa.flash_attention)
+    dit._attention.plain_launches = 0
+    t0 = time.perf_counter()
+    wav = tok.detokenize(reason, semantic, steps=10, seed=2)
+    dt = time.perf_counter() - t0
+    # the 126 frames fit the half-window bucket: one window
+    flash = fa.flash_attention.launches
+    want_flash = 10 * ccfg.dit.num_layers
+    print(f"[12] detokenize the codes (10 steps): {dt:.3f} s, wav {wav.shape} "
+          f"max|x| {np.abs(wav).max():.4f}; flash launches {flash} (expected "
+          f"{want_flash}), plain path {dit._attention.plain_launches}", flush=True)
+    if wav.shape != (1, int(semantic.shape[1] / ccfg.rec_hz * sr)) or not np.isfinite(
+            wav).all():
+        fail(f"detokenize: bad waveform {wav.shape}")
+    if flash != want_flash or dit._attention.plain_launches:
+        fail(f"detokenize: flash launches {flash} != {want_flash}")
+    got["flash_attention"] = flash
+    return got
+
+
+def asr_from_wav(torch, dev, path):
+    """``--asr WAV``: phase 4's int4all tree and the full encoder, both
+    random from their seeds, transcribe one wav file: its tokens, the text
+    ids and the wall seconds of each stage."""
+    import numpy as np
+    from uniaudio2_tpu_torch.codec.decoder import CodecConfig
+    from uniaudio2_tpu_torch.codec.tokenizer import ReasoningCodecTokenizer
+    from uniaudio2_tpu_torch.engine import tasks
+    from uniaudio2_tpu_torch.engine.decode import DecodeEngine
+
+    cfg, base, params = build_model(torch, dev)
+    del base
+    torch.cuda.empty_cache()
+    enc_cfg, enc_params = build_encoder(torch, dev)
+    tok = ReasoningCodecTokenizer(enc_params, None, enc_cfg, CodecConfig())
+    eng = DecodeEngine(params, cfg, max_frames=ASR_FRAMES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reason, semantic = tok.tokenize(path)
+    t1 = time.perf_counter()
+    grid, mask = tasks.prepare_asr(np.asarray(ASR_PROMPT), reason.T, semantic.T,
+                                   cfg.tokens)
+    text = eng.generate_text(grid, mask, topk=1)
+    t2 = time.perf_counter()
+    print(json.dumps({"wav": path, "reason": list(reason.shape),
+                      "semantic": list(semantic.shape), "text": text.tolist(),
+                      "tokenize_s": round(t1 - t0, 3),
+                      "generate_text_s": round(t2 - t1, 3),
+                      "capture_s": round(eng.capture_seconds, 3)}), flush=True)
+
+
 def phase_probes(torch):
     """The five probe scripts, each launch of their kernels counted: the
     split-K GEMV (every shape with UA2_GEMV_ALL=1), the causal flash kernel
@@ -3879,6 +4313,9 @@ def main():
     if "--profile-train" in sys.argv[1:]:
         profile_train(torch, dev)
         return
+    if "--asr" in sys.argv[1:]:
+        asr_from_wav(torch, dev, sys.argv[sys.argv.index("--asr") + 1])
+        return
     stamp("build")
     kernels = phase_kernels(torch, dev)
     stamp("phase 3")
@@ -3910,6 +4347,8 @@ def main():
     launches["flash_attention:f32"] = phase_codec_f32(torch, dev, ccfg)
     phase_tts(torch, cfg, params, ccfg, dec)
     stamp("phase 6")
+    add_to(launches, phase_audio_in(torch, dev, cfg, params, ccfg, dec))
+    stamp("phase 12")
     del params, dec, codes, wav
     torch.cuda.empty_cache()
     launches["lean_update"] = phase_train(torch, dev)

@@ -1,8 +1,11 @@
-"""Residual vector quantization, the inverse lookup (port of
-`uniaudio2_tpu/codec/rvq.py`).
+"""Residual vector quantization (port of `uniaudio2_tpu/codec/rvq.py`).
 
 decode: sum the selected codebook vectors across quantizers in the
 ``codebook_dim`` space, then apply the shared output projection.
+encode: the shared input projection, then per quantizer the squared-L2
+nearest codebook entry, ``argmin(|c|^2 - 2 r.c)`` in float32 as the JAX
+function writes it (not ``torch.cdist``, whose sums run in another order;
+both argmins take the first index on a tie), and the residual update.
 
 Params (JAX key names and layouts):
     {"project_in_w": (dim, cb_dim), "project_in_b": (cb_dim,),
@@ -51,6 +54,25 @@ def decode(params: Params, indices: torch.Tensor) -> torch.Tensor:
     return summed @ params["project_out_w"] + params["project_out_b"]
 
 
+def distances(residual: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """(..., T, d) residuals, (K, d) codebook -> (..., T, K) float32
+    ``|c|^2 - 2 r.c``, the quantity whose argmin is the nearest entry."""
+    dots = residual.float() @ codebook.float().T
+    sq = (codebook.float() ** 2).sum(dim=-1)
+    return sq - 2.0 * dots
+
+
 def encode(params: Params, x: torch.Tensor):
-    raise NotImplementedError(
-        "rvq.encode is not ported yet (ROADMAP queue 1 item 10, audio in)")
+    """(..., T, dim) features -> (indices (..., T, Q) int32, quantized
+    (..., T, dim))."""
+    residual = x @ params["project_in_w"] + params["project_in_b"]
+    indices, chosen = [], []
+    for codebook in params["codebooks"]:
+        idx = torch.argmin(distances(residual, codebook), dim=-1)
+        c = codebook[idx]
+        residual = residual - c
+        indices.append(idx.to(torch.int32))
+        chosen.append(c)
+    quantized = torch.stack(chosen, dim=-2).sum(dim=-2)
+    return (torch.stack(indices, dim=-1),
+            quantized @ params["project_out_w"] + params["project_out_b"])

@@ -1,5 +1,4 @@
-"""SQ-codec waveform autoencoder, the decoder half (port of
-`uniaudio2_tpu/codec/scalar_ae.py`).
+"""SQ-codec waveform autoencoder (port of `uniaudio2_tpu/codec/scalar_ae.py`).
 
 Symmetric conv pyramids with per-stage residual-unit stacks (dilations
 1/3/5/7/9), PReLU activations, repeat post-processing and a scalar rounding
@@ -9,9 +8,9 @@ in the checkpoint's YAML, which is not in the repository;
 `ScalarAEConfig.default_24k()` carries a 960x geometry of the same family.
 
 The convs are ``F.conv1d`` / ``F.conv_transpose1d`` (XLA code in the JAX
-package). The public `decode` takes and returns (B, T, C) like the JAX
-function; inside, the activations stay in torch's (B, C, T) layout, so the
-private conv helpers take (B, C, T).
+package). The public `encode` and `decode` take and return (B, T, C) like
+the JAX functions; inside, the activations stay in torch's (B, C, T)
+layout, so the private conv helpers take (B, C, T).
 
 Params (JAX key names and layouts): per conv {"w": (k, C_in, C_out),
 "b": (C_out,)}, PReLU slopes (1,); "pre" and "post" are None when
@@ -190,7 +189,7 @@ def prepare_params(params: Params) -> Params:
 
 
 # ---------------------------------------------------------------------------
-# Decode
+# Encode and decode
 # ---------------------------------------------------------------------------
 
 
@@ -204,9 +203,25 @@ def _res_unit(x: torch.Tensor, p: Params, cfg: ScalarAEConfig,
 _DILATIONS = (1, 3, 5, 7, 9)
 
 
-def encode(params: Params, cfg: ScalarAEConfig, wav: torch.Tensor):
-    raise NotImplementedError(
-        "scalar_ae.encode is not ported yet (ROADMAP queue 1 item 10, audio in)")
+def encode(params: Params, cfg: ScalarAEConfig, wav: torch.Tensor) -> torch.Tensor:
+    """(B, T, num_bands) waveform -> (B, T / stride, latent) tanh-bounded
+    embedding before the scalar quantizer (`decode` applies it)."""
+    x = _conv(wav.to(params["enc_in"]["w"].dtype).transpose(1, 2),
+              params["enc_in"], causal=cfg.causal)
+    if params["pre"] is not None:
+        x = F.prelu(_conv(x, params["pre"]["conv"], causal=cfg.causal),
+                    params["pre"]["a"])
+        # AvgPool1d(kernel=num_samples): non-overlapping means over time
+        b, c, t = x.shape
+        t2 = t - t % cfg.num_samples
+        x = x[:, :, :t2].reshape(b, c, t2 // cfg.num_samples,
+                                 cfg.num_samples).mean(-1)
+    for blk, f in zip(params["enc_blocks"], cfg.downsample_factors):
+        for u, d in zip(blk["units"], _DILATIONS):
+            x = _res_unit(x, u, cfg, d)
+        x = F.prelu(_conv(x, blk["down"]["conv"], stride=f, causal=cfg.causal),
+                    blk["down"]["a"])
+    return torch.tanh(_conv(x, params["enc_out"], causal=cfg.causal)).transpose(1, 2)
 
 
 def decode(params: Params, cfg: ScalarAEConfig, latent: torch.Tensor) -> torch.Tensor:
