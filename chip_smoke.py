@@ -148,10 +148,9 @@ caught):
 11. (run after phase 10) the frame loop through captured CUDA graphs,
    the engine's default on the card, against the eager loop
    (``graph=False``) on phase 4's tree: TTS (128 frames, bucket 64,
-   256 slots), the CFG pair and ASR; TTS at the engine's defaults (500
-   frames, 768 slots, int8 KV, block-128 levels: five of the six levels
-   read, so five graphs a program), inline, TTS deferred and greedy ASR
-   at 200 frames (512 slots, the same policies); 8 ASR
+   256 slots), the CFG pair and ASR; TTS deferred and inline, sampled TTS
+   and greedy ASR at 200 frames (512 slots, int8 KV, block-128 levels, the
+   policies of the engine's defaults, which phase 9 serves); 8 ASR
    rows (greedy and with per-row seeds at topk 5) and 8 TTS rows (64
    frames); each request once each way: the same tokens,
    and every kernel form's launches equal to the tree's count over the
@@ -199,6 +198,27 @@ caught):
    tokens, launches against the tree's count, and the wav -> text wall
    seconds; then `detokenize` of the codes through phase 6's decoder:
    finite samples, flash launches = steps x layers (one window);
+13. (run after phase 12, phase 4's tree freed) the CLI on the card:
+   `uniaudio2_tpu_torch.cli.main` in this process at the full
+   `UnifiedModelConfig()` (no yaml, random bf16 weights from seed 0,
+   ``--quantize int4all``, 64 frames, greedy), its text tokenizer a
+   stand-in of whitespace-separated integer ids and its codec phase 12's
+   encoder joined to phase 6's decoder (the CLI's two seams; `tokenizers`
+   and `sentencepiece` are absent on the card's machine); the tree is
+   built once and the later runs take the same runner: (a) ASR from
+   phase 12's wav file: the token files equal phase 12's tokens and the
+   results file the engine's greedy `generate_text` on the same grid;
+   (b) TTS ``--stage all``: the token files equal `generate_audio` on the
+   same grid, the wav finite with 1920 samples a frame the codec decoded;
+   (c) three utterances from ``--token_dir`` (the batched path): each line
+   equal to its item decoded in a batch of three copies of itself (the
+   same rows and bucket); (d) `BatchingServer` on the CLI's engine, 8
+   threads submitting 4 ASR and 4 TTS requests: results equal the direct
+   batched calls, two launches of 4 rows; (e) `InferenceHTTPServer` on
+   127.0.0.1: one `/v1/asr` and one `/v1/tts` equal the engine's call for
+   a batch of one; (f) every kernel row's launches equal the tree's count
+   over the frames each call ran, the flash kernel's steps x layers; wall
+   seconds of each stage, requests/s and rows per launch;
 7. training at full `UnifiedModelConfig()` width (the serving model and
    the codec freed first), seeded random bf16 weights, `adamw_lean`:
    (a) `build_train_step` (grad clip 1.0, per-layer remat, chunked CE) on
@@ -2997,12 +3017,11 @@ def counted_families(counted, rows):
 
 def phase_graphs(torch, dev, cfg, params):
     """Phase 11: TTS (128 frames, bucket 64, 256 slots, bf16 cache), the CFG
-    pair and ASR at batch 1; TTS at the engine's defaults (500 frames, 768
-    slots, int8 KV, block-128 levels: five graphs a program), inline; TTS
-    deferred at the fewest frames that keep those policies
-    (200 frames, 512 slots, int8 KV, block-128 levels: phase 9 runs
-    deferred writes at the defaults); sampled TTS (the default topk 200 from the shared
-    generator, 200 frames, 512 slots, int8 KV, block-128 levels): a
+    pair and ASR at batch 1; TTS deferred and inline at the fewest frames
+    that keep the defaults' policies (200 frames, 512 slots, int8 KV,
+    block-128 levels: phase 9 serves both at the defaults, 500 frames);
+    greedy inline TTS, then sampled TTS (the default topk 200 from the shared
+    generator, through the same engine): a
     bucket-64 prompt that runs to max_frames, then a bucket-256 prompt
     through the same program, which captures two new levels, and a CFG
     pair, then greedy ASR (200 frames through the same policies: phase 9
@@ -3035,13 +3054,12 @@ def phase_graphs(torch, dev, cfg, params):
              lambda e: e.generate_audio(g, m, **greedy, **pair)),
             ("asr", "text", 1, 63,
              lambda e: [e.generate_text(ag, am, **greedy)])]),
-        ({}, [
-            ("tts defaults inline", "audio", 1, 63,
-             lambda e: e.generate_audio(g, m, **greedy))]),
         ({"kv_write": "deferred", "max_frames": SAMPLED_FRAMES}, [
             ("tts deferred, 200 frames", "audio", 1, 63,
              lambda e: e.generate_audio(g, m, **greedy))]),
         ({"max_frames": SAMPLED_FRAMES}, [
+            ("tts inline, 200 frames", "audio", 1, 63,
+             lambda e: e.generate_audio(g, m, **greedy)),
             ("tts, topk 200, seed 5", "audio", 1, 63,
              lambda e: e.generate_audio(g, m, seed=5)),
             ("tts, topk 200, seed 5, bucket-256 prompt", "audio", 1, 255,
@@ -4102,7 +4120,8 @@ def phase_audio_in(torch, dev, cfg, params, ccfg, dec):
     """Phase 12: tokenize a wav file at full width, twice; each stage's
     device ms; the cut-depth witness; ASR from the tokens through the
     graphs and eagerly, launches against the tree's count; detokenize
-    through phase 6's decoder. Returns the launches by row."""
+    through phase 6's decoder. Returns the launches by row, and the
+    tokenizer, the clip's tokens and its path for phase 13."""
     import numpy as np
     from uniaudio2_tpu_torch.codec import dit
     from uniaudio2_tpu_torch.codec.tokenizer import ReasoningCodecTokenizer, save_wav
@@ -4190,7 +4209,7 @@ def phase_audio_in(torch, dev, cfg, params, ccfg, dec):
     if got != want:
         fail(f"phase 12 launch counts {got} != the path's {want}")
     check_tile("[12]", want_tile)
-    del engines, eng, enc_params, tok.enc_params
+    del engines, eng
     torch.cuda.empty_cache()
 
     _cuda.reset_count(fa.flash_attention)
@@ -4210,7 +4229,7 @@ def phase_audio_in(torch, dev, cfg, params, ccfg, dec):
     if flash != want_flash or dit._attention.plain_launches:
         fail(f"detokenize: flash launches {flash} != {want_flash}")
     got["flash_attention"] = flash
-    return got
+    return got, (tok, reason, semantic, path)
 
 
 def asr_from_wav(torch, dev, path):
@@ -4242,6 +4261,333 @@ def asr_from_wav(torch, dev, path):
                       "tokenize_s": round(t1 - t0, 3),
                       "generate_text_s": round(t2 - t1, 3),
                       "capture_s": round(eng.capture_seconds, 3)}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the CLI on the card
+# ---------------------------------------------------------------------------
+# `cli.main` at full width through the seams a caller can replace: the text
+# tokenizer (the card's machine has neither `tokenizers` nor `sentencepiece`)
+# and the codec (phase 12's). The first run builds the int4all tree; the
+# later runs, the server and the HTTP endpoint take the same runner.
+CLI_FRAMES = 64
+CLI_CODEC_STEPS = 10
+TTS_PROMPT = tuple(range(1, 24))                      # bench's TTS prompt
+TTS_TEXT = tuple(range(5, 17))
+
+
+class IdTok:
+    """The text tokenizer's stand-in: whitespace-separated integers are the
+    ids (no BOS / EOS), and ids decode to such a string."""
+
+    def tokenize(self, text):
+        return [int(t) for t in text.split()]
+
+    def decode(self, ids):
+        import numpy as np
+
+        return " ".join(str(int(i)) for i in np.asarray(ids).reshape(-1))
+
+
+class SmokeCodec:
+    """Phase 12's tokenizer (its encoder, phase 6's decoder) behind the
+    CLI's codec seam, each call timed. The random LM emits no semantic
+    phase (that needs a frame of eight reason_eos), so an empty semantic
+    stream is replaced by ``fallback`` (the clip's semantic codes); the
+    frames each decode took are kept in ``decoded``."""
+
+    def __init__(self, torch, tok, fallback):
+        self.torch, self.tok, self.cfg = torch, tok, tok.cfg
+        self.fallback = fallback
+        self.seconds = {"encode": 0.0, "codec decode": 0.0}
+        self.decoded = []
+
+    def _timed(self, stage, fn, *args, **kw):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        self.torch.cuda.synchronize()
+        self.seconds[stage] += time.perf_counter() - t0
+        return out
+
+    def tokenize(self, wav):
+        return self._timed("encode", self.tok.tokenize, wav)
+
+    def detokenize_no_reason(self, semantic, **kw):
+        codes = semantic if semantic.shape[-1] else self.fallback
+        self.decoded.append(self.tok.find_length(codes))
+        return self._timed("codec decode", self.tok.detokenize_no_reason,
+                           codes, **kw)
+
+
+def record_engine(torch, eng, log):
+    """Wraps the engine's generate entry points: every call appends (mode,
+    prefill rows, frames run, seconds) to ``log``, from whichever thread
+    makes it."""
+    from uniaudio2_tpu_torch.engine.decode import pick_bucket
+
+    def wrap(name, mode, batched):
+        fn = getattr(eng, name)
+
+        def call(first, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(first, *args, **kw)
+            torch.cuda.synchronize()
+            rows = 2 if kw.get("use_cfg") else 1
+            grids = [g for g, _ in first] if batched else [first]
+            bucket = pick_bucket(max(g.shape[0] for g in grids), eng.buckets)
+            log.append((mode, len(grids) * rows * (bucket - 1),
+                        eng.last_frames_run, time.perf_counter() - t0))
+            return out
+
+        setattr(eng, name, call)
+
+    for name, mode, batched in (("generate_text", "text", False),
+                                ("generate_audio", "audio", False),
+                                ("generate_text_batch", "text", True),
+                                ("generate_audio_batch", "audio", True)):
+        wrap(name, mode, batched)
+
+
+def read_ids(path):
+    """``{task}_results.txt`` -> {name: text ids}."""
+    import numpy as np
+
+    out = {}
+    for line in Path(path).read_text(encoding="utf-8").splitlines():
+        name, _, text = line.partition("\t")
+        out[name] = np.asarray([int(t) for t in text.split()], np.int64)
+    return out
+
+
+def phase_cli(torch, dev, card, tok, reason, semantic, clip):
+    """Phase 13: `cli.main` on the card at full width (ASR from the wav,
+    TTS through the codec, a batch from ``--token_dir``), then the batching
+    server and the HTTP endpoint on the CLI's engine. Gates (a)-(f) of the
+    module docstring. Returns the launches by row."""
+    import gc
+    import http.client
+    import shutil
+    import threading
+
+    import numpy as np
+    from uniaudio2_tpu_torch import cli
+    from uniaudio2_tpu_torch.codec import dit
+    from uniaudio2_tpu_torch.codec.tokenizer import load_wav
+    from uniaudio2_tpu_torch.engine import tasks
+    from uniaudio2_tpu_torch.engine.http_server import InferenceHTTPServer
+    from uniaudio2_tpu_torch.engine.server import BatchingServer
+    from uniaudio2_tpu_torch.ops import _cuda
+    from uniaudio2_tpu_torch.ops import flash_attention as fa
+
+    root = ROOT / "build" / "smoke_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    token_dir = root / "tokens"
+    token_dir.mkdir(parents=True)
+    # three utterances: the clip's tokens, their time-reversed copies, and
+    # their first three quarters (every ASR grid in bucket 256)
+    utts = {"u0": (reason, semantic),
+            "u1": (reason[:, ::-1], semantic[:, ::-1]),
+            "u2": (reason[:, :3 * reason.shape[1] // 4],
+                   semantic[:, :3 * semantic.shape[1] // 4])}
+    for name, (r, s) in utts.items():
+        cli.save_tokens(str(token_dir / f"{name}_reason.pt"), r)
+        cli.save_tokens(str(token_dir / f"{name}_semantic.pt"), s)
+    codec = SmokeCodec(torch, tok, semantic)
+    log, built = [], {}
+    real_build = cli.build_runner
+
+    def build_runner(args):
+        if not built:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            built["runner"] = real_build(args)
+            torch.cuda.synchronize()
+            built["seconds"] = time.perf_counter() - t0
+            record_engine(torch, built["runner"].engine, log)
+        return built["runner"]
+
+    asr_prompt = " ".join(map(str, ASR_PROMPT))
+    common = ["--quantize", "int4all", "--model_dtype", "bfloat16",
+              "--max_frames", str(CLI_FRAMES), "--topk", "1",
+              "--codec_steps", str(CLI_CODEC_STEPS)]
+    runs = {
+        "asr": ["--task", "ASR", "--audio", clip, "--prompt_text", asr_prompt],
+        "tts": ["--task", "TTS", "--stage", "all",
+                "--text", " ".join(map(str, TTS_TEXT)),
+                "--prompt_text", " ".join(map(str, TTS_PROMPT))],
+        "batch": ["--task", "ASR", "--token_dir", str(token_dir),
+                  "--prompt_text", asr_prompt]}
+    reset_counts()
+    _cuda.reset_count(fa.flash_attention)
+    dit._attention.plain_launches = 0
+    walls, lm = {}, {}
+    with mock.patch.object(cli, "build_runner", build_runner), \
+            mock.patch.object(cli, "load_text_tokenizer", lambda args: IdTok()), \
+            mock.patch.object(cli, "load_codec_tokenizer",
+                              lambda args, need_decode: codec):
+        for name, argv in runs.items():
+            before = len(log)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli.main(argv + common + ["--output_dir", str(root / name)])
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            lm[name] = sum(entry[3] for entry in log[before:])
+    eng = built["runner"].engine
+    cfg, ts, params = eng.cfg, eng.cfg.tokens, eng.params
+    print(f"[13] {card}: cli.main at full width: the int4all tree built in "
+          f"{built['seconds']:.1f} s (load_llm's random init, quantize, "
+          f"serving layout); " + "; ".join(
+              f"{name} {walls[name]:.3f} s (LM decode {lm[name]:.3f} s)"
+              for name in runs)
+          + f"; encode {codec.seconds['encode']:.3f} s, codec decode "
+          f"{codec.seconds['codec decode']:.3f} s", flush=True)
+    sample = dict(temperature=0.9, topk=1, seed=888)   # the CLI's greedy
+
+    # (a) ASR from the wav file
+    asr_dir = root / "asr"
+    files_ok = (np.array_equal(cli.load_tokens(str(asr_dir / "clip_reason.pt")), reason)
+                and np.array_equal(cli.load_tokens(str(asr_dir / "clip_semantic.pt")),
+                                   semantic))
+    g, m = tasks.prepare_asr(np.asarray(ASR_PROMPT), reason.T, semantic.T, ts)
+    direct = eng.generate_text(g, m, **sample)
+    got = read_ids(asr_dir / "asr_results.txt")["clip"]
+    print(f"[13a] ASR: token files equal phase 12's tokens: {files_ok}; "
+          f"{len(got)} text ids, equal to generate_text on the same grid: "
+          f"{same_tokens(got, direct)}", flush=True)
+    if not files_ok or not same_tokens(got, direct) or not len(got):
+        fail("[13a] the CLI's ASR differs from phase 12's tokens or the engine")
+
+    # (b) TTS, text -> tokens -> wav
+    g, m = tasks.prepare_tts(np.asarray(TTS_PROMPT), np.asarray(TTS_TEXT), ts)
+    want_r, want_s = eng.generate_audio(g, m, **sample)
+    tts_dir = root / "tts"
+    got_r = cli.load_tokens(str(tts_dir / "utt_0_reason.pt"))
+    got_s = cli.load_tokens(str(tts_dir / "utt_0_semantic.pt"))
+    wav = load_wav(str(tts_dir / "wavs" / "utt_0.wav"), tok.cfg.sample_rate)
+    per_frame = int(tok.cfg.sample_rate / tok.cfg.rec_hz)
+    tts_ok = same_tokens(got_r, want_r) and same_tokens(got_s, want_s)
+    wav_ok = (len(codec.decoded) == 1 and np.isfinite(wav).all()
+              and wav.shape[-1] == per_frame * codec.decoded[0])
+    print(f"[13b] TTS: reason {got_r.shape} semantic {got_s.shape}, equal to "
+          f"generate_audio on the same grid: {tts_ok}; wav {wav.shape[-1]} "
+          f"samples = {per_frame} x {codec.decoded} frames decoded "
+          f"({'the semantic stream' if got_s.shape[-1] else 'the clip codes: no semantic frame'}), "
+          f"finite: {bool(np.isfinite(wav).all())}", flush=True)
+    if not tts_ok or not wav_ok:
+        fail("[13b] the CLI's TTS differs from the engine or its wav is wrong")
+
+    # (c) the batched path: each line against its item in a batch of three
+    # copies of itself (the same rows and bucket)
+    got = read_ids(root / "batch" / "asr_results.txt")
+    batch_ok = sorted(got) == sorted(utts)
+    items = {}
+    for name, (r, s) in utts.items():
+        items[name] = tasks.prepare_asr(np.asarray(ASR_PROMPT), r.T, s.T, ts)
+        alone = eng.generate_text_batch([items[name]] * 3, **sample)[0]
+        batch_ok = batch_ok and same_tokens(got.get(name), alone)
+    print(f"[13c] batched ASR from --token_dir: {len(got)} lines, "
+          f"{[len(v) for v in got.values()]} ids, each equal to its item in "
+          f"a batch of three copies: {batch_ok}", flush=True)
+    if not batch_ok:
+        fail("[13c] a line of the batched path differs from its item")
+
+    # (d) the batching server: 8 threads, 4 ASR and 4 TTS requests
+    asr4 = list(items.values()) + [tasks.prepare_asr(
+        np.asarray(ASR_PROMPT), reason[:, ::2].T, semantic[:, ::2].T, ts)]
+    tts4 = [tasks.prepare_tts(np.asarray(TTS_PROMPT), np.asarray(TTS_TEXT) + i, ts)
+            for i in range(4)]
+    requests = [("text", gm) for gm in asr4] + [("audio", gm) for gm in tts4]
+    results = [None] * len(requests)
+    gc.collect()
+    srv = BatchingServer(eng, max_batch=4, max_wait_ms=60_000.0).start()
+
+    def submit(i):
+        mode, (gg, mm) = requests[i]
+        results[i] = srv.submit(mode, gg, mm, **sample).result(timeout=600)
+
+    threads = [threading.Thread(target=submit, args=(i,))
+               for i in range(len(requests))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    served_s = time.perf_counter() - t0
+    srv.stop()
+    if any(t.is_alive() for t in threads) or any(r is None for r in results):
+        fail("[13d] a request to the batching server did not return")
+    stats = dict(srv.stats)
+    seeds = [sample["seed"]] * 4
+    kw = dict(temperature=0.9, topk=1, seeds=seeds)
+    want = (eng.generate_text_batch(asr4, **kw)
+            + eng.generate_audio_batch(tts4, **kw))
+    server_ok = same_tokens(results, want)
+    rows = stats["batched_requests"] / stats["batches"]
+    print(f"[13d] BatchingServer, 8 threads (4 ASR, 4 TTS, greedy): "
+          f"{len(requests) / served_s:.2f} requests/s ({served_s:.3f} s), "
+          f"{stats['batches']} launches, {rows:.2f} rows a launch; results "
+          f"equal the direct batched calls: {server_ok}", flush=True)
+    if not server_ok or stats["batches"] != 2 or rows <= 1:
+        fail(f"[13d] the batching server's results or launches: {stats}")
+
+    # (e) the HTTP endpoint on the loopback
+    http_srv = InferenceHTTPServer(eng, "127.0.0.1", 0, max_batch=4,
+                                   max_wait_ms=5.0).start()
+    replies = {}
+    try:
+        for path, payload in (
+                ("/v1/asr", {"prompt_tokens": list(ASR_PROMPT),
+                             "reason": reason.tolist(),
+                             "semantic": semantic.tolist(), "topk": 1}),
+                ("/v1/tts", {"prompt_tokens": list(TTS_PROMPT),
+                             "text_tokens": list(TTS_TEXT), "topk": 1})):
+            conn = http.client.HTTPConnection("127.0.0.1", http_srv.port,
+                                              timeout=600)
+            conn.request("POST", path, json.dumps(payload),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            replies[path] = (resp.status, json.loads(resp.read()))
+            conn.close()
+    finally:
+        http_srv.stop()
+    (sa, asr_body), (st, tts_body) = replies["/v1/asr"], replies["/v1/tts"]
+    want_asr = eng.generate_text_batch(
+        [tasks.prepare_asr(np.asarray(ASR_PROMPT), reason.T, semantic.T, ts)],
+        temperature=0.9, topk=1, seeds=[888])[0]
+    want_tts = eng.generate_audio_batch([(g, m)], temperature=0.9, topk=1,
+                                        seeds=[888])[0]
+    http_ok = (sa == st == 200
+               and same_tokens(np.asarray(asr_body["tokens"]), want_asr)
+               and same_tokens(np.asarray(tts_body["reason"]).reshape(8, -1), want_tts[0])
+               and same_tokens(np.asarray(tts_body["semantic"]).reshape(8, -1),
+                               want_tts[1]))
+    print(f"[13e] InferenceHTTPServer on 127.0.0.1:{http_srv.port}: /v1/asr "
+          f"{sa}, /v1/tts {st}, equal to the engine's call for a batch of "
+          f"one: {http_ok}", flush=True)
+    if not http_ok:
+        fail(f"[13e] the HTTP endpoint's replies: {replies}")
+
+    # (f) launches against the tree's count over every call's frames
+    counts = read_counts()
+    want, want_tile = dict.fromkeys(counters(), 0), {}
+    for mode, prefill, frames, _ in log:
+        add_to(want, expected_launches(cfg, params, mode, frames, prefill))
+        add_to(want_tile, expected_tile(params, prefill))
+    flash = fa.flash_attention.launches
+    want_flash = CLI_CODEC_STEPS * tok.cfg.dit.num_layers * len(codec.decoded)
+    print(f"[13f] {len(log)} engine calls; launches {json.dumps(nonzero(counts))} "
+          f"expected {json.dumps(nonzero(want))}; flash {flash} (expected "
+          f"{want_flash}), plain path {dit._attention.plain_launches}", flush=True)
+    if counts != want:
+        fail(f"[13f] launch counts {counts} != the path's {want}")
+    check_tile("[13f]", want_tile)
+    if flash != want_flash or dit._attention.plain_launches:
+        fail(f"[13f] flash launches {flash} != {want_flash}")
+    counts["flash_attention"] = flash
+    return counts
 
 
 def phase_probes(torch):
@@ -4347,9 +4693,15 @@ def main():
     launches["flash_attention:f32"] = phase_codec_f32(torch, dev, ccfg)
     phase_tts(torch, cfg, params, ccfg, dec)
     stamp("phase 6")
-    add_to(launches, phase_audio_in(torch, dev, cfg, params, ccfg, dec))
+    audio_in, (tok, reason, semantic, clip) = phase_audio_in(
+        torch, dev, cfg, params, ccfg, dec)
+    add_to(launches, audio_in)
     stamp("phase 12")
     del params, dec, codes, wav
+    torch.cuda.empty_cache()
+    add_to(launches, phase_cli(torch, dev, card, tok, reason, semantic, clip))
+    stamp("phase 13")
+    del tok
     torch.cuda.empty_cache()
     launches["lean_update"] = phase_train(torch, dev)
     torch.cuda.empty_cache()

@@ -150,16 +150,18 @@ def main(argv: Optional[list] = None):
 
     # --- data ---
     if args.text_tokenizer_path:
-        raise NotImplementedError(
-            "--text_tokenizer_path: the text tokenizer is not ported yet "
-            "(ROADMAP queue 1 item 11); pass pre-tokenized integer ids")
-    logging.warning("no --text_tokenizer_path; treating text files as "
-                    "pre-tokenized integer ids")
+        from uniaudio2_tpu_torch.text.tokenizer import TextTokenizer
+
+        tok = TextTokenizer(args.text_tokenizer_path)
+    else:
+        logging.warning("no --text_tokenizer_path; treating text files as "
+                        "pre-tokenized integer ids")
+        tok = IntTok()
     train_jsons = loading.find_data_jsons(args.train_data_jsons)
     data, text_data, _ = loading.load_all_tasks(train_jsons)
     data.update(text_data)
     batcher = batching.LengthBatcher(
-        data, cfg.tokens, batch_scale=args.batch_scale, text_tokenizer=IntTok(),
+        data, cfg.tokens, batch_scale=args.batch_scale, text_tokenizer=tok,
         max_length=args.max_length, min_length=args.min_length, seed=args.seed)
 
     # --- loop ---
