@@ -219,6 +219,28 @@ caught):
    a batch of one; (f) every kernel row's launches equal the tree's count
    over the frames each call ran, the flash kernel's steps x layers; wall
    seconds of each stage, requests/s and rows per launch;
+14. (run after phase 12, on phase 4's tree and phase 6's codec) continuous
+   batching and streaming TTS (`engine/continuous.py`,
+   `engine/stream_tts.py`): (a) `run_offline` over 24 ASR requests
+   (prompts 8-63 tokens, budgets 64 and 128) through 8 rows, greedy, a
+   256-slot int8 cache: two runs bit-identical, every request within its
+   budget, every admission's first frame (backbone K rows rotated back to
+   position 0, text logits) against the same request refilled alone into
+   an empty engine at the same position (phase 5's bounds and a tight
+   line) and the rows live on the device against the host's; three
+   planted faults (`valid_from` one slot early, the prompt ending one
+   position early, a finished row left active) each fail a line;
+   (b) `step_online` at the defaults (4 rows, ladder auto, two windows,
+   512 slots: int8 KV, block-128 levels) over 32 TTS requests arriving by
+   a seeded Poisson process at 0.7 of the rate they reach submitted at
+   once to `run_until_drained`: TTFT p50 / p99, TPOT p50, requests/s,
+   the scheduler's stats, one eager refill's seconds and busy share, one
+   segment window's busy share; CFG pairs (4 rows, 8 requests): both rows
+   of a pair the same frames; (c) a one-row engine's `stream()` equal to
+   its `run_until_drained`, and `stream_tts` fed phase 6's codes by a
+   scripted frame source equal to phase 6's offline waveform bit for bit,
+   with its time to first audio; launches of every window against the
+   frames and refills the engines ran;
 7. training at full `UnifiedModelConfig()` width (the serving model and
    the codec freed first), seeded random bf16 weights, `adamw_lean`:
    (a) `build_train_step` (grad clip 1.0, per-layer remat, chunked CE) on
@@ -2458,8 +2480,12 @@ def defaults_verdicts(torch, cfg, params, dev, seed):
 # 8.49e-2 / 0.99589, codebook 0 0.103 / 0.99205, K rows 5.58e-2 / 0.99904,
 # the CPU 8.10e-2 / 0.99644, 0.103 / 0.99323, 5.13e-2 / 0.99919: the card
 # added at most 1.09x the error and 1.18x the 1 - cosine; the fault read
-# >= 1.30 / <= 0.525. Readings at this depth in PERF.md.
-WITNESS_DEPTH = EARLY_LAYERS
+# >= 1.30 / <= 0.525. The witness ran at 4 backbone layers until phase 14
+# was added (its CPU path 144 s); at 2 it read card 4.29e-2 / 0.99919
+# against the CPU's 4.66e-2 / 0.99924 on the text, the fault >= 0.797 /
+# <= 0.797, in 88-91 s; at 1 the CPU path passes 3 layers, not 6.
+# Readings at this depth in PERF.md.
+WITNESS_DEPTH = 1
 WITNESS_EXPERT_DEPTH = 1
 WITNESS_FACTOR = 2.0
 EXPERTS = ("understanding_expert", "generation_expert")
@@ -4270,6 +4296,558 @@ def asr_from_wav(torch, dev, path):
 # tokenizer (the card's machine has neither `tokenizers` nor `sentencepiece`)
 # and the codec (phase 12's). The first run builds the int4all tree; the
 # later runs, the server and the HTTP endpoint take the same runner.
+# Phase 14: continuous batching (`engine/continuous.py`) and streaming TTS
+# (`engine/stream_tts.py`) on phase 4's int4all tree of the full config.
+# (a) offline: `run_offline` over CONT_REQUESTS ASR requests through
+# CONT_ROWS rows (bucket 64, greedy, batch eval's cache rule: 256 slots, so
+# "auto" picks the int8 KV cache at 8 rows and no prefix levels). Every
+# admission is probed (`admission_probes`): right after the refill, the
+# admitted row's first frame is re-run alone (M = 1, eagerly, its launches
+# not counted; the replayed frame then rewrites the slot it wrote) and its
+# backbone K rows and text logits are held to the same request refilled
+# alone into row 0 of an empty engine (phase 5's bounds; the two sit at
+# different positions, so RoPE rounds differently in bf16), and the rows
+# live on the device to the rows the host holds busy. Three planted faults
+# must each fail a line: `valid_from` one slot early (a pad slot visible),
+# the prompt refilled to end one position before the window's, a finished
+# row left active (the step never clears ``active``).
+# (b) online: `step_online` at the engine's defaults (4 rows, ladder auto,
+# two windows, 512 slots: int8 KV, block-128 levels) over ONLINE_REQUESTS
+# TTS requests of ONLINE_FRAMES frames arriving by a seeded Poisson process
+# at ONLINE_LOAD of the rate the same requests reach submitted at once to
+# `run_until_drained`; then CFG pairs (4 rows, CFG_BURST requests at once):
+# both rows of a pair get the same frames.
+# (c) stream: a one-row engine's `stream()` gives its `run_until_drained`
+# tokens (same position, same M), and `stream_tts` fed phase 6's codes by a
+# scripted frame source gives phase 6's offline waveform bit for bit.
+CONT_REQUESTS = 24
+CONT_ROWS = 8
+CONT_BUDGETS = (64, 128)
+ONLINE_REQUESTS = 32
+ONLINE_FRAMES = 32
+ONLINE_LOAD = 0.7
+CFG_BURST = 8
+CFG_FRAMES = 16
+STREAM_FRAMES = 64
+CONT_BOUNDS = {"text": BOUNDS["text"], "k_rows": BOUNDS["k_rows"]}
+CONT_TIGHT = {"text": (1e-3, 0.99999), "k_rows": (1e-3, 0.99999)}
+
+
+def continuous_requests(cfg, n, seed=14):
+    """``n`` ASR requests (grid, mask, budget): prompts 8-63 tokens long,
+    budgets mixed between CONT_BUDGETS."""
+    import numpy as np
+    from uniaudio2_tpu_torch.engine import tasks
+
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < n:
+        g, m = tasks.prepare_asr(
+            np.arange(1, int(rng.integers(2, 8)), dtype=np.int64),
+            rng.integers(0, 100, (int(rng.integers(1, 16)), 8)),
+            rng.integers(0, 200, (int(rng.integers(1, 40)), 8)), cfg.tokens)
+        if 8 <= g.shape[0] <= 63:
+            out.append((g, m, int(rng.choice(CONT_BUDGETS))))
+    return out
+
+
+def tts_requests(cfg, n, seed=15):
+    """``n`` TTS requests on bench's prompt, texts of 6-20 ids."""
+    import numpy as np
+    from uniaudio2_tpu_torch.engine import tasks
+
+    rng = np.random.default_rng(seed)
+    prompt = np.arange(1, 24, dtype=np.int64) % 100
+    return [tasks.prepare_tts(prompt, rng.integers(5, 100, int(rng.integers(
+        6, 21))), cfg.tokens) for _ in range(n)]
+
+
+def continuous_expected(cfg, params, mode, frames, refills):
+    """Kernel launches of ``frames`` frames and ``refills`` refills (each
+    the bucket-64 prompt's 63 rows through the experts and the backbone, as
+    a prefill), by row, and the tile kernel's by form."""
+    saved = dict(PREFILL_SWIGLU)
+    one = expected_launches(cfg, params, mode, 0, 63)
+    run = expected_launches(cfg, params, mode, frames, 63)
+    PREFILL_SWIGLU.clear()
+    PREFILL_SWIGLU.update(saved)
+    want = {k: run[k] - one[k] + refills * one[k] for k in run}
+    tile = {k: v * refills for k, v in expected_tile(params, 63).items()}
+    return want, tile
+
+
+def check_continuous(tag, cfg, params, eng, mode, frames0, refills0):
+    """The counted launches since `reset_counts` against the engine's frames
+    and refills since (``frames0``, ``refills0``); returns them."""
+    want, tile = continuous_expected(cfg, params, mode,
+                                     eng.frames_run - frames0,
+                                     eng.refills_run - refills0)
+    got = read_counts()
+    print(f"{tag} launches {json.dumps(nonzero(got))} over "
+          f"{eng.frames_run - frames0} frames and "
+          f"{eng.refills_run - refills0} refills", flush=True)
+    if got != want:
+        fail(f"{tag} launch counts {got} != the path's {want}")
+    check_tile(tag, tile)
+    return got
+
+
+def k_rows_at(torch, gcfg, cache, row, p):
+    """The K rows a frame wrote at slot ``p`` of one batch row of ``cache``,
+    every layer, rotated back from position ``p`` to 0 (so that rows written
+    at two positions compare), float32 on the host."""
+    from uniaudio2_tpu_torch.models import gpt
+    from uniaudio2_tpu_torch.ops.kv_cache import QuantKV, unstack_cache
+    from uniaudio2_tpu_torch.ops.rope import apply_rope
+
+    rows = torch.stack([
+        e.q[row, :, p].float() * e.s[row, :, p, None]
+        if isinstance(e, QuantKV) else e[row, :, p].float()
+        for e in unstack_cache(cache).k])                      # (L, G, hd)
+    cos, sin = gpt._rope_tables(gcfg, cache.max_seq, rows.device)
+    return apply_rope(rows, cos[p:p + 1], -sin[p:p + 1]).cpu()
+
+
+def admission_probes(torch, probes):
+    """While active, every refill is followed by a probe of each admitted
+    row's first frame (appended to ``probes`` as {rid, text, k_rows, live}),
+    its launches taken back out of the counters."""
+    from uniaudio2_tpu_torch.engine import continuous
+    from uniaudio2_tpu_torch.models import gpt, unified
+    from uniaudio2_tpu_torch.ops import _cuda
+
+    orig = continuous.ContinuousEngine._refill
+
+    def probed(self, win, refills):
+        orig(self, win, refills)
+        if not refills:
+            return
+        before = _cuda.counts()
+        s = win.state
+        busy = {u * self._pair + j for u, slot in enumerate(win.slots)
+                if slot.request_id >= 0 for j in range(self._pair)}
+        live = set(torch.nonzero(s.active).flatten().tolist())
+        pos = torch.full((1,), win.pos, dtype=torch.int64, device=self.device)
+        with torch.no_grad():
+            for u, req in refills:
+                r = u * self._pair
+                h, _ = unified.decode_hidden(
+                    self.params, self.cfg, s.frame_tokens[r:r + 1],
+                    s.frame_mask[r:r + 1], continuous.row_caches(s.caches, r),
+                    pos, key_valid=self._slot_idx[None, :]
+                    >= s.valid_from[r:r + 1, None],
+                    attn_block=self.attn_block, host_pos=win.pos)
+                text = gpt.lm_head(self.params["backbone"], h,
+                                   self.cfg.backbone)
+                probes.append({"rid": req.rid, "pos": win.pos,
+                               "text": text.float().cpu(),
+                               "k_rows": k_rows_at(torch, self.cfg.backbone,
+                                                   s.caches.backbone, r,
+                                                   win.pos),
+                               "live": live == busy})
+        _cuda.set_counts(before)
+
+    return mock.patch.object(continuous.ContinuousEngine, "_refill", probed)
+
+
+def valid_from_one_early():
+    """The refill opens the row's cache mask one slot early: a pad slot of
+    the prompt (or the row's stale data) becomes visible."""
+    from uniaudio2_tpu_torch.engine import continuous
+
+    orig = continuous._refill_one
+
+    def early(params, cfg, s, row, *args, **kw):
+        orig(params, cfg, s, row, *args, **kw)
+        s.valid_from[row] -= 1
+
+    return mock.patch.object(continuous, "_refill_one", early)
+
+
+def prompt_one_short():
+    """The refill writes the prompt to end one position before the
+    window's, and its mask and budget from there."""
+    from uniaudio2_tpu_torch.engine import continuous
+
+    orig = continuous._refill_one
+
+    def short(params, cfg, s, row, grid, mask, length, max_frames, bucket,
+              pos, *rest):
+        orig(params, cfg, s, row, grid, mask, length, max_frames, bucket,
+             pos - 1, *rest)
+
+    return mock.patch.object(continuous, "_refill_one", short)
+
+
+def finished_left_active():
+    """The step never clears a row's ``active`` flag: a row that finished
+    stays live on the device (patched before the capture: a fresh
+    engine)."""
+    from uniaudio2_tpu_torch.engine.continuous import ContinuousEngine
+
+    orig = ContinuousEngine._frame
+
+    def stuck(self, win, host_pos):
+        before = win.state.active.clone()
+        orig(self, win, host_pos)
+        win.state.active.logical_or_(before)
+
+    return mock.patch.object(ContinuousEngine, "_frame", stuck)
+
+
+def offline_engine(cfg, params):
+    from uniaudio2_tpu_torch.engine.continuous import ContinuousEngine
+
+    bucket, frames = 64, max(CONT_BUDGETS)
+    return ContinuousEngine(params, cfg, mode="text", rows=CONT_ROWS,
+                            bucket=bucket, max_frames=frames, topk=1,
+                            cache_len=-(-(bucket + frames + 1) // 256) * 256)
+
+
+def alone_probes(torch, cfg, params, requests, admitted):
+    """Each request of the ``admitted`` probes refilled alone into row 0 of
+    an empty engine at the position it was admitted at, probed."""
+    from uniaudio2_tpu_torch.engine.continuous import _Request, _Slot
+
+    eng = offline_engine(cfg, params)
+    probes = []
+    with admission_probes(torch, probes):
+        for a in admitted:
+            g, m, mf = requests[a["rid"]]
+            win = eng._win
+            eng._fresh(win)
+            win.pos = a["pos"]
+            win.state.pos.fill_(a["pos"])
+            win.slots[0] = _Slot(request_id=a["rid"], max_frames=mf)
+            eng._refill(win, [(0, _Request(a["rid"], g, m, mf))])
+    return probes
+
+
+def gate_admissions(torch, cfg, params, label, requests, probes):
+    """Gate 3's lines over one run's probes, each against its request
+    admitted alone at the same position: returns the names rejected."""
+    caught = set()
+    for p, ref in zip(probes, alone_probes(torch, cfg, params, requests,
+                                           probes)):
+        for tag, bounds in (("", CONT_BOUNDS), (" (tight)", CONT_TIGHT)):
+            caught.update(k + tag for k in rejected(
+                torch, "[14a]", f"{label}: request {p['rid']} at position "
+                f"{p['pos']}{tag}", p, ref, bounds))
+        if not p["live"]:
+            caught.add("live rows")
+            print(f"[14a] {label}: request {p['rid']}: rows live on the "
+                  f"device != rows the host holds  REJECTED", flush=True)
+    return caught
+
+
+def phase_continuous_offline(torch, cfg, params):
+    """Phase 14a; returns the counted launches."""
+    items = continuous_requests(cfg, CONT_REQUESTS)
+    eng = offline_engine(cfg, params)
+    print(f"[14a] {len(items)} ASR requests, prompts "
+          f"{min(g.shape[0] for g, _, _ in items)}-"
+          f"{max(g.shape[0] for g, _, _ in items)} tokens, budgets "
+          f"{sorted(set(mf for _, _, mf in items))}; {CONT_ROWS} rows, "
+          f"cache {eng.cache_len} slots, KV {eng._cache_dtype}, levels "
+          f"{eng.levels}", flush=True)
+    probes = []
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with admission_probes(torch, probes):
+        first = eng.run_offline(items)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = check_continuous("[14a]", cfg, params, eng, "text", 0, 0)
+    frames = eng.frames_run
+    t0 = time.perf_counter()
+    second = eng.run_offline(items)
+    dt2 = time.perf_counter() - t0
+    row_frames = sum(len(t) for t in first)
+    print(f"[14a] run_offline: {dt:.3f} s with the probes, {dt2:.3f} s "
+          f"without ({eng.frames_run - frames} frames, "
+          f"{len(items) / dt2:.2f} requests/s, {row_frames} tokens: "
+          f"{row_frames / dt2:.1f} tokens/s)", flush=True)
+    # gate 1: bit for bit; gate 2: EOS or the budget
+    if not same_tokens(first, second):
+        fail("[14a] two offline runs gave different tokens")
+    for (g, m, mf), toks in zip(items, first):
+        if len(toks) > mf or (toks.size and (toks.min() < 0 or toks.max()
+                                             >= cfg.backbone.padded_vocab_size)):
+            fail(f"[14a] a request's tokens {toks.shape} break its budget {mf}")
+    print(f"[14a] two runs identical; tokens per request "
+          f"{[len(t) for t in first]} within budgets", flush=True)
+    # gate 3 and its planted faults
+    if len(probes) != len(items):
+        fail(f"[14a] {len(probes)} admissions probed of {len(items)}")
+    caught = gate_admissions(torch, cfg, params, "sound", items, probes)
+    if caught:
+        fail(f"[14a] an admitted request's first frame left its bounds: "
+             f"{sorted(caught)}")
+    # the planted faults' runs: CONT_ROWS + 1 requests of the shortest
+    # budget, so that the last is admitted into a window whose other rows
+    # finished together and stay free
+    few = [it for it in items if it[2] == min(CONT_BUDGETS)][:CONT_ROWS + 1]
+    if len(few) < CONT_ROWS + 1:
+        fail(f"[14a] {len(few)} requests of budget {min(CONT_BUDGETS)}")
+    missed = []
+    for label, fault, fresh in (("valid_from one slot early",
+                                 valid_from_one_early, False),
+                                ("prompt ending one position early",
+                                 prompt_one_short, False),
+                                ("finished row left active",
+                                 finished_left_active, True)):
+        faulty = []
+        with fault(), admission_probes(torch, faulty):
+            (offline_engine(cfg, params) if fresh else eng).run_offline(few)
+        caught = gate_admissions(torch, cfg, params, f"control: {label}",
+                                 few, faulty)
+        print(f"[14a] control: {label}: rejected by {sorted(caught)}",
+              flush=True)
+        if not caught:
+            missed.append(label)
+    if missed:
+        fail(f"[14a] gate 3 passed planted faults: {missed}")
+    return got
+
+
+def percentile(xs, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs), q)) if xs else float("nan")
+
+
+def phase_continuous_online(torch, cfg, params):
+    """Phase 14b; returns the counted launches."""
+    import numpy as np
+    from uniaudio2_tpu_torch.engine.continuous import ContinuousEngine
+
+    reqs = tts_requests(cfg, ONLINE_REQUESTS)
+    eng = ContinuousEngine(params, cfg, mode="audio")
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    print(f"[14b] defaults: {eng.rows} rows, bucket {eng.bucket}, segments "
+          f"{eng.seg_ladder}, windows {eng.max_windows}, cache "
+          f"{eng.cache_len} slots, KV {eng._cache_dtype}, levels {eng.levels};"
+          f" warm-up (captures of both windows) {time.perf_counter() - t0:.2f}"
+          f" s", flush=True)
+    reset_counts()
+    frames0, refills0 = eng.frames_run, eng.refills_run
+    rids = [eng.submit(g, m, max_frames=ONLINE_FRAMES) for g, m in reqs]
+    t0 = time.perf_counter()
+    burst = eng.run_until_drained()
+    rate = len(rids) / (time.perf_counter() - t0)
+    if set(burst) != set(rids):
+        fail("[14b] run_until_drained lost a request")
+    print(f"[14b] all {len(rids)} at once through run_until_drained: "
+          f"{rate:.3f} requests/s; stats {eng.stats}", flush=True)
+    rng = np.random.default_rng(14)
+    arrivals = np.cumsum(rng.exponential(1.0 / (ONLINE_LOAD * rate),
+                                         len(reqs)))
+    stats0 = dict(eng.stats)
+    results, pending, ids = {}, list(range(len(reqs))), []
+    t0 = time.monotonic()
+    while len(results) < len(reqs):
+        now = time.monotonic() - t0
+        while pending and arrivals[pending[0]] <= now:
+            g, m = reqs[pending.pop(0)]
+            ids.append(eng.submit(g, m, max_frames=ONLINE_FRAMES))
+        done = eng.step_online()
+        results.update(done)
+        idle = (eng._overlap is None and eng._queue.empty()
+                and not any(s.request_id >= 0 for s in eng._win.slots))
+        if idle and pending:
+            time.sleep(max(0.0, arrivals[pending[0]] - (time.monotonic() - t0)))
+    wall = time.monotonic() - t0
+    torch.cuda.synchronize()
+    got = check_continuous("[14b]", cfg, params, eng, "audio", frames0,
+                           refills0)
+    t = [eng.timings[r] for r in ids]
+    if set(results) != set(ids) or any(
+            x["frames"] > ONLINE_FRAMES or "done" not in x for x in t):
+        fail("[14b] a request did not complete within its budget")
+    ttft = [x["first"] - x["submitted"] for x in t]
+    tpot = [(x["done"] - x["first"]) / max(1, x["frames"] - 1) for x in t]
+    stats = {k: eng.stats[k] - stats0[k] for k in stats0}
+    print(f"[14b] {len(ids)} requests at {ONLINE_LOAD} x {rate:.3f} = "
+          f"{ONLINE_LOAD * rate:.3f} requests/s offered (Poisson, seed 14): "
+          f"TTFT p50 {percentile(ttft, 50) * 1e3:.1f} ms, p99 "
+          f"{percentile(ttft, 99) * 1e3:.1f} ms; TPOT p50 "
+          f"{percentile(tpot, 50) * 1e3:.2f} ms; {len(ids) / wall:.3f} "
+          f"requests/s served over {wall:.2f} s; stats {stats}", flush=True)
+    # one eager refill and one 16-frame segment window, under the profiler
+    from uniaudio2_tpu_torch.engine.continuous import _Request, _Slot
+
+    win = eng._win
+    g, m = reqs[0]
+    refill_s = []
+    for _ in range(5):
+        eng._fresh(win)
+        win.slots[0] = _Slot(request_id=0, max_frames=ONLINE_FRAMES)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng._refill(win, [(0, _Request(0, g, m, ONLINE_FRAMES))])
+        torch.cuda.synchronize()
+        refill_s.append(time.perf_counter() - t1)
+    wall_ms, n, dev_ms, _, _, fam = busy_window(
+        torch, lambda: eng._refill(win, [(0, _Request(0, g, m,
+                                                       ONLINE_FRAMES))]), 63)
+    print(f"[14b] one eager refill (63 rows through the experts and the "
+          f"backbone): mean {statistics.mean(refill_s) * 1e3:.2f} ms of 5; "
+          f"profiled {wall_ms:.2f} ms wall, {n} kernels, {dev_ms:.2f} ms "
+          f"device: busy {dev_ms / wall_ms:.1%}; top "
+          f"{json.dumps({k: round(v[0], 3) for k, v in list(fam.items())[:4]})}",
+          flush=True)
+    for u in range(1, eng.rows):
+        win.slots[u] = _Slot(request_id=u, max_frames=ONLINE_FRAMES)
+        eng._refill(win, [(u, _Request(u, g, m, ONLINE_FRAMES))])
+    wall_ms, n, dev_ms, _, _, _ = busy_window(
+        torch, lambda: eng._segment(win, [], eng.seg_frames), eng.rows)
+    print(f"[14b] one segment window ({eng.seg_frames} replays, {eng.rows} "
+          f"live rows): {wall_ms:.2f} ms wall, {dev_ms:.2f} ms device, busy "
+          f"{dev_ms / wall_ms:.1%}", flush=True)
+    eng._fresh(win)
+    # CFG pairs: both rows of a pair take the same frames
+    ceng = ContinuousEngine(params, cfg, mode="audio", rows=4, use_cfg=True,
+                            cfg_scale=1.5, max_frames=CFG_FRAMES)
+    ncb = cfg.tokens.num_codebooks
+    split = []
+    orig = ceng._harvest
+
+    def harvest(win, slab):
+        for u, slot in enumerate(win.slots):
+            if slot.request_id >= 0 and not np.array_equal(
+                    slab[2 * u, :, 1:1 + ncb], slab[2 * u + 1, :, 1:1 + ncb]):
+                split.append(slot.request_id)
+        orig(win, slab)
+
+    ceng._harvest = harvest
+    (g, m), (ng, nm), _ = prompts(cfg)
+    reset_counts()
+    rids = [ceng.submit(g, m, neg_grid=ng, neg_mask=nm)
+            for _ in range(CFG_BURST)]
+    t0 = time.perf_counter()
+    out = ceng.run_until_drained()
+    dt = time.perf_counter() - t0
+    add_to(got, check_continuous("[14b] cfg", cfg, params, ceng, "audio", 0,
+                                 0))
+    if set(out) != set(rids) or split:
+        fail(f"[14b] CFG pairs: rows of a pair parted on requests {split}")
+    print(f"[14b] CFG: {CFG_BURST} requests through 2 pair slots in "
+          f"{dt:.3f} s, both rows of every pair the same frames; stats "
+          f"{ceng.stats}", flush=True)
+    return got
+
+
+class ScriptedFrames:
+    """A frame source for `stream_tts`: a reasoning frame, the generated
+    semantic-BOS frame (dropped, as the offline split drops it), then the
+    codes' frames in the semantic phase with a dropped frame after the
+    third."""
+
+    def __init__(self, cfg, codes):
+        self.cfg, self.codes = cfg, codes
+
+    def stream(self, grid, mask, max_frames=None):
+        import numpy as np
+        from uniaudio2_tpu_torch.engine.decode import (
+            PHASE_DROPPED, PHASE_REASON, PHASE_SEMANTIC,
+        )
+
+        card = self.cfg.tokens.audio_reason_card
+        yield PHASE_REASON, np.zeros(8, np.int64)
+        yield PHASE_SEMANTIC, np.full(8, self.cfg.tokens.semantic_bos + card,
+                                      np.int64)
+        for t in range(self.codes.shape[1]):
+            yield PHASE_SEMANTIC, self.codes[:, t] + card
+            if t == 2:
+                yield PHASE_DROPPED, np.zeros(8, np.int64)
+
+
+def phase_continuous_stream(torch, cfg, params, ccfg, dec, codes, offline):
+    """Phase 14c; returns the counted launches."""
+    import numpy as np
+    from uniaudio2_tpu_torch.engine.continuous import ContinuousEngine
+    from uniaudio2_tpu_torch.engine.decode import split_two_phase
+    from uniaudio2_tpu_torch.engine.stream_tts import stream_tts
+
+    (g, m), _, _ = prompts(cfg)
+    bucket = 64
+    eng = ContinuousEngine(params, cfg, mode="audio", rows=1, bucket=bucket,
+                           max_frames=STREAM_FRAMES,
+                           cache_len=-(-(bucket + STREAM_FRAMES + 1) // 256)
+                           * 256)
+    reset_counts()
+    rid = eng.submit(g, m)
+    reason, semantic = eng.run_until_drained()[rid]
+    eng._reset(eng._win)
+    frames, first = [], None
+    t0 = time.perf_counter()
+    for phase, frame in eng.stream(g, m):
+        if first is None:
+            first = time.perf_counter() - t0
+        frames.append((phase, frame))
+    dt = time.perf_counter() - t0
+    got = check_continuous("[14c]", cfg, params, eng, "audio", 0, 0)
+    r2, s2 = split_two_phase(np.stack([f for _, f in frames]),
+                             np.asarray([p for p, _ in frames]), len(frames),
+                             cfg.tokens.audio_reason_card)
+    if not (np.array_equal(r2, reason) and np.array_equal(s2, semantic)):
+        fail("[14c] stream() frames differ from run_until_drained's")
+    print(f"[14c] one-row stream(): {len(frames)} frames in {dt:.3f} s, the "
+          f"first after {first * 1e3:.1f} ms (one {eng.seg_frames}-frame "
+          f"segment), equal to run_until_drained's reason {reason.shape} / "
+          f"semantic {semantic.shape}", flush=True)
+    chunks, ttfa = [], None
+    t0 = time.perf_counter()
+    for wav in stream_tts(ScriptedFrames(cfg, codes), dec.params, ccfg, None,
+                          None, num_steps=10, guidance_scale=1.5,
+                          noise_fn=chunk_noise):
+        if ttfa is None:
+            ttfa = time.perf_counter() - t0
+        chunks.append(wav)
+    dt = time.perf_counter() - t0
+    full = np.concatenate(chunks, axis=-1)
+    if full.shape != offline.shape or not np.array_equal(full, offline):
+        fail(f"[14c] stream_tts {full.shape} != the offline waveform "
+             f"{offline.shape}: max diff "
+             f"{np.abs(full - offline).max() if full.shape == offline.shape else 'n/a'}")
+    print(f"[14c] stream_tts over phase 6's {codes.shape[1]} codes (scripted "
+          f"frames): {len(chunks)} chunks in {dt:.3f} s, time to first audio "
+          f"{ttfa:.3f} s ({chunks[0].shape[-1] / ccfg.sample_rate:.2f} s of "
+          f"audio), equal to the offline decode bit for bit", flush=True)
+    return got
+
+
+def phase_continuous(torch, cfg, params, ccfg, dec, codes, offline):
+    """Phase 14: 14a, 14b, 14c; returns the counted launches of their
+    serving runs by row."""
+    t0 = time.perf_counter()
+    total = dict.fromkeys(counters(), 0)
+    for tag, fn in (("14a", lambda: phase_continuous_offline(torch, cfg,
+                                                             params)),
+                    ("14b", lambda: phase_continuous_online(torch, cfg,
+                                                            params)),
+                    ("14c", lambda: phase_continuous_stream(
+                        torch, cfg, params, ccfg, dec, codes, offline))):
+        t1 = time.perf_counter()
+        add_to(total, fn())
+        print(f"[{tag}] {time.perf_counter() - t1:.1f} s", flush=True)
+    qkv = sum(v for k, v in total.items() if k.startswith("qkv_rope_step"))
+    print(f"[14] launches by row {json.dumps(nonzero(total))}; row 3 "
+          f"(qkv_rope_step) {qkv} launches, all in frames of at most "
+          f"{CONT_ROWS} rows (the refills' QKV is row 1's tile GEMV): row 3 "
+          f"above 16 rows (its first design) launched 0 times; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    missing = [k for k in ("fused_swiglu", SWIGLU_TILE,
+                           "int4i_matmul", "int8_matmul")
+               if total.get(k, 0) == 0]
+    if missing or qkv == 0:
+        fail(f"[14] kernels of the path never launched: {missing}")
+    return total
+
+
 CLI_FRAMES = 64
 CLI_CODEC_STEPS = 10
 TTS_PROMPT = tuple(range(1, 24))                      # bench's TTS prompt
@@ -4697,6 +5275,9 @@ def main():
         torch, dev, cfg, params, ccfg, dec)
     add_to(launches, audio_in)
     stamp("phase 12")
+    add_to(launches, phase_continuous(torch, cfg, params, ccfg, dec, codes,
+                                      wav))
+    stamp("phase 14")
     del params, dec, codes, wav
     torch.cuda.empty_cache()
     add_to(launches, phase_cli(torch, dev, card, tok, reason, semantic, clip))

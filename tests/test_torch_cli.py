@@ -197,16 +197,99 @@ def test_tts_stage_all_writes_the_wav(env, monkeypatch):
 
 
 def test_unported_paths_raise_naming_their_item(env, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tcli.main(["--task", "TTS", "--stream", "true", "--text", "hello",
-                   "--device", "cpu"] + env["common"])
     argv = ["--task", "ASR", "--test_data_json", str(tmp_path / "none.json"),
             "--results", str(tmp_path / "r.tsv"), "--text_tokenizer_path",
             env["tok"], "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        batch_eval.main(argv + ["--decode_type", "continuous"])
     with pytest.raises(NotImplementedError, match="queue 1 item 20"):
         batch_eval.main(argv + ["--score"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 20"):
+        batch_eval.main(argv + ["--score", "--decode_type", "continuous"])
+
+
+def test_stream_tts_cli_matches_jax(env, monkeypatch):
+    """``--stream true --topk 1``: the frames each CLI's single-row engine
+    streams are identical, and so is the waveform each writes (an untrained
+    model never reaches the semantic phase, so both hold no sample);
+    ``--use_cfg`` is refused as JAX refuses it."""
+    import types
+
+    from scipy.io import wavfile
+
+    from uniaudio2_tpu.codec import decoder as jdec
+    from uniaudio2_tpu.engine import continuous as jcont
+
+    from uniaudio2_tpu_torch.codec.decoder import CodecConfig
+    from uniaudio2_tpu_torch.convert.from_jax import convert_params
+    from uniaudio2_tpu_torch.engine import continuous as tcont
+
+    shapes = jax.eval_shape(lambda k: jdec.init_decode_params(
+        k, jdec.CodecConfig.tiny()), jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    jparams = jax.tree_util.tree_map(
+        lambda x: np.asarray(rng.standard_normal(x.shape) * 0.05, x.dtype),
+        shapes)
+    codecs = {
+        "jax": types.SimpleNamespace(cfg=jdec.CodecConfig.tiny(),
+                                     decoder=types.SimpleNamespace(params=jparams)),
+        "port": types.SimpleNamespace(cfg=CodecConfig.tiny(),
+                                      decoder=types.SimpleNamespace(
+                                          params=convert_params(jparams, "cpu")))}
+    frames = {"jax": [], "port": []}
+    for name, cli, cont in (("jax", jcli, jcont), ("port", tcli, tcont)):
+        monkeypatch.setattr(cli, "load_codec_tokenizer",
+                            lambda args, need_decode, c=codecs[name]: c)
+        orig = cont.ContinuousEngine.stream
+
+        def recorded(self, *a, _orig=orig, _log=frames[name], **kw):
+            for phase, frame in _orig(self, *a, **kw):
+                _log.append((int(phase), np.asarray(frame).tolist()))
+                yield phase, frame
+        monkeypatch.setattr(cont.ContinuousEngine, "stream", recorded)
+    argv = ["--task", "TTS", "--stream", "true", "--text", "hello world",
+            "--prompt_text", "speak this", "--codec_steps", "2"]
+    jdir, tdir = run_both(env, "tts_stream", argv)
+    assert len(frames["port"]) == 6 and frames["port"] == frames["jax"]
+    _, jwav = wavfile.read(os.path.join(jdir, "wavs", "utt_0.wav"))
+    _, twav = wavfile.read(os.path.join(tdir, "wavs", "utt_0.wav"))
+    assert twav.shape == jwav.shape
+    with pytest.raises(ValueError, match="does not support CFG"):
+        tcli.main(argv + env["common"] + ["--use_cfg", "true", "--device",
+                                          "cpu"])
+
+
+def test_batch_eval_continuous_tsv_identical_to_jax(env, tmp_path):
+    """``--decode_type continuous``: offline continuous batching over five
+    utterances through two rows, the TSV line for line JAX's."""
+    from uniaudio2_tpu.engine import batch_eval as jbatch
+
+    rng = np.random.default_rng(1)
+    torch.save({f"u{i}": torch.from_numpy(rng.integers(0, 30, (8, 3 + i)))
+                for i in range(5)}, str(tmp_path / "reason.pt"))
+    torch.save({f"u{i}": torch.from_numpy(rng.integers(0, 60, (8, 6 + i)))
+                for i in range(5)}, str(tmp_path / "semantic.pt"))
+    (tmp_path / "refs.scp").write_text(
+        "u0 hello world\nu1 a test\nu2 hello\nu3\nu4 this is\n")
+    (tmp_path / "test.json").write_text(json.dumps({"task": "ASR", "keys": {
+        "reason_seq": str(tmp_path / "reason.pt"),
+        "semantic_seq": str(tmp_path / "semantic.pt"),
+        "transcription_seq": str(tmp_path / "refs.scp")}}))
+    out = {}
+    for name, mod, extra in (("jax", jbatch, []),
+                             ("port", batch_eval, ["--device", "cpu"])):
+        out[name] = str(tmp_path / f"{name}.tsv")
+        mod.main(["--task", "ASR", "--test_data_json",
+                  str(tmp_path / "test.json"), "--results", out[name],
+                  "--llm_train_config", str(env["dir"] / "train.yaml"),
+                  "--resume", str(env["dir"] / "model.npz"),
+                  "--text_tokenizer_path", env["tok"],
+                  "--prompt_text", "transcribe this", "--model_dtype",
+                  "float32", "--max_frames", "6", "--batch_size", "2",
+                  "--decode_type", "continuous"] + extra)
+    got, ref = results(out["port"]), results(out["jax"])
+    assert got == ref
+    rows = [line.split("\t") for line in got.splitlines()]
+    assert [r[0] for r in rows] == ["u0", "u1", "u2", "u3", "u4"]
+    assert all(len(r[1].split()) > 0 for r in rows) and rows[0][2] == "hello world"
 
 
 def test_entry_points_need_a_card_unless_told_cpu(env, monkeypatch, tmp_path):

@@ -22,7 +22,16 @@ runs A, B and C and holds the code; `test_torch_serving_formats_ksplit.py`
 (D, E) runs the same tests and `test_torch_serving_formats_layouts.py` (D
 and E at bucket 256, D stacked) the tree and single-request tests, each
 with its own ``served`` fixture.
+
+Shared between cases: the float tree (one JAX init a process) and each
+quantized tree (one a set of int4 modules and grouping, on either side;
+D's three configurations and E's two quantize once). The port runs on one
+CPU thread (`one_thread`): its tiny eager ops gain nothing from more, and
+under a parallel run the threads of several workers contend (an audio
+request of A read 0.13 s alone and 26 s beside one other busy process).
 """
+
+import functools
 
 import dataclasses
 import os
@@ -62,6 +71,15 @@ CONFIGS = {
 FRAMES = 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@functools.lru_cache(maxsize=None)
 def _configs():
     """One-layer, 256-wide configs under the same names in both packages."""
     base = dict(block_size=1024, vocab_size=1000, padded_vocab_size=1024,
@@ -90,13 +108,29 @@ def _prompts(ts, long):
     return tts, neg, asr
 
 
-def _jax_serving(params, cfg, modules, grouped, interleave, unroll):
-    q = jq.quantize_unified_params(params, int4_modules=modules, grouped=grouped)
+@functools.lru_cache(maxsize=None)
+def _float_params():
+    """The JAX float tree, and its port copy."""
+    params = junified.init_params(jax.random.PRNGKey(3), _configs()[0])
+    return params, convert_params(params, "cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _quantized(modules, grouped):
+    """Both packages' quantized trees of one set of int4 modules."""
+    jparams, tparams = _float_params()
+    return (jq.quantize_unified_params(jparams, int4_modules=modules,
+                                       grouped=grouped),
+            quant.quantize_unified_params(tparams, int4_modules=modules,
+                                          grouped=grouped))
+
+
+def _jax_serving(q, cfg, interleave, unroll):
     saved = os.environ.get("UA2_INT4I")
     os.environ["UA2_INT4I"] = "1" if interleave else "0"
     try:
-        return q, junified.prepare_serving_params(q, dtype=jnp.float32,
-                                                  unroll=unroll, cfg=cfg)
+        return junified.prepare_serving_params(q, dtype=jnp.float32,
+                                               unroll=unroll, cfg=cfg)
     finally:
         if saved is None:
             os.environ.pop("UA2_INT4I", None)
@@ -134,11 +168,8 @@ def build(name):
     """Both engines, both trees and the prompts of configuration ``name``."""
     modules, grouped, interleave, unroll, long = CONFIGS[name]
     jcfg, tcfg = _configs()
-    params = junified.init_params(jax.random.PRNGKey(3), jcfg)
-    jquant, jserve = _jax_serving(params, jcfg, modules, grouped, interleave,
-                                  unroll)
-    tquant = quant.quantize_unified_params(
-        convert_params(params, "cpu"), int4_modules=modules, grouped=grouped)
+    jquant, tquant = _quantized(modules, grouped)
+    jserve = _jax_serving(jquant, jcfg, interleave, unroll)
     tserve = unified.prepare_serving_params(
         tquant, dtype=torch.float32, unroll=unroll, interleave=interleave)
     # bucket 256 gives a 512-slot cache, where "auto" picks the int8 KV

@@ -10,6 +10,7 @@ import pytest
 
 import test_torch_serving_formats as base
 from test_torch_serving_formats import (  # noqa: F401  (collected here)
+    one_thread,
     test_generate_audio_cfg_greedy_identical,
     test_generate_audio_greedy_identical,
     test_generate_text_greedy_identical,

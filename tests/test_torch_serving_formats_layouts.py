@@ -11,6 +11,7 @@ import pytest
 
 import test_torch_serving_formats as base
 from test_torch_serving_formats import (  # noqa: F401  (collected here)
+    one_thread,
     test_generate_audio_greedy_identical,
     test_trees_container_for_container_equal,
 )

@@ -11,8 +11,9 @@ Port-specific: ``--device`` (``cuda`` by default) names the one device the
 LM and the codec run on; without a card only ``--device cpu`` runs, nothing
 falls back to the CPU. The text and codec tokenizers are built by
 `load_text_tokenizer` and `load_codec_tokenizer`, the seams a caller can
-replace. ``--stream`` raises until its scheduler is ported (ROADMAP queue 1
-item 12). The JAX package's ``configure_serving_prng`` has no counterpart.
+replace. ``--stream`` runs `run_generation_streaming` (one single-row
+`ContinuousEngine` per prompt bucket feeding `stream_tts`). The JAX
+package's ``configure_serving_prng`` has no counterpart.
 
 Checkpoints: ``--resume`` accepts a reference torch ``.pt`` /
 ``.checkpoint`` (converted on the fly, `convert/torch_ckpt.py`) or an
@@ -82,8 +83,10 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--audio_model_path", type=str, default=None)
     p.add_argument("--use_cfg", type=str2bool, default=False)
     p.add_argument("--stream", type=str2bool, default=False,
-                   help="streaming TTS: not ported yet (ROADMAP queue 1 "
-                        "item 12), true raises")
+                   help="streaming TTS (the TTS family, --stage all): LLM "
+                        "frames stream out of a continuous-batching engine "
+                        "and codec windows are solved as their tokens "
+                        "arrive")
     p.add_argument("--temperature", type=float, default=0.9)
     p.add_argument("--topk", type=int, default=50)
     p.add_argument("--cfg_scale", type=float, default=1.0)
@@ -445,16 +448,7 @@ def run_generation_stage1(args) -> str:
             print(f"[Stage1] speech_s2s {name}")
         return out_dir
 
-    if args.text and args.text.strip():
-        items = [("utt_0", args.text.strip())]
-    elif args.text_file and os.path.isfile(args.text_file):
-        items = [
-            (f"utt_{i}", line.strip())
-            for i, line in enumerate(open(args.text_file, encoding="utf-8"))
-            if line.strip()
-        ]
-    else:
-        raise ValueError("generation requires --text or --text_file")
+    items = text_items(args)
 
     for name, text in items:
         ids = np.asarray(runner.tok.tokenize(text), np.int64)
@@ -474,6 +468,18 @@ def run_generation_stage1(args) -> str:
         save_tokens(os.path.join(out_dir, f"{name}_semantic.pt"), s)
         print(f"[Stage1] {name}: reason {r.shape}, semantic {s.shape}")
     return out_dir
+
+
+def text_items(args) -> List[Tuple[str, str]]:
+    """[(name, text)] of the generation tasks: ``--text``, or each non-empty
+    line of ``--text_file``."""
+    if args.text and args.text.strip():
+        return [("utt_0", args.text.strip())]
+    if args.text_file and os.path.isfile(args.text_file):
+        with open(args.text_file, encoding="utf-8") as f:
+            return [(f"utt_{i}", line.strip()) for i, line in enumerate(f)
+                    if line.strip()]
+    raise ValueError("generation requires --text or --text_file")
 
 
 def run_generation_stage2(args) -> str:
@@ -496,6 +502,76 @@ def run_generation_stage2(args) -> str:
     return wav_dir
 
 
+def run_generation_streaming(args) -> str:
+    """Streaming TTS: one pipeline per utterance. LLM frames stream out of
+    a single-row `ContinuousEngine` (one per prompt bucket), codec windows
+    are solved as their tokens arrive, and the finalized waveform is
+    written per utterance (`engine/stream_tts.py`)."""
+    import time
+
+    from uniaudio2_tpu_torch.codec.tokenizer import save_wav
+    from uniaudio2_tpu_torch.engine.continuous import ContinuousEngine
+    from uniaudio2_tpu_torch.engine.decode import pick_bucket
+    from uniaudio2_tpu_torch.engine.generators import _AUDIO_OUT_TASKS
+    from uniaudio2_tpu_torch.engine.stream_tts import stream_tts
+
+    task = args.task.strip().lower()
+    if task not in ("tts", "yue_tts"):
+        raise ValueError("--stream supports the TTS family")
+    if args.use_cfg:
+        raise ValueError(
+            "--stream does not support CFG (ContinuousEngine decodes "
+            "single rows); drop --use_cfg or use the offline --stage all")
+    wav_dir = args.wav_dir or os.path.join(args.output_dir, "wavs")
+    os.makedirs(wav_dir, exist_ok=True)
+    runner = build_runner(args)
+    codec_tok = load_codec_tokenizer(args, need_decode=True)
+    prompt = select_prompt(
+        args.task, prompt_text=args.prompt_text, prompt_json=args.prompt_json
+    )
+    items = text_items(args)
+
+    engines = {}
+    for name, text in items:
+        ids = np.asarray(runner.tok.tokenize(text), np.int64)
+        grid, mask, _ = runner._condition(
+            _AUDIO_OUT_TASKS[task], prompt, {"transcription_seq": ids}
+        )
+        bucket = pick_bucket(grid.shape[0], runner.engine.buckets)
+        if bucket not in engines:
+            engines[bucket] = ContinuousEngine(
+                runner.engine.params, runner.engine.cfg, mode="audio",
+                rows=1, bucket=bucket,
+                cache_len=-(-(bucket + args.max_frames + 1) // 256) * 256,
+                max_frames=args.max_frames, temperature=args.temperature,
+                topk=args.topk, seed=args.seed,
+                cache_dtype=runner.engine.cache_dtype,
+            )
+        chunks = []
+        t0 = time.perf_counter()
+        ttfa = None
+        for wav in stream_tts(
+            engines[bucket], codec_tok.decoder.params, codec_tok.cfg, grid,
+            mask, num_steps=args.codec_steps, codec_seed=args.seed,
+        ):
+            if ttfa is None:
+                ttfa = time.perf_counter() - t0
+            chunks.append(wav)
+            done_s = sum(c.shape[-1] for c in chunks) / codec_tok.cfg.sample_rate
+            print(f"[Stream] {name}: +{wav.shape[-1]} samples "
+                  f"({done_s:.2f} s audio)")
+        full = (np.concatenate(chunks, axis=-1) if chunks
+                else np.zeros((1, 0), np.float32))
+        out = os.path.join(wav_dir, f"{name}.wav")
+        save_wav(out, full, codec_tok.cfg.sample_rate)
+        total = time.perf_counter() - t0
+        print(f"[Stream] {name} -> {out} "
+              f"(first audio {ttfa:.2f}s, total {total:.2f}s)"
+              if ttfa is not None else
+              f"[Stream] {name} -> {out} (no audio frames)")
+    return wav_dir
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     args = get_parser().parse_args(argv)
     resolve_device(args.device)
@@ -505,10 +581,11 @@ def main(argv: Optional[List[str]] = None) -> None:
         return
     if task in GENERATION_LOWER:
         if args.stream:
-            raise NotImplementedError(
-                "--stream: streaming TTS (engine/continuous.py + "
-                "engine/stream_tts.py) is not ported yet (ROADMAP queue 1 "
-                "item 12); use --stage all")
+            if args.stage != "all":
+                raise ValueError("--stream implies --stage all")
+            run_generation_streaming(args)
+            print("[Done] Streaming generation finished.")
+            return
         if args.stage in ("1", "all"):
             run_generation_stage1(args)
             if args.stage == "1":

@@ -5,10 +5,11 @@ The reference gives every task file a ``__main__`` batch runner that loads
 a test-data json of pre-tokenized dicts and writes a (key, hyp, ref) TSV
 for offline scoring (`evaluation/asr_task.py:720-799`). This is the
 one-CLI equivalent for all tasks, with the batched decode doing N
-utterances per frame loop (greedy), beam search or n-gram-blocked
-sampling. Not ported yet: ``--decode_type continuous`` (ROADMAP queue 1
-item 12) and ``--score`` (the WER scorer and text normalisers, queue 1
-item 20); both raise.
+utterances per frame loop (greedy), beam search, n-gram-blocked
+sampling, or offline continuous batching (``--decode_type continuous``:
+`ContinuousEngine.run_offline` over the whole test set, ``--batch_size``
+rows, greedy). Not ported yet: ``--score`` (the WER scorer and text
+normalisers, ROADMAP queue 1 item 20); it raises.
 
 Usage:
     python -m uniaudio2_tpu_torch.engine.batch_eval \
@@ -71,14 +72,6 @@ def _load_dict(path: str) -> Dict[str, np.ndarray]:
             for k, v in d.items()}
 
 
-def _load_dict(path: str) -> Dict[str, np.ndarray]:
-    import torch
-
-    d = torch.load(path, map_location="cpu", weights_only=False)
-    return {k: np.asarray(v.numpy() if hasattr(v, "numpy") else v)
-            for k, v in d.items()}
-
-
 def read_scp(path: str) -> Dict[str, str]:
     """kaldi-style ``key text...`` file -> dict (the JAX package's
     `metrics/wer.read_scp`)."""
@@ -95,11 +88,6 @@ def read_scp(path: str) -> Dict[str, str]:
 
 def main(argv: Optional[List[str]] = None):
     args = get_parser().parse_args(argv)
-    if args.decode_type == "continuous":
-        raise NotImplementedError(
-            "--decode_type continuous: the continuous-batching scheduler "
-            "(engine/continuous.py) is not ported yet (ROADMAP queue 1 "
-            "item 12)")
     if args.score:
         raise NotImplementedError(
             "--score: the WER scorer and its text normalisers (metrics/) "
@@ -144,6 +132,33 @@ def main(argv: Optional[List[str]] = None):
         if not isinstance(ref, str):
             ref = runner.tok.decode(np.asarray(ref).reshape(-1))
         return grid, mask, ref
+
+    if args.decode_type == "continuous":
+        # offline continuous batching: refill on completion over the whole
+        # test set (engine/continuous.py)
+        from uniaudio2_tpu_torch.engine.continuous import ContinuousEngine
+        from uniaudio2_tpu_torch.engine.decode import pick_bucket
+
+        items, gts = [], []
+        for u in utt_ids:
+            grid, mask, ref = prep_item(u)
+            items.append((grid, mask))
+            gts.append(ref)
+        bucket = pick_bucket(max(g.shape[0] for g, _ in items),
+                             runner.engine.buckets)
+        ce = ContinuousEngine(
+            runner.engine.params, runner.engine.cfg, mode="text",
+            rows=args.batch_size, bucket=bucket,
+            cache_len=-(-(bucket + args.max_frames + 1) // 256) * 256,
+            max_frames=args.max_frames, temperature=args.temperature,
+            topk=1, seed=args.seed, cache_dtype=runner.engine.cache_dtype,
+        )
+        outs = ce.run_offline(items)
+        with open(args.results, "w", encoding="utf-8") as f_out:
+            for u, toks, gt in zip(utt_ids, outs, gts):
+                f_out.write(f"{u}\t{runner.tok.decode(toks)}\t{gt}\n")
+        print(f"wrote {args.results} ({len(utt_ids)} utts)")
+        return
 
     n = 0
     with open(args.results, "w", encoding="utf-8") as f_out:
