@@ -241,6 +241,26 @@ caught):
    scripted frame source equal to phase 6's offline waveform bit for bit,
    with its time to first audio; launches of every window against the
    frames and refills the engines ran;
+15. (run after phase 8, with phase 4's tree, phase 8's bf16 base and its
+   second seed's int4all tree) speculative decoding
+   (`engine/speculative.py`, k = 4): the int8 target (configuration A,
+   built from the base) with three drafts (itself, phase 4's int4all tree
+   of the same base, the second seed's) on the TTS prompt (128 frames,
+   bucket 64) and the ASR prompt (64 frames); (a) each stream against the
+   target's plain greedy decode on its graph path: identical up to the
+   first difference, which must be a certified tie (the target's top two
+   at M = 1, teacher-forced on the common prefix, closer than the same
+   row's difference between M = 1 and M = k + 1), and every frame within
+   SPEC_STREAM_TOL of the target teacher-forced on the stream itself;
+   acceptance, rounds and frames/s; three planted faults (a frame
+   accepted past the first mismatch, the position one short, the fresh
+   frame from the row before) rejected by both lines; (b) the cost probe
+   (`probes/bench_speculative.py`) at k = 4: plain frame ms, round ms
+   accept-all and reject-all, the projection against alpha, one replayed
+   round's device time and busy share (torch.profiler), capture seconds
+   and pool bytes; (c) every window's launches equal to its prefills' and
+   its rounds times the round's count by row, each graph's kernel nodes
+   equal to a replay's counts, and row 3 above 16 rows launched 0 times;
 7. training at full `UnifiedModelConfig()` width (the serving model and
    the codec freed first), seeded random bf16 weights, `adamw_lean`:
    (a) `build_train_step` (grad clip 1.0, per-layer remat, chunked CE) on
@@ -289,6 +309,11 @@ attention, GEMMs, convolutions, the rest) and the top kernels.
 runs phases 1-2, then phase 7a's train step (after a warm-up step) under
 torch.profiler, and prints the device time by kernel class and the top
 kernels.
+
+    python3 chip_smoke.py --speculative
+
+runs phases 1-2, phase 4's tree, the second seed's int4all tree and
+phase 15 alone.
 
     python3 chip_smoke.py --asr WAV
 
@@ -1716,6 +1741,26 @@ def to_cpu(tree):
     return tree.cpu()
 
 
+def dequantized_once():
+    """While active, `quant.dequantize_any` gives each container's weight
+    from a memo: one dequantization per leaf and dtype, the same bytes the
+    twins would make anew at every call (each CPU twin dequantizes its
+    whole weight per call: most of `[9w]`'s CPU path, and every weight
+    twice in a prefill and first frame, phases 5 and 8)."""
+    from uniaudio2_tpu_torch.ops import quant
+
+    orig, memo = quant.dequantize_any, {}
+
+    def once(w, dtype=None):
+        dtype = dtype or orig.__defaults__[0]
+        key = (w.values.data_ptr(), w.scale.data_ptr(), dtype)
+        if key not in memo:
+            memo[key] = (w, orig(w, dtype))     # w kept: its pointers stay
+        return memo[key][1]
+
+    return mock.patch.object(quant, "dequantize_any", once)
+
+
 def swap_nibbles(torch, w):
     """``w`` with the two nibbles of every byte swapped: what an int4 kernel
     that took row 2r from the HIGH nibble would compute on ``w``."""
@@ -1796,7 +1841,8 @@ def phase_logits(torch, dev, cfg, params):
 
     (g, m), _, _ = prompts(cfg)
     t0 = time.perf_counter()
-    plain = first_frame(torch, cfg, to_cpu(params), g, m, "cpu")
+    with dequantized_once():
+        plain = first_frame(torch, cfg, to_cpu(params), g, m, "cpu")
     t1 = time.perf_counter()
     every = ("understanding_expert", "backbone", "generation_expert", "decoder")
     runs = (
@@ -2108,7 +2154,8 @@ def int8_verdicts(torch, cfg, dev, label, params):
     attn_proj with its int8 levels negated."""
     (g, m), _, _ = prompts(cfg)
     t0 = time.perf_counter()
-    plain = first_frame(torch, cfg, to_cpu(params), g, m, "cpu")
+    with dequantized_once():
+        plain = first_frame(torch, cfg, to_cpu(params), g, m, "cpu")
     print(f"[8] {label}: twins {time.perf_counter() - t0:.1f} s on the CPU",
           flush=True)
     verdicts = {"A vs the CPU twins": rejected(
@@ -2171,7 +2218,8 @@ def phase_formats(torch, dev, cfg, base, int4all, sound64):
         if letter == "C":
             bucket256_prefills(torch, cfg, params, label)
             t0 = time.perf_counter()
-            plain = first_frame(torch, cfg, to_cpu(params), g, m, "cpu")
+            with dequantized_once():
+                plain = first_frame(torch, cfg, to_cpu(params), g, m, "cpu")
             print(f"[8] {label}: twins {time.perf_counter() - t0:.1f} s on the "
                   f"CPU", flush=True)
             frames["C"] = first_frames(torch, cfg, dev, params)
@@ -2214,6 +2262,462 @@ def phase_formats(torch, dev, cfg, base, int4all, sound64):
     if missed:
         fail(f"phase 8's comparisons passed planted faults: {missed}")
     return total, int4all1
+
+
+# Phase 15: speculative decoding (`engine/speculative.py`) at k = SPEC_K
+# with the int8 target (configuration A of phase 8's base) and three drafts.
+# Each stream is held to the target's plain greedy decode
+# (`DecodeEngine.generate_*(topk=1)`, its graph path). On the card a row's
+# arithmetic depends on M (the verify runs the target at M = k + 1, the
+# score at M = k, the plain decode at M = 1), so the gate is: the tokens
+# are identical up to the first difference, and a difference passes only
+# at a certified tie: there, the target's logits teacher-forced on the
+# common prefix at M = 1 put the plain stream's token first, and its gap
+# to the speculative stream's token lies within the largest difference
+# between those logits and the same row's at M = k + 1 (the verify's
+# T = k + 1 step, the score's k rows). Three planted faults must fail it.
+SPEC_K = 4
+SPEC_KS = (4,)      # 15b's k: 2 and 8 cut, to keep the phase inside ~90 s
+SPEC_RUNS = {"tts": ("audio", 128), "asr": ("text", 64)}
+# At random init near-ties are common (the streams part at frame 0 or 10),
+# so a first-difference gate alone would leave most of a stream unread.
+# The whole-stream line holds every frame's token within SPEC_STREAM_TOL
+# (logit units) of the target's best, teacher-forced on the stream itself
+# at M = n; the plain stream's reading beside it is the same check's noise.
+# On the H100 the sound streams read at most 0.316 (the plain stream itself
+# 0.528), the planted faults at least 5.72; readings in PERF.md.
+SPEC_STREAM_TOL = 1.0
+
+
+def spec_round_launches(cfg, draft, target, mode, k):
+    """Kernel launches of one speculation round, by row: k draft frames and
+    the draft's ingest (M = 1), the target's verify (M = k + 1: the QKV
+    GEMV with the norm folded, attn_proj, the fused MLP), then in audio
+    mode the teacher-forced score (M = k) and the fresh frame's local
+    decoder (M = 1), each the projection, 4 layers x 8 codebooks and 8
+    heads; in text mode the lm_head at M = k and M = 1."""
+    from uniaudio2_tpu_torch.ops.fused_mlp import FORMS
+
+    want = dict.fromkeys(counters(), 0)
+
+    def gemv(w, n):
+        want[GEMV_ROWS[FORMS[type(w)]]] += n
+
+    def layers(params, subs, n, qkv_step=True):
+        for sub in subs:
+            for layer in params[sub]["layers"]:
+                if qkv_step:
+                    want[qkv_row(FORMS[type(layer["qkv_w"])])] += n
+                else:
+                    gemv(layer["qkv_w"], n)
+                gemv(layer["attn_proj_w"], n)
+                want[swiglu_row(f"{FORMS[type(layer['fc1_w'])]}+"
+                                f"{FORMS[type(layer['mlp_proj_w'])]}")] += n
+
+    stacks = ("understanding_expert", "backbone", "generation_expert")
+    layers(draft, stacks, k + 1)
+    layers(target, stacks, 1, qkv_step=False)
+    if mode == "audio":
+        ncb = cfg.tokens.num_codebooks
+        for params, n in ((draft, k), (target, 2)):
+            layers(params, ("decoder",), ncb * n)
+            for head in params["audio_head"]:
+                gemv(head, n)
+            gemv(params["projection_w"], n)
+    else:
+        gemv(draft["backbone"]["lm_head_w"], k)
+        gemv(target["backbone"]["lm_head_w"], 2)
+    return want
+
+
+def rows_of(delta):
+    """A counts delta (`_cuda.counts_since`) by row of the kernels line."""
+    out = {}
+    for name, (fn, form) in counters().items():
+        launches, forms = delta.get(fn, (0, {}))
+        n = launches if form is None else forms.get(form, 0)
+        if n:
+            out[name] = n
+    return out
+
+
+def spec_stream(out, mode):
+    """(frames (n, 8) or (n, 1), phases (n,)) of an engine's raw outputs."""
+    text, audio, phases, n = out
+    return (audio[:n] if mode == "audio" else text[:n, None]), phases[:n]
+
+
+def local_logits(torch, cfg, params, h, frames, c, forbid):
+    """The logits (N, V) of codebooks 0..c of the serving tree's local
+    decoder at rows ``h`` (N, D), teacher-forced on ``frames``, ids below
+    ``forbid`` (an int or (N, 1)) masked: `_local_decoder_score`'s
+    arithmetic."""
+    from uniaudio2_tpu_torch.models import gpt, unified
+    from uniaudio2_tpu_torch.ops.quant import matmul
+    from uniaudio2_tpu_torch.ops.sampling import _mask_prefix
+
+    cache, steps = unified.init_local_cache(cfg, h.shape[0], h.dtype, h.device)
+    table = params["audio_embeddings_proj"]
+    curr = matmul(h, params["projection_w"]).to(table.dtype)[:, None, :]
+    out = []
+    for i in range(c + 1):
+        dec_h, cache = gpt.decode_step(params["decoder"], cfg.decoder, curr,
+                                       cache, steps[i:i + 1])
+        out.append(_mask_prefix(matmul(dec_h[:, -1, :], params["audio_head"][i],
+                                       out_dtype=torch.float32), forbid))
+        curr = table[frames[:, i] + i * cfg.tokens.audio_vocab][:, None, :]
+    return out
+
+
+def forbids_of(cfg, frames):
+    """The ``forbid_prefix`` each audio frame of a stream was drawn under:
+    0 until the reasoning phase's switch frame (8 x reason_eos), the
+    reason card after it."""
+    ts, out, forbid = cfg.tokens, [], 0
+    for fr in frames:
+        out.append(forbid)
+        if not forbid and (fr == ts.reason_eos).all():
+            forbid = ts.audio_reason_card
+    return out
+
+
+def stream_inputs(torch, cfg, mode, grid, mask, frames, n, dev):
+    """The padded bucket-64 prompt (1, 64, 9) and the (1, n, 9) inputs from
+    the prompt's last step: that step, then each frame's feedback."""
+    import numpy as np
+
+    ts, par, last = cfg.tokens, cfg.tokens.parallel_number, grid.shape[0] - 1
+    g = np.zeros((1, 64, par), np.int64)
+    m = np.zeros((1, 64, par), bool)
+    g[0, :last + 1], m[0, :last + 1] = grid, mask
+    feed = np.zeros((1, n, par), np.int64)
+    fmask = np.zeros((1, n, par), bool)
+    feed[0, 0], fmask[0, 0] = grid[last], mask[last]
+    for j in range(min(len(frames), n - 1)):
+        if mode == "audio":
+            feed[0, j + 1, :-1], fmask[0, j + 1, :-1] = frames[j], True
+        else:
+            tok = frames[j, 0]
+            feed[0, j + 1, -1] = ts.text_eos if tok < 0 else tok
+            fmask[0, j + 1, -1] = True
+    return tuple(torch.from_numpy(x).to(dev) for x in (g, m, feed, fmask))
+
+
+def stream_gaps(torch, cfg, target, mode, grid, mask, frames):
+    """Each frame of a stream against the target teacher-forced on the
+    stream itself (one prefill, one T = n step over its inputs, the local
+    decoder 16 rows at a time): per frame, the largest gap over its
+    codebooks between the target's best logit and the stream's token's."""
+    import numpy as np
+    from uniaudio2_tpu_torch.models import gpt, unified
+
+    dev, n = target["audio_embeddings"].device, len(frames)
+    g, m, feed, fmask = stream_inputs(torch, cfg, mode, grid, mask, frames, n,
+                                      dev)
+    toks = np.where(frames < 0, cfg.tokens.text_eos, frames)
+    with torch.no_grad():
+        caches = unified.init_caches(cfg, 1, seq_len=256, as_lists=True,
+                                     device=dev)
+        unified.prefill(target, cfg, g[:, :-1], m[:, :-1], caches)
+        h, _ = unified.decode_hidden_all(target, cfg, feed, fmask, caches,
+                                         grid.shape[0] - 1)
+        if mode == "text":
+            logits = [gpt.lm_head(target["backbone"], h[0], cfg.backbone)]
+        else:
+            forbid = torch.tensor(forbids_of(cfg, frames), device=dev)[:, None]
+            rows = torch.from_numpy(toks).to(dev)
+            parts = [local_logits(torch, cfg, target, h[0, i:i + 16],
+                                  rows[i:i + 16], 7, forbid[i:i + 16])
+                     for i in range(0, n, 16)]
+            logits = [torch.cat(c) for c in zip(*parts)]
+    gaps = np.zeros(n)
+    for c, lg in enumerate(logits):
+        lg = lg.float().cpu().numpy()
+        gaps = np.maximum(gaps, lg.max(axis=1) - lg[np.arange(n), toks[:, c]])
+    return gaps
+
+
+def tie_at(torch, cfg, target, mode, k, grid, mask, frames, f, c, a, b):
+    """The target's logits at frame ``f`` (codebook ``c``) of the plain
+    stream ``frames``, teacher-forced on frames 0..f-1 and frame f's
+    codebooks below c, at M = 1 (T = 1 steps, one row) and at M = k + 1
+    (one T = k + 1 step over the rows from frame max(0, f - k + 1), the
+    score's k rows). Returns (L1[a] - L1[b], max |L1 - Lk|, whether ``a``
+    and ``b`` are L1's top two)."""
+    import numpy as np
+    from uniaudio2_tpu_torch.engine.speculative import _decode_hidden_all
+    from uniaudio2_tpu_torch.models import gpt, unified
+    from uniaudio2_tpu_torch.ops.kv_cache import KVCache
+
+    ts, dev, last = cfg.tokens, target["audio_embeddings"].device, grid.shape[0] - 1
+    g, m, feed, fmask = stream_inputs(torch, cfg, mode, grid, mask, frames,
+                                      f + k + 1, dev)
+    s = max(0, f - k + 1)
+    with torch.no_grad():
+        caches = unified.init_caches(cfg, 1, seq_len=256, as_lists=True,
+                                     device=dev)
+        unified.prefill(target, cfg, g[:, :-1], m[:, :-1], caches)
+
+        def step(j):
+            return unified.decode_hidden(target, cfg, feed[:, j:j + 1],
+                                         fmask[:, j:j + 1], caches,
+                                         last + j)[0]
+
+        for j in range(s):
+            step(j)
+        copy = type(caches)(*(KVCache([t.clone() for t in c.k],
+                                      [t.clone() for t in c.v])
+                              for c in caches))
+        h_all, _ = _decode_hidden_all(target, cfg, feed[:, s:s + k + 1],
+                                      fmask[:, s:s + k + 1], copy, last + s)
+        for j in range(s, f + 1):
+            h1 = step(j)
+        if mode == "text":
+            l1 = gpt.lm_head(target["backbone"], h1, cfg.backbone)[0]
+            lk = gpt.lm_head(target["backbone"], h_all[0, :k],
+                             cfg.backbone)[f - s]
+        else:
+            forbid = forbids_of(cfg, frames[:f + 1])[f]
+            rows = np.zeros((k, 8), np.int64)
+            rows[:min(k, len(frames) - s)] = frames[s:s + k]
+            rows = torch.from_numpy(rows).to(dev)
+            l1 = local_logits(torch, cfg, target, h1, rows[f - s:f - s + 1], c,
+                              forbid)[c][0]
+            lk = local_logits(torch, cfg, target, h_all[0, :k], rows, c,
+                              forbid)[c][f - s]
+    b = ts.text_eos if b < 0 else b
+    a = ts.text_eos if a < 0 else a
+    l1, lk = l1.float().cpu(), lk.float().cpu()
+    second = float(l1.topk(2).values[1])
+    return (float(l1[a] - l1[b]), float((l1 - lk).abs().max()),
+            int(l1.argmax()) == a and float(l1[b]) >= second)
+
+
+def spec_verdict(torch, cfg, target, mode, grid, mask, plain, spec, k):
+    """The gate of one speculative stream against the plain one: its first
+    difference (None where the streams are equal; else frame, codebook,
+    both ids, the tie's gap, the M-plan spread and whether it is a
+    certified tie), and the whole stream against the target teacher-forced
+    on it (`stream_gaps`: the largest gap, its frame, the frames whose
+    token is not the check's argmax). ``ok`` holds both."""
+    import numpy as np
+
+    pf, pp = spec_stream(plain, mode)
+    sf, sp = spec_stream(spec, mode)
+    n = min(len(pf), len(sf))
+    diff = np.argwhere(pf[:n] != sf[:n])
+    first = None
+    if len(diff):
+        f, c = (int(x) for x in diff[0])
+        a, b = int(pf[f, c]), int(sf[f, c])
+        gap, spread, top = tie_at(torch, cfg, target, mode, k, grid, mask, pf,
+                                  f, c, a, b)
+        first = {"frame": f, "codebook": c, "plain": a, "speculative": b,
+                 "gap": gap, "spread": spread,
+                 "certified": top and abs(gap) <= spread}
+    elif len(pf) != len(sf) or not np.array_equal(pp, sp):
+        first = {"frame": n, "codebook": None, "certified": False,
+                 "why": "lengths or phase tags differ"}
+    gaps = stream_gaps(torch, cfg, target, mode, grid, mask, sf)
+    stream = {"max_gap": float(gaps.max()), "at": int(gaps.argmax()),
+              "off_argmax": int((gaps > 0).sum()), "frames": len(gaps)}
+    ok = (first is None or first["certified"]) \
+        and stream["max_gap"] <= SPEC_STREAM_TOL
+    return {"first_difference": first, "stream": stream, "ok": ok}
+
+
+def accepted_past_mismatch():
+    """One drafted frame accepted past the first mismatch."""
+    from uniaudio2_tpu_torch.engine.speculative import _Program
+
+    k = SPEC_K
+    return mock.patch.object(_Program, "_accept", staticmethod(
+        lambda match: (match.long().cumprod(0).sum() + 1).clamp(max=k)
+        .reshape(1)))
+
+
+def pos_one_short():
+    """The position advanced by n_acc instead of n_acc + 1."""
+    from uniaudio2_tpu_torch.engine.speculative import _Program
+
+    emit = _Program._emit
+
+    def short(self, drafted, n_acc, fresh):
+        emit(self, drafted, n_acc, fresh)
+        self.pos.sub_(1)
+
+    return mock.patch.object(_Program, "_emit", short)
+
+
+def fresh_row_one_early():
+    """The fresh frame taken from h_all[n_acc - 1]."""
+    from uniaudio2_tpu_torch.engine.speculative import _Program
+
+    fresh = _Program._fresh
+    return mock.patch.object(
+        _Program, "_fresh", lambda self, h_all, n_acc, forbids: fresh(
+            self, h_all, (n_acc - 1).clamp(min=0), forbids))
+
+
+def phase_speculative(torch, dev, cfg, base, int4all, params1, card):
+    """Phase 15: (a) the int8 target (A, from ``base``) with three drafts
+    (itself, phase 4's int4all tree of the same base, the int4all tree of
+    SECOND_SEED) on the TTS prompt (128 frames, bucket 64) and the ASR
+    prompt (64 frames) against the target's plain greedy decode, each
+    window's launches against the rounds it ran, each graph's kernel
+    nodes against a replay's counts, and three planted faults; (b) the
+    cost probe (`probes/bench_speculative.py`) at k in SPEC_KS; (c) row
+    3 above 16 rows launched 0 times. Returns the launches by row of the
+    checked windows of (a)."""
+    from uniaudio2_tpu_torch.engine.decode import DecodeEngine
+    from uniaudio2_tpu_torch.engine.speculative import SpeculativeEngine
+    from uniaudio2_tpu_torch.probes import bench_speculative
+
+    t0 = time.perf_counter()
+    k = SPEC_K
+    target = format_tree(torch, base, "A int8")
+    (g, m), _, (ag, am) = prompts(cfg)
+    requests = {name: (mode, frames, grid, mask) for (name, (mode, frames)),
+                (grid, mask) in zip(SPEC_RUNS.items(), ((g, m), (ag, am)))}
+    total = dict.fromkeys(counters(), 0)
+    plain = {}
+    for name, (mode, frames, grid, mask) in requests.items():
+        reset_counts()
+        ref = DecodeEngine(target, cfg, max_frames=frames, buckets=(64,))
+        plain[name] = ref._run(mode, grid, mask, temperature=0.9, topk=1,
+                               seed=888)
+        want = expected_launches(cfg, target, mode, ref.last_frames_run, 63)
+        got = read_counts()
+        if got != want:
+            fail(f"[15a] plain {name}: launches {nonzero(got)} != "
+                 f"{nonzero(want)}")
+        add_to(total, got)
+        gaps = stream_gaps(torch, cfg, target, mode, grid, mask,
+                           spec_stream(plain[name], mode)[0])
+        print(f"[15a] the plain greedy stream, {name}: against the target "
+              f"teacher-forced on it at M = {len(gaps)}, largest gap "
+              f"{gaps.max():.4f} (frame {gaps.argmax()}), "
+              f"{(gaps > 0).sum()} of {len(gaps)} frames off the check's "
+              f"argmax ({card})", flush=True)
+    drafts = {"the target itself": target,
+              "int4all, same base (phase 4's tree)": int4all,
+              f"int4all, seed {SECOND_SEED}": params1}
+    per_round, bad = {}, []
+    for dname, draft in drafts.items():
+        for name, (mode, frames, grid, mask) in requests.items():
+            reset_counts()
+            with debug_graphs(torch):
+                eng = SpeculativeEngine(draft, target, cfg, k=k,
+                                        max_frames=frames, buckets=(64,))
+                t1 = time.perf_counter()
+                out = eng._run(mode, grid, mask)
+                dt = time.perf_counter() - t1
+            got = read_counts()
+            rnd = spec_round_launches(cfg, draft, target, mode, k)
+            want = dict.fromkeys(counters(), 0)
+            for tree in (draft, target):
+                add_to(want, expected_launches(cfg, tree, mode, 0, 63))
+            for key, v in rnd.items():
+                want[key] += eng.rounds_run * v
+            if got != want:
+                fail(f"[15c] {dname} {name}: launches {nonzero(got)} != the "
+                     f"prefills' + {eng.rounds_run} rounds x "
+                     f"{nonzero(rnd)}: {nonzero(want)}")
+            add_to(total, got)
+            per_round[mode] = rnd
+            (prog,) = eng.programs.values()
+            for lvl, (graph, counts) in prog.graphs.items():
+                nodes = graph_nodes(graph)
+                fams = counted_families(counts, k + 1)
+                if nodes != fams or rows_of(counts) != nonzero(rnd):
+                    fail(f"[15c] {dname} {name} level {lvl}: kernel nodes "
+                         f"{nodes}, a replay counts {fams} "
+                         f"({rows_of(counts)} against {nonzero(rnd)})")
+            st = eng.last_stats
+            verdict = spec_verdict(torch, cfg, target, mode, grid, mask,
+                                   plain[name], out, k)
+            n = out[3]
+            print(f"[15a] {dname}, {name} ({frames} frames, k = {k}): "
+                  f"{n} frames in {dt:.3f} s = {n / dt:.2f} frames/s "
+                  f"(capture {eng.capture_seconds:.3f} s included; {card}); "
+                  f"{st['rounds']} rounds, acceptance "
+                  f"{st['acceptance_rate']:.4f} ({st['accepted']} of "
+                  f"{st['drafted']}), {eng.rounds_run} rounds run; "
+                  f"{json.dumps(verdict)}", flush=True)
+            if not verdict["ok"]:
+                bad.append(f"{dname} {name}")
+            del eng
+    # planted faults, on the ASR request (their launches not counted)
+    mode, frames, grid, mask = requests["asr"]
+    caught = {}
+    for label, ctx, draft in (
+            ("control: a frame accepted past the first mismatch",
+             accepted_past_mismatch, params1),
+            ("control: the position advanced by n_acc",
+             pos_one_short, target),
+            ("control: the fresh frame from h[n_acc - 1]",
+             fresh_row_one_early, target)):
+        with ctx():
+            eng = SpeculativeEngine(draft, target, cfg, k=k,
+                                    max_frames=frames, buckets=(64,))
+            out = eng._run(mode, grid, mask)
+        verdict = spec_verdict(torch, cfg, target, mode, grid, mask,
+                               plain["asr"], out, k)
+        first = verdict["first_difference"]
+        caught[label] = (first is not None and not first["certified"],
+                         verdict["stream"]["max_gap"] > SPEC_STREAM_TOL)
+        print(f"[15a] {label} (asr): {json.dumps(verdict)}; rejected by the "
+              f"first difference: {caught[label][0]}, by the whole stream: "
+              f"{caught[label][1]} ({card})", flush=True)
+        del eng
+    print(f"[15a] {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    # 15b: the cost probe, its engines' rounds profiled (not counted)
+    t1 = time.perf_counter()
+
+    def on_engine(kk, label, eng):
+        (prog,) = eng.programs.values()
+        (graph, counts), = prog.graphs.values()
+        wall, n_kernels, busy, _, _, split = busy_window(
+            torch, graph.replay, kk + 1)
+        pool = eng.pool_bytes()
+        print(f"[15b] k = {kk}, {label}: one round replayed: wall {wall:.3f} "
+              f"ms, {n_kernels} device kernels traced, {busy:.3f} ms of "
+              f"device time, busy share "
+              f"{busy / wall if n_kernels else float('nan'):.3f}; capture "
+              f"{eng.capture_seconds:.3f} s, graph pool "
+              f"{'not measured' if pool is None else f'{pool / 2 ** 20:.1f} MiB'}"
+              f"; launches a round by row {json.dumps(rows_of(counts))}; "
+              f"device ms by kernel: " + "; ".join(
+                  f"{name} {ms:.4f} ({calls})"
+                  for name, (ms, calls) in list(split.items())[:8])
+              + f" ({card})", flush=True)
+
+    lines = bench_speculative.bench(cfg, int4all, target, params1, ks=SPEC_KS,
+                                    frames=128, cache_dtype=torch.bfloat16,
+                                    buckets=(64,), on_engine=on_engine)
+    print(f"[15b] the lines above on {card}; k = 2 and 8 cut (the phase's "
+          f"time); {time.perf_counter() - t1:.1f} s", flush=True)
+    if [x["metric"] for x in lines] != ["plain_greedy_frame_ms"] + [
+            "speculative_round_cost"] * len(SPEC_KS):
+        fail(f"[15b] the probe printed {lines}")
+    # 15c: row 3 above 16 rows: the QKV steps run at M = 1 and M = k
+    qkv = sum(v for key, v in total.items() if key.startswith("qkv_rope_step"))
+    print(f"[15c] launches by row {json.dumps(nonzero(total))}; a round by "
+          f"row: audio {json.dumps(nonzero(per_round['audio']))}, text "
+          f"{json.dumps(nonzero(per_round['text']))}; row 3 (qkv_rope_step) "
+          f"{qkv} launches, all at M = 1 or k = {k}: row 3 above 16 rows "
+          f"launched 0 times; phase 15 {time.perf_counter() - t0:.1f} s "
+          f"({card})", flush=True)
+    if bad:
+        fail(f"[15a] streams left the plain greedy stream: {bad}")
+    missed = [label for label, hit in caught.items() if not all(hit)]
+    if missed:
+        fail(f"[15a] the gate passed planted faults: {missed}")
+    if k > 16 or not qkv:
+        fail("[15c] row 3's launches")
+    del target
+    torch.cuda.empty_cache()
+    return total
 
 
 # Phase 9: `DecodeEngine(params, cfg)` with no policy argument. The engine's
@@ -2470,7 +2974,9 @@ def defaults_verdicts(torch, cfg, params, dev, seed):
 # path at full depth would take minutes: its twins dequantize every weight
 # at every call, so the cost goes by the layers the prefill and the ten
 # teacher-forced frames pass; with both experts whole, 3 + 2 layers, it
-# took 181 s), run on the card and on the CPU (the twins and the plain int8
+# took 181 s; `dequantized_once` now dequantizes each weight once for
+# both CPU runs, the same bits; readings in PERF.md), run on the card and
+# on the CPU (the twins and the plain int8
 # attention the CPU tests hold token-identical to the JAX engine). If the
 # card path added to the gap, the card would read more than the CPU: its
 # error may be at most WITNESS_FACTOR x the CPU's, and its 1 - cosine
@@ -2540,7 +3046,8 @@ def defaults_witness(torch, cfg, params, dev):
                                    until=pos)[pos]
 
     host = to_cpu(tree)
-    cpu = {d: frame("cpu", host, d) for d in (torch.int8, torch.bfloat16)}
+    with dequantized_once():
+        cpu = {d: frame("cpu", host, d) for d in (torch.int8, torch.bfloat16)}
     del host
     t1 = time.perf_counter()
     card_bf16 = frame(dev, tree, torch.bfloat16)
@@ -5237,6 +5744,11 @@ def main():
     if "--profile-train" in sys.argv[1:]:
         profile_train(torch, dev)
         return
+    if "--speculative" in sys.argv[1:]:
+        cfg, base, params = build_model(torch, dev)
+        _, params1 = int4all_tree(torch, dev, cfg, SECOND_SEED)
+        phase_speculative(torch, dev, cfg, base, params, params1, card)
+        return
     if "--asr" in sys.argv[1:]:
         asr_from_wav(torch, dev, sys.argv[sys.argv.index("--asr") + 1])
         return
@@ -5249,6 +5761,8 @@ def main():
     stamp("phases 4-5")
     formats, params1 = phase_formats(torch, dev, cfg, base, params, sound)
     stamp("phase 8")
+    spec = phase_speculative(torch, dev, cfg, base, params, params1, card)
+    stamp("phase 15")
     del base
     torch.cuda.empty_cache()
     defaults = phase_defaults(torch, dev, cfg, params, params1)
@@ -5260,7 +5774,8 @@ def main():
     graphs = phase_graphs(torch, dev, cfg, params)
     stamp("phase 11")
     for k in launches:
-        launches[k] += formats[k] + defaults[k] + batched[k] + graphs[k]
+        launches[k] += (formats[k] + spec[k] + defaults[k] + batched[k]
+                        + graphs[k])
     print(f"[t] of these, the fused SwiGLU at a prefill of 17-128 rows (the "
           f"tile passes): {json.dumps(PREFILL_SWIGLU)}", flush=True)
     ccfg, dec = build_codec(torch, dev)

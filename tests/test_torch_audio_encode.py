@@ -35,6 +35,14 @@ MIN_DURATION = 0.5          # a window of 0.5 s + the 240-sample guard
 TASK_PROMPT = np.array([4, 8, 9])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _codec_kwargs(sr):
     return dict(sample_rate=sr, codec_dim=16, latent_dim=8, rec_codebook_size=32,
                 reason_codebook_size=16, rec_codebook_dim=8, reason_codebook_dim=8,

@@ -35,6 +35,14 @@ from uniaudio2_tpu_torch.convert.from_jax import convert_params
 RTOL, ATOL_FRAC = 1e-4, 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def close(port, ref):
     port = port.detach().numpy() if isinstance(port, torch.Tensor) else np.asarray(port)
     ref = np.asarray(ref)

@@ -29,6 +29,14 @@ from uniaudio2_tpu_torch.codec import whisper_encoder
 from uniaudio2_tpu_torch.convert.from_jax import convert_params
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _pair(jmod, mod, cfg_kwargs, seed, factory="tiny_test"):
     """(JAX config, JAX params, port config, port params)."""
     jcfg = (getattr(jmod, _CONFIG[jmod])(**cfg_kwargs) if factory is None

@@ -31,6 +31,14 @@ from uniaudio2_tpu_torch.engine import batch_eval, http_server
 WORDS = ["hello", "world", "this", "is", "a", "test", "transcribe", "speak"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def write_tokenizer(d, size=0):
     """A WordLevel ``tokenizer.json`` (bos 1, eos 2) in ``d``: `WORDS`, then
     ``t{id}`` up to ``size`` entries, so that every id a model emits decodes

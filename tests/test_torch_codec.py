@@ -52,6 +52,14 @@ from uniaudio2_tpu_torch.ops import kv_cache, rope
 RTOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _close(port, ref):
     port = port.detach().numpy() if isinstance(port, torch.Tensor) else port
     ref = np.asarray(ref)

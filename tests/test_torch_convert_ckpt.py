@@ -45,6 +45,14 @@ from tests.test_codec_convert import _dit_to_sd
 from tests.test_convert_inventory import _reference_state_dict
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _flat(tree, path=""):
     """path -> leaf over dicts, lists and None."""
     if isinstance(tree, dict):

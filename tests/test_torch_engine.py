@@ -33,6 +33,14 @@ INT4ALL = ("backbone", "decoder", "understanding_expert", "generation_expert",
 FRAMES = 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _prompts(ts):
     tts = jtasks.prepare_tts(np.array([1, 5, 6, 7]), np.array([3, 10, 2]), ts)
     neg = jtasks.prepare_tts_cfg_negative(np.array([1, 5, 6, 7]),
@@ -174,7 +182,9 @@ def test_port_imports_no_jax():
             "uniaudio2_tpu_torch.probes.int4_native_probe, "
             "uniaudio2_tpu_torch.probes.sweep_gemv_blocks, "
             "uniaudio2_tpu_torch.probes.profile_scan_slice, "
-            "uniaudio2_tpu_torch.ops.int4_stacked;"
+            "uniaudio2_tpu_torch.ops.int4_stacked, "
+            "uniaudio2_tpu_torch.engine.speculative, "
+            "uniaudio2_tpu_torch.probes.bench_speculative;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'uniaudio2_tpu')];"
             "assert not bad, bad")

@@ -32,6 +32,14 @@ RTOL_F32 = 1e-5
 BK = 64                                    # keys a tile, as the kernel
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _tf32(x):
     """x rounded to TF32 as cvt.rna.tf32.f32 does (f32 bits, the low 13
     zero; |x| far below the overflow)."""

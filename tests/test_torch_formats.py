@@ -36,6 +36,14 @@ PALLAS = dict(rtol=1e-4, atol=1e-4)
 FORMS = ("int8", "int4", "int4g", "int4c", "int4cg", "int4i", "int4ig")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _w(shape, seed=0):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32) * 0.02
 

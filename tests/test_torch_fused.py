@@ -31,6 +31,14 @@ FIELDS = dict(name="fused-test", block_size=64, vocab_size=512,
               rope_adjustments=None)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.fixture(scope="module")
 def layer():
     jcfg = JaxGPTConfig(**FIELDS)

@@ -77,6 +77,14 @@ TWINS = {"int4i": quant.int4i_matmul_plain, "int4ig": quant.int4i_matmul_plain,
          "int8": quant.int8_matmul_plain}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _legal(plan, m, k, n, g, layout):
     rows = k // 2
     if plan.tile == quant.SPLITK_WIDE_N:   # int8's wide-N instance

@@ -37,6 +37,14 @@ INT8_SHAPES = list(profile_gemv.SHAPES + profile_gemv.MORE_SHAPES) + [
 INT8 = quant.LAYOUT_INT8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _padded(n: int) -> int:
     """The row stride `quant.quantize4` gives an N-column weight."""
     return quant._pad_last(torch.zeros((1, n), dtype=torch.int8)).shape[1]

@@ -33,6 +33,14 @@ F32_TOL = 1e-5
 BF16_TOL = 2.0 ** -8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _representable(rng, shape, scale=2.0 ** -6):
     """Integers in [-126, 126] times a power of two, one slot pinned to
     127: lossless under absmax int8 (the JAX tests' inputs)."""

@@ -37,6 +37,14 @@ UPD_TOL = 1e-6        # x max|upd| of the leaf
 V_RTOL = 1e-6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _t(a):
     return to_tensor(a, "cpu")
 

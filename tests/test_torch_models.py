@@ -29,6 +29,14 @@ INT4ALL = ("backbone", "decoder", "understanding_expert", "generation_expert",
            "audio_head", "projection_w")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _np(a):
     return np.asarray(a) if not isinstance(a, torch.Tensor) else a.numpy()
 

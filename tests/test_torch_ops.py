@@ -25,6 +25,14 @@ from uniaudio2_tpu_torch.ops import attention, kv_cache, norms, rope, sampling
 F32 = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _t(a):
     return torch.from_numpy(np.asarray(a))
 

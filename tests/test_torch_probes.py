@@ -37,6 +37,14 @@ ULP = 2.0 ** -7
 RTOL = 2e-2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _script(name):
     spec = importlib.util.spec_from_file_location(
         f"_jax_{name}", ROOT / "scripts" / f"{name}.py")

@@ -24,6 +24,14 @@ F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=1e-2, atol=1e-2)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _w(shape, seed=0):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32) * 0.02
 

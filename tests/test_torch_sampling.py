@@ -30,6 +30,14 @@ TOPK = 5
 TEMP = 0.9
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _logits(seed=0):
     return np.random.default_rng(seed).standard_normal(V).astype(np.float32) * 2
 

@@ -45,6 +45,14 @@ ULP = 2.0 ** -7
 L, K, N = 3, 256, 512
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.fixture(scope="module")
 def jax_run():
     """The JAX probe's three chains at (3, 256, 512), one pass each, and

@@ -39,6 +39,14 @@ from uniaudio2_tpu_torch.text import tokenizer as ttok
 from tests.test_torch_cli import write_tokenizer
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.fixture(scope="module")
 def tok_dirs(tmp_path_factory):
     d = tmp_path_factory.mktemp("tok")

@@ -53,6 +53,14 @@ SHAPES = ((8192, 3072), (8192, 2048), (512, 600), (64, 200), (192, 200),
 ROWS = (1, 16, 17, 63, 64, 65, 128, 129, 255, 256, 257, 510)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _groups(k):
     """0 (per channel) and every G whose group of K/G rows is one of 8-128."""
     return [0] + [k // gs for gs in (8, 16, 32, 48, 64, 128) if k % gs == 0]

@@ -44,6 +44,14 @@ FLIP_TOL = 1e-3        # x max|p|, an element whose int8 moment rounded apart
 FLIP_SHARE = 1e-3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jcfg = JaxConfig.tiny()

@@ -36,6 +36,14 @@ from uniaudio2_tpu_torch.train import train as train_cli
 RTOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _np(a):
     return a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 

@@ -274,6 +274,25 @@ def decode_hidden(params: Params, cfg: UnifiedModelConfig,
     """(B, 1, 9) tokens at ``pos`` -> (last hidden state (B, D), caches).
     ``key_valid`` (B, S_max), ``attn_block``, ``kv_write`` and ``host_pos``
     as in `gpt.decode_step`."""
+    h, caches = decode_hidden_all(params, cfg, tokens, tokens_mask, caches,
+                                  pos, key_valid=key_valid,
+                                  attn_block=attn_block, kv_write=kv_write,
+                                  host_pos=host_pos)
+    return h[:, -1, :], caches
+
+
+def decode_hidden_all(params: Params, cfg: UnifiedModelConfig,
+                      tokens: torch.Tensor, tokens_mask: torch.Tensor,
+                      caches: UnifiedCaches, pos: "torch.Tensor | int",
+                      key_valid: Optional[torch.Tensor] = None,
+                      attn_block: Optional[int] = None,
+                      kv_write: str = "inline",
+                      host_pos: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, UnifiedCaches]:
+    """`decode_hidden` for (B, T, 9) tokens at positions [pos, pos + T),
+    returning EVERY position's final hidden state (B, T, D): the
+    speculative verify pass needs all of them (JAX's
+    `uniaudio2_tpu/engine/speculative.py` ``_decode_hidden_all``)."""
     kw = dict(key_valid=key_valid, attn_block=attn_block, kv_write=kv_write,
               host_pos=host_pos)
     audio_input, text_embeds, a_mask, t_mask = _fuse_input(
@@ -287,7 +306,7 @@ def decode_hidden(params: Params, cfg: UnifiedModelConfig,
     h_gen, _ = gpt.decode_step(params["generation_expert"],
                                cfg.generation_expert, h * a_mask,
                                caches.generation, pos, **kw)
-    return (h_gen * a_mask + h * t_mask)[:, -1, :], caches
+    return h_gen * a_mask + h * t_mask, caches
 
 
 def _sample(stream, logits, topk, temperature, forbid_prefix, use_cfg,
