@@ -147,16 +147,16 @@ caught):
    dropped; a row's left pad one slot short) must fail;
 11. (run after phase 10) the frame loop through captured CUDA graphs,
    the engine's default on the card, against the eager loop
-   (``graph=False``) on phase 4's tree: TTS (128 frames, bucket 64,
+   (``graph=False``) on phase 4's tree: TTS (64 frames, bucket 64,
    256 slots), the CFG pair and ASR; TTS deferred and inline, sampled TTS
-   and greedy ASR at 200 frames (512 slots, int8 KV, block-128 levels, the
+   and greedy ASR at 193 frames (512 slots, int8 KV, block-128 levels, the
    policies of the engine's defaults, which phase 9 serves); 8 ASR
-   rows (greedy and with per-row seeds at topk 5) and 8 TTS rows (64
+   rows (greedy and with per-row seeds at topk 5) and 8 TTS rows (32
    frames); each request once each way: the same tokens,
    and every kernel form's launches equal to the tree's count over the
    frames run (warm-up frames and replays included); frames/s and
    row-frames/s both ways, capture seconds, the graph pool's bytes, and
-   one profiled window of 16 TTS frames each way with its device busy
+   one profiled window of 8 TTS frames each way with its device busy
    share and its device ms and calls a frame by kernel family. Two planted faults (the feedback copy into the static input
    left out; the frame counter not advanced, so every frame writes slot
    0) must change the tokens;
@@ -266,7 +266,7 @@ caught):
    (a) `build_train_step` (grad clip 1.0, per-layer remat, chunked CE) on
    one fixed batch from `LengthBatcher` over a synthetic TTS + ASR set
    (max_length 2048, batch_scale 4096), lr 3e-4 after a 1-step warm-up:
-   one warm-up step, 5 timed steps; loss, grad_norm and seconds per step,
+   one warm-up step, 3 timed steps; loss, grad_norm and seconds per step,
    tokens/s, peak memory, model-FLOP share of 989 TFLOP/s, lean launches
    against the leaf predicate's count; then one optimizer update from the
    same gradients and state through the kernel and through its twin, both
@@ -275,6 +275,17 @@ caught):
    width on the same set written as .pt / text / task-json files under
    build/: 2 steps, one epoch, `ep0.checkpoint` written, then read back
    through `maybe_resume` into a fresh state and compared, then deleted.
+16. the mesh path (`parallel/mesh.py`) on a one-rank NCCL group (a
+   FileStore under build/; one card cannot hold two NCCL ranks): (b) (run
+   after phase 14) phase 4's int4all tree through `DecodeEngine(mesh=,
+   use_tp=True)` and the plain engine on phase 11's TTS and ASR prompts:
+   the same greedy tokens, the first frame's backbone K rows bit for bit,
+   the same launches by row (added to the kernels line) and the frame time
+   both ways; (a) (run after phase 7, 7a's state freed) 7a's configuration
+   through the mesh step, two steps: loss, grad_norm and three leaves equal
+   to 7a's bit for bit, the lean kernel on every fused leaf, a planted
+   control (one leaf's second update dropped) rejected; (c) the train CLI
+   with ``--data-parallel fsdp`` for one step under the group.
 
 Phase 3 also holds the fused lean-update kernel to its twin at full-width
 leaf shapes (bit-identical, bf16 g and p), and the stacked-layer int4
@@ -3391,12 +3402,18 @@ def phase_batched(torch, dev, cfg, params, params1):
 # default on the card) against the eager loop (`DecodeEngine(graph=False)`)
 # on phase 4's tree: each request once through each, greedy and with
 # per-row seeds, tokens identical; the launch counters hold the replays.
-GRAPH_PROFILE_FRAMES = 16
+GRAPH_PROFILE_FRAMES = 8      # 16 before, cut for time
 GRAPH_FAULT_FRAMES = 16
-# Sampled requests at the engine's policies: 200 frames take a 512-slot
-# cache (int8 KV, block-128 levels) for a bucket-64 and a bucket-256
-# prompt, so one program serves both and the second needs new levels.
-SAMPLED_FRAMES = 200
+# Phase 11's bench-config and batched groups: the frames that keep their
+# programs (bucket 64 in 256 slots, bf16 KV) at half of bench's and phase
+# 10's depth (cut for time; 128 and 64 before)
+GRAPH_BENCH_FRAMES = 64
+GRAPH_BATCH_FRAMES = 32
+# Sampled requests at the engine's policies: 193 frames (the fewest: 64 +
+# 193 > 256) take a 512-slot cache (int8 KV, block-128 levels) for a
+# bucket-64 and a bucket-256 prompt, so one program serves both and the
+# second needs new levels (200 before, cut for time).
+SAMPLED_FRAMES = 193
 # The kernels a counted wrapper launches in a frame (up to
 # quant.SPLITK_MAX_M rows), by the traced name's base: a GEMV wrapper one
 # `gemv_kernel` (rows 1, 4, 5 and 6 one `gemv_splitk_kernel` instead),
@@ -3549,18 +3566,19 @@ def counted_families(counted, rows):
 
 
 def phase_graphs(torch, dev, cfg, params):
-    """Phase 11: TTS (128 frames, bucket 64, 256 slots, bf16 cache), the CFG
-    pair and ASR at batch 1; TTS deferred and inline at the fewest frames
-    that keep the defaults' policies (200 frames, 512 slots, int8 KV,
+    """Phase 11: TTS (`GRAPH_BENCH_FRAMES` frames, bucket 64, 256 slots,
+    bf16 cache), the CFG pair and ASR at batch 1; TTS deferred and inline at the fewest frames
+    that keep the defaults' policies (`SAMPLED_FRAMES`, 512 slots, int8 KV,
     block-128 levels: phase 9 serves both at the defaults, 500 frames);
     greedy inline TTS, then sampled TTS (the default topk 200 from the shared
     generator, through the same engine): a
     bucket-64 prompt that runs to max_frames, then a bucket-256 prompt
     through the same program, which captures two new levels, and a CFG
-    pair, then greedy ASR (200 frames through the same policies: phase 9
+    pair, then greedy ASR (`SAMPLED_FRAMES` through the same policies: phase 9
     serves ASR at the defaults, phase 12 runs ASR graph against eager at
-    512 slots too); 8 ASR rows greedy and with per-row seeds and 8 TTS rows (64
-    frames): each once with ``graph=False`` and once through the graphs.
+    512 slots too); 8 ASR rows greedy and with per-row seeds and 8 TTS rows
+    (`GRAPH_BATCH_FRAMES` frames): each once with ``graph=False`` and once
+    through the graphs.
     Gates: the same tokens, and every kernel form's launches equal to the
     tree's count over the frames run (replays included); two planted
     faults must break the first. Prints frames/s and row-frames/s of both
@@ -3578,8 +3596,8 @@ def phase_graphs(torch, dev, cfg, params):
     asr8, tts8, _ = batch_prompts(cfg)
     greedy = dict(topk=1, temperature=1.0)
     pair = dict(use_cfg=True, cfg_scale=1.5, neg_grid=ng, neg_mask=nm)
-    bench = dict(max_frames=FRAMES, buckets=(64,))
-    batch = dict(max_frames=BATCH_FRAMES, buckets=(64,))
+    bench = dict(max_frames=GRAPH_BENCH_FRAMES, buckets=(64,))
+    batch = dict(max_frames=GRAPH_BATCH_FRAMES, buckets=(64,))
     groups = (  # engine kwargs, [(name, mode, rows, prefill rows, call)]
         (bench, [
             ("tts", "audio", 1, 63, lambda e: e.generate_audio(g, m, **greedy)),
@@ -3588,10 +3606,10 @@ def phase_graphs(torch, dev, cfg, params):
             ("asr", "text", 1, 63,
              lambda e: [e.generate_text(ag, am, **greedy)])]),
         ({"kv_write": "deferred", "max_frames": SAMPLED_FRAMES}, [
-            ("tts deferred, 200 frames", "audio", 1, 63,
+            (f"tts deferred, {SAMPLED_FRAMES} frames", "audio", 1, 63,
              lambda e: e.generate_audio(g, m, **greedy))]),
         ({"max_frames": SAMPLED_FRAMES}, [
-            ("tts inline, 200 frames", "audio", 1, 63,
+            (f"tts inline, {SAMPLED_FRAMES} frames", "audio", 1, 63,
              lambda e: e.generate_audio(g, m, **greedy)),
             ("tts, topk 200, seed 5", "audio", 1, 63,
              lambda e: e.generate_audio(g, m, seed=5)),
@@ -3599,7 +3617,7 @@ def phase_graphs(torch, dev, cfg, params):
              lambda e: e.generate_audio(lg, lm, seed=5)),
             ("tts_cfg, topk 200, seed 6", "audio", 2, 126,
              lambda e: e.generate_audio(g, m, seed=6, **pair)),
-            ("asr, 200 frames", "text", 1, 63,
+            (f"asr, {SAMPLED_FRAMES} frames", "text", 1, 63,
              lambda e: [e.generate_text(ag, am, **greedy)])]),
         (batch, [
             ("asr x8", "text", 8, 8 * 63,
@@ -3614,6 +3632,7 @@ def phase_graphs(torch, dev, cfg, params):
     want = dict.fromkeys(counters(), 0)
     different = []
     engines = {}
+    sections = [("start", time.perf_counter())]
     for kw, runs in groups:
         eager = DecodeEngine(params, cfg, graph=False, **kw)
         graph = DecodeEngine(params, cfg, **kw)
@@ -3655,6 +3674,7 @@ def phase_graphs(torch, dev, cfg, params):
                   f"{'int8' if p['kv_dtype'] == torch.int8 else 'bf16'} KV, "
                   f"attn_block {p['attn_block']}, {p['kv_write']}; tokens "
                   f"identical: {same}", flush=True)
+        sections.append((f"group {len(sections)}", time.perf_counter()))
     got = read_counts()
     print(f"[11] launches {json.dumps(nonzero(got))}", flush=True)
     if got != want:
@@ -3699,6 +3719,7 @@ def phase_graphs(torch, dev, cfg, params):
                   f"{name} {ms / GRAPH_PROFILE_FRAMES:.4f} ms "
                   f"{n / GRAPH_PROFILE_FRAMES:.1f} {ms / busy:.3f}"
                   for name, (ms, n) in list(split.items())[:14]), flush=True)
+    sections.append(("profiled windows", time.perf_counter()))
     # what a replay counts against the kernel nodes of its graph: TTS and
     # ASR at 512 slots (int8 KV, block-128 levels), two graphs each
     snapshot = _cuda.counts()
@@ -3718,6 +3739,7 @@ def phase_graphs(torch, dev, cfg, params):
                 fail(f"[11] a replay of the {key[0]} graph of level {lvl} "
                      f"counts {want}, its graph holds {nodes}")
     del eng
+    sections.append(("graph nodes", time.perf_counter()))
     # the planted faults, each captured into fresh graphs
     fault_kw = dict(max_frames=GRAPH_FAULT_FRAMES, buckets=(64,))
     ref = DecodeEngine(params, cfg, graph=False, **fault_kw).generate_audio(
@@ -3734,6 +3756,10 @@ def phase_graphs(torch, dev, cfg, params):
               flush=True)
     if not all(caught.values()):
         fail(f"[11] the token gate passed a planted fault: {caught}")
+    sections.append(("controls", time.perf_counter()))
+    print("[11] seconds by section: " + ", ".join(
+        f"{name} {t - t_prev:.1f}" for (_, t_prev), (name, t)
+        in zip(sections, sections[1:])), flush=True)
     reset_counts()
     return got
 
@@ -4091,6 +4117,7 @@ def profile_codec(torch, dev, cfg, dec):
 # so that LengthBatcher (batch_scale 4096, max_length 2048) packs two a batch.
 TRAIN_EXAMPLES = 8
 TRAIN_LR = 3e-4
+TRAIN_STEPS = 4     # phase 7a: a warm-up step and 3 timed (6 before)
 
 
 def train_examples(cfg, seed=0):
@@ -4141,8 +4168,9 @@ def train_flops(cfg, b, s):
     return 3 * fwd
 
 
-def build_training(torch, dev):
-    """Full-width params, the adamw_lean train step and one fixed batch."""
+def build_training(torch, dev, mesh=None, tag="7a"):
+    """Full-width params, the adamw_lean train step and one fixed batch;
+    with ``mesh`` the state is sharded on it and the step is the mesh's."""
     from uniaudio2_tpu_torch.config import UnifiedModelConfig
     from uniaudio2_tpu_torch.data.batching import LengthBatcher
     from uniaudio2_tpu_torch.models import gpt, unified
@@ -4157,24 +4185,46 @@ def build_training(torch, dev):
                                      dtype=torch.bfloat16, device=dev)
     sched = schedule.warmup_lr(TRAIN_LR, 1)
     tx = trainer.make_optimizer(sched, grad_clip=1.0, optimizer="adamw_lean")
-    state = trainer.init_train_state(params, tx, device=dev)
+    state = trainer.init_train_state(params, tx, device=dev, mesh=mesh)
     del params
     torch.cuda.synchronize()
     batcher = LengthBatcher(train_examples(cfg), cfg.tokens, batch_scale=4096,
                             text_tokenizer=IntTok(), max_length=2048)
     raw = next(batcher.batches(epoch=0))
     batch = trainer.to_batch(raw, dev)
-    print(f"[7a] full UnifiedModelConfig, {gpt.param_count(state.params) / 1e9:.3f} "
+    print(f"[{tag}] full UnifiedModelConfig, {gpt.param_count(state.params) / 1e9:.3f} "
           f"B bf16 params + adamw_lean state in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB; batch grid "
           f"{tuple(raw['grid'].shape)} ({len(batcher._built)} examples)", flush=True)
-    step = trainer.build_train_step(cfg, tx, remat=True)
+    step = trainer.build_train_step(cfg, tx, remat=True, mesh=mesh)
     return cfg, sched, state, step, batch, raw
+
+
+# Phase 16(a) holds the mesh step to these leaves of phase 7a's state after
+# its second step, bit for bit: a lean-kernel leaf (projection_w), a rank-1
+# leaf on the plain chain, and a stacked leaf of the local decoder.
+MESH_LEAVES = (("projection_w",), ("backbone", "ln_f_w"),
+               ("decoder", "layers", "qkv_w"))
+
+
+def leaf_at(params, path):
+    for k in path:
+        params = params[k]
+    return params
+
+
+def leaf_diff(torch, a, b):
+    """(bit-equal, share of elements that differ, max|a - b| / max|b|)."""
+    a, b = a.float(), b.float()
+    diff = (a - b).abs()
+    return (bool(torch.equal(a, b)), float((diff > 0).float().mean()),
+            float(diff.max() / b.abs().max().clamp_min(1e-30)))
 
 
 def phase_train(torch, dev):
     """(a) The full-width adamw_lean train step. Returns the lean kernel's
-    launches on the main path."""
+    launches on the main path and phase 16(a)'s reference: the first two
+    steps' loss and grad_norm, `MESH_LEAVES` after the second."""
     from uniaudio2_tpu_torch.ops import lean_update as lu
     from uniaudio2_tpu_torch.train import lean_opt, optim, trainer
 
@@ -4189,7 +4239,8 @@ def phase_train(torch, dev):
     torch.cuda.reset_peak_memory_stats()
     lu.fused_lean_update.launches = 0
     losses, secs = [], []
-    for i in range(6):                               # 1 warm-up + 5 timed
+    ref = {"loss": [], "grad_norm": []}     # phase 16(a)'s reference
+    for i in range(TRAIN_STEPS):                     # 1 warm-up, the rest timed
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(state, batch)
@@ -4200,6 +4251,12 @@ def phase_train(torch, dev):
               f"grad_norm {gnorm:.4f} {dt:.3f} s", flush=True)
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             fail(f"train step {i}: loss {loss} grad_norm {gnorm} not finite")
+        if i < 2:
+            ref["loss"].append(loss)
+            ref["grad_norm"].append(gnorm)
+        if i == 1:
+            ref["leaves"] = [leaf_at(state.params, p).detach().cpu().clone()
+                             for p in MESH_LEAVES]
         if i:
             losses.append(loss)
             secs.append(dt)
@@ -4208,18 +4265,20 @@ def phase_train(torch, dev):
     step_s = statistics.median(secs)
     flops = train_flops(cfg, b, s)
     print(f"[7a] batch (B, S) = ({b}, {s}): {b * s} tokens a step ({real} "
-          f"unpadded); step {step_s:.3f} s (median of 5, min {min(secs):.3f}) = "
+          f"unpadded); step {step_s:.3f} s (median of {len(secs)}, min "
+          f"{min(secs):.3f}) = "
           f"{b * s / step_s:.0f} train tokens/s ({real / step_s:.0f} unpadded); "
           f"peak memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated)", flush=True)
     print(f"[7a] model FLOPs a step {flops:.4g} (3 x the forward's products: "
           f"linear layers, full S x S attention, projection, CE heads; remat "
           f"not counted) = {flops / step_s / 1e12:.1f} TFLOP/s, "
           f"{flops / step_s / PEAK_BF16:.4f} of 989 TFLOP/s", flush=True)
-    print(f"[7a] lean launches {launches} = {launches / 6:.1f} per optimizer step; "
+    print(f"[7a] lean launches {launches} = {launches / TRAIN_STEPS:.1f} per optimizer step; "
           f"the leaf predicate gives {fused} fused leaves of {len(leaves)}",
           flush=True)
-    if launches != 6 * fused or launches == 0:
-        fail(f"lean launches {launches} != 6 steps x {fused} fused leaves")
+    if launches != TRAIN_STEPS * fused or launches == 0:
+        fail(f"lean launches {launches} != {TRAIN_STEPS} steps x {fused} "
+             f"fused leaves")
     if not losses[-1] < losses[0]:
         fail(f"the loss did not fall over the timed steps: {losses}")
 
@@ -4254,7 +4313,7 @@ def phase_train(torch, dev):
           flush=True)
     if any(mism) or compared != fused:
         fail(f"full-tree update: kernel != twin ({mism}) over {compared} leaves")
-    return launches
+    return launches, ref
 
 
 def write_train_files(cfg, root):
@@ -5724,6 +5783,206 @@ def phase_probes(torch):
         fail(f"a probe kernel was never launched: {launches}")
     return launches
 
+# ---------------------------------------------------------------------------
+# Phase 16: the mesh path on one card
+# ---------------------------------------------------------------------------
+
+
+class mesh_group:
+    """A one-rank NCCL process group on a FileStore under build/, and the
+    (replica, fsdp, tp) = (1, 1, 1) mesh over it; destroyed on exit (phases
+    13 and 7b run the CLIs without a group, which is their plain path)."""
+
+    def __enter__(self):
+        import datetime
+        import shutil
+
+        import torch.distributed as dist
+        from uniaudio2_tpu_torch.parallel import mesh as meshlib
+
+        root = ROOT / "build" / "mesh_store"
+        shutil.rmtree(root, ignore_errors=True)
+        root.mkdir(parents=True)
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(root / "store"), 1), rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=300))
+        meshlib.quiet()
+        self.mesh = meshlib.build_mesh(device_type="cuda")
+        return self.mesh
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        return False
+
+
+def first_frame_k(torch, eng, slot):
+    """Every backbone layer's K rows at ``slot`` (the first frame's) of the
+    engine's kept one-row caches."""
+    (caches,) = [c for (rows, _, _), c in eng._kept.items() if rows == 1]
+    k = caches.backbone.k
+    layers = k if isinstance(k, list) else list(k.unbind(0))
+    if hasattr(layers[0], "q"):
+        return torch.stack([torch.cat([e.q[:, :, slot].float(),
+                                       e.s[:, :, slot, None]], -1)
+                            for e in layers])
+    return torch.stack([e[:, :, slot] for e in layers])
+
+
+def phase_mesh_serve(torch, dev, cfg, params, mesh):
+    """16(b): phase 4's int4all tree through `DecodeEngine(mesh=,
+    use_tp=True)` (the caches on the tp ranks' kv groups, the parameters
+    whole for the kernels) and the plain engine, on phase 11's TTS and ASR
+    prompts (greedy, 128 frames, the graph path; a warm-up call each, then
+    two timed calls each, plain, mesh, mesh, plain): the same tokens, the
+    first frame's backbone K rows bit for bit, the same launches by row,
+    and the frame time both ways. Returns the mesh engine's launches
+    (warm-ups not counted)."""
+    from uniaudio2_tpu_torch.engine.decode import DecodeEngine
+
+    (g, m), _, (ag, am) = prompts(cfg)
+    greedy = dict(topk=1, temperature=1.0)
+    calls = (("audio", lambda e: e.generate_audio(g, m, **greedy)),
+             ("text", lambda e: [e.generate_text(ag, am, **greedy)]))
+    engines = {}
+    for label, kw in (("plain", {}), ("mesh", dict(mesh=mesh, use_tp=True))):
+        eng = DecodeEngine(params, cfg, max_frames=FRAMES, buckets=(64,), **kw)
+        for _, call in calls:          # warm-up and capture, not timed
+            call(eng)
+        engines[label] = eng
+    runs = {label: ([], [[], []], None, dict.fromkeys(counters(), 0))
+            for label in engines}
+    for label in ("plain", "mesh", "mesh", "plain"):
+        eng = engines[label]
+        out, ms, k_rows, counts = runs[label]
+        reset_counts()
+        for j, (mode, call) in enumerate(calls):
+            cap0 = eng.capture_seconds
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = call(eng)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0 - (eng.capture_seconds - cap0)
+            ms[j].append(1e3 * dt / max(eng.last_steps, 1))
+            if not out or len(out) < 2:
+                out.append(res)
+            if mode == "audio" and k_rows is None:
+                k_rows = first_frame_k(torch, eng, g.shape[0] - 1)
+        add_to(counts, read_counts())
+        runs[label] = (out, ms, k_rows, counts)
+    del engines, eng
+    runs = {label: (out, [statistics.mean(v) for v in ms], k, n)
+            for label, (out, ms, k, n) in runs.items()}
+    (p_out, p_ms, p_k, p_n), (m_out, m_ms, m_k, m_n) = runs["plain"], runs["mesh"]
+    same = [same_tokens(a, b) for a, b in zip(p_out, m_out)]
+    k_same = torch.equal(p_k, m_k)
+    print(f"[16b] TTS and ASR tokens identical: {same}; first frame's backbone "
+          f"K rows {tuple(m_k.shape)} bit-equal: {k_same}", flush=True)
+    print(f"[16b] frame ms (capture excluded; mean of two calls each, in the "
+          f"order plain, mesh, mesh, plain after a warm-up call each) TTS "
+          f"plain {p_ms[0]:.3f} mesh {m_ms[0]:.3f}; ASR plain {p_ms[1]:.3f} "
+          f"mesh {m_ms[1]:.3f}", flush=True)
+    print(f"[16b] launches by row, mesh {json.dumps(nonzero(m_n))}", flush=True)
+    if not all(same) or not k_same:
+        fail("[16b] the mesh engine's tokens or K rows differ from the plain "
+             "engine's")
+    if m_n != p_n or not any(m_n.values()):
+        fail(f"[16b] mesh launches {nonzero(m_n)} != plain {nonzero(p_n)}")
+    reset_counts()
+    return m_n
+
+
+def phase_mesh_train(torch, dev, mesh, ref):
+    """16(a): phase 7a's configuration (seed, batch, adamw_lean) through the
+    mesh path, two steps: each step's loss and grad_norm and `MESH_LEAVES`
+    after the second equal to 7a's bit for bit (one device: the same ops),
+    the lean kernel
+    launched on every fused leaf; a planted control (the second update of
+    projection_w dropped) must fail the leaf check. Returns the lean
+    kernel's launches."""
+    from uniaudio2_tpu_torch.ops import lean_update as lu
+    from uniaudio2_tpu_torch.parallel import mesh as meshlib
+    from uniaudio2_tpu_torch.train import lean_opt, optim
+
+    cfg, _, state, step, batch, _ = build_training(torch, dev, mesh=mesh,
+                                                   tag="16a")
+    leaves = optim.tree_leaves(state.params)
+    fused = sum(lean_opt.fused_leaf(meshlib.whole(p), meshlib.whole_tree(s))
+                for p, s in zip(leaves,
+                                optim.tree_leaves(state.opt_state[1].leaves)))
+    lu.fused_lean_update.launches = 0
+    got = {"loss": [], "grad_norm": []}
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        got["loss"].append(float(met["loss"]))
+        got["grad_norm"].append(float(met["grad_norm"]))
+        torch.cuda.synchronize()
+        print(f"[16a] mesh step {i}: loss {got['loss'][i]!r} (7a "
+              f"{ref['loss'][i]!r}) grad_norm {got['grad_norm'][i]!r} (7a "
+              f"{ref['grad_norm'][i]!r}) {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        if i == 0:
+            control = meshlib.whole(leaf_at(state.params, MESH_LEAVES[0])
+                                    ).detach().cpu().clone()
+    launches = lu.fused_lean_update.launches
+    mine = [meshlib.whole(leaf_at(state.params, p)).detach().cpu()
+            for p in MESH_LEAVES]
+    diffs = [leaf_diff(torch, a, b) for a, b in zip(mine, ref["leaves"])]
+    planted = leaf_diff(torch, control, ref["leaves"][0])
+    bits = (got["loss"] == ref["loss"] and got["grad_norm"] == ref["grad_norm"]
+            and all(d[0] for d in diffs))
+    print(f"[16a] {type(leaves[0]).__name__} leaves on {mesh}; "
+          f"{', '.join('/'.join(p) for p in MESH_LEAVES)} after two steps "
+          f"against 7a's (bit-equal, share differing, max rel): {diffs}; "
+          f"losses and grad norms bit-equal too: {bits}; control "
+          f"(projection_w's second update dropped): {planted}"
+          f"{'' if planted[0] else '  REJECTED'}; lean launches "
+          f"{launches} = 2 steps x {fused} fused leaves", flush=True)
+    if not bits or planted[0]:
+        fail(f"[16a] mesh steps {got} / leaves {diffs} against 7a's "
+             f"{ref['loss']} / {ref['grad_norm']}; the planted control "
+             f"passed: {planted[0]}")
+    if launches != 2 * fused or not fused:
+        fail(f"[16a] lean launches {launches} != 2 x {fused} fused leaves")
+    return launches
+
+
+def phase_mesh_cli(torch, dev):
+    """16(c): `python -m uniaudio2_tpu_torch.train.train --data-parallel
+    fsdp` at full width under the one-rank group: one step, its checkpoint
+    written (then deleted), the parameters DTensors on its mesh."""
+    import shutil
+    from uniaudio2_tpu_torch.config import UnifiedModelConfig
+    from uniaudio2_tpu_torch.parallel import mesh as meshlib
+    from uniaudio2_tpu_torch.train import train as train_cli
+
+    cfg = UnifiedModelConfig()
+    root = ROOT / "build" / "smoke_mesh_train"
+    shutil.rmtree(root, ignore_errors=True)
+    pattern = write_train_files(cfg, root / "data")
+    t0 = time.perf_counter()
+    state = train_cli.main([
+        "--train_data_jsons", pattern, "--exp_dir", str(root / "exp"),
+        "--debug_steps", "1", "--n_epoch", "1", "--optimizer", "adamw_lean",
+        "--batch_scale", "4096", "--max_length", "2048",
+        "--data-parallel", "fsdp"])
+    torch.cuda.synchronize()
+    leaf = state.params["projection_w"]
+    finite = bool(torch.isfinite(meshlib.whole(leaf)).all())
+    saved = (root / "exp" / "ep0.checkpoint" / "meta.json").is_file()
+    print(f"[16c] train CLI --data-parallel fsdp on the one-rank group: step "
+          f"{state.step} in {time.perf_counter() - t0:.1f} s (checkpoint "
+          f"included), projection_w a DTensor {meshlib.is_dtensor(leaf)} "
+          f"finite {finite}, ep0.checkpoint written {saved}", flush=True)
+    if state.step != 1 or not meshlib.is_dtensor(leaf) or not finite \
+            or not saved:
+        fail("[16c] the train CLI's mesh step did not run")
+    del state, leaf
+    shutil.rmtree(root)
+
 
 def main():
     t0 = time.perf_counter()
@@ -5793,16 +6052,26 @@ def main():
     add_to(launches, phase_continuous(torch, cfg, params, ccfg, dec, codes,
                                       wav))
     stamp("phase 14")
+    with mesh_group() as mesh:
+        add_to(launches, phase_mesh_serve(torch, dev, cfg, params, mesh))
+    stamp("phase 16b")
     del params, dec, codes, wav
     torch.cuda.empty_cache()
     add_to(launches, phase_cli(torch, dev, card, tok, reason, semantic, clip))
     stamp("phase 13")
     del tok
     torch.cuda.empty_cache()
-    launches["lean_update"] = phase_train(torch, dev)
+    launches["lean_update"], ref = phase_train(torch, dev)
     torch.cuda.empty_cache()
     phase_train_cli(torch, dev)
     stamp("phase 7")
+    with mesh_group() as mesh:
+        launches["lean_update"] += phase_mesh_train(torch, dev, mesh, ref)
+        torch.cuda.empty_cache()
+        stamp("phase 16a")
+        phase_mesh_cli(torch, dev)
+    torch.cuda.empty_cache()
+    stamp("phase 16c")
     launches.update(phase_probes(torch))
     stamp("the probes")
     qkv = ("qkv_rope.cu", "uniaudio2_tpu/ops/qkv_step.py:172")

@@ -91,9 +91,20 @@ def test_gpt_forward_and_lm_head():
 
 
 def test_moe_not_ported():
+    """MoE layers, once refused here, now ported: the init makes JAX's tree
+    and the forward gives JAX's hidden states on it."""
     cfg = GPTConfig.from_name("tiny-expert", n_expert=2, n_expert_per_token=1)
-    with pytest.raises(NotImplementedError):
-        gpt.init_params(cfg, torch.Generator())
+    jcfg = JaxGPTConfig.from_name("tiny-expert", n_expert=2,
+                                  n_expert_per_token=1)
+    mine = gpt.init_params(cfg, torch.Generator(), device="cpu")
+    jp = jgpt.init_params(jax.random.PRNGKey(2), jcfg)
+    assert {k: tuple(v.shape) for k, v in mine["layers"].items()} == \
+        {k: v.shape for k, v in jp["layers"].items()}
+    x = np.random.default_rng(1).standard_normal((2, 7, 64)).astype(np.float32)
+    th = gpt.forward(convert_params(jp, "cpu"), cfg, torch.from_numpy(x))
+    np.testing.assert_allclose(th.numpy(),
+                               _np(jgpt.forward(jp, jcfg, jnp.asarray(x))),
+                               **TOL)
 
 
 @pytest.fixture(scope="module", params=["float", "int4all"])

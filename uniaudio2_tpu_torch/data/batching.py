@@ -142,12 +142,21 @@ class LengthBatcher:
         self._built.sort(key=lambda b: b["grid"].shape[0])
 
     def __len__(self) -> int:
-        return len(list(self.batches(epoch=0)))
+        return len(self._groups())
 
     def batches(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """Yields padded batches; groups are length-sorted, group order is
         shuffled per epoch (reference sampler epoch reshuffle,
         `train_utils.py:153-154`)."""
+        groups = self._groups()
+        rng = random.Random(self.seed + epoch)
+        rng.shuffle(groups)
+        for g in groups:
+            yield self._pad_group(g)
+
+    def _groups(self) -> List[List[Dict]]:
+        """The examples in length order, cut into groups of at most
+        ``batch_scale`` steps (a longer example alone)."""
         groups: List[List[Dict]] = []
         cur: List[Dict] = []
         total = 0
@@ -160,10 +169,7 @@ class LengthBatcher:
             total += n
         if cur:
             groups.append(cur)
-        rng = random.Random(self.seed + epoch)
-        rng.shuffle(groups)
-        for g in groups:
-            yield self._pad_group(g)
+        return groups
 
     def _pad_group(self, group: List[Dict]) -> Dict[str, np.ndarray]:
         s = _round_up(max(b["grid"].shape[0] for b in group), self.pad_multiple)

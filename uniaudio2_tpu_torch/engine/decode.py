@@ -28,9 +28,15 @@ count of the position (``last + step``), never read back from the device.
 Batched serving (``generate_*_batch``: ragged prompts left-padded to one
 bucket, per-row EOS and phase state, per-row seeds, CFG pairs), beam
 search and n-gram-blocked text decoding (host-driven steps over a cache of
-``max_seq_len`` slots) are the JAX engine's. Not ported: the cache
-shardings of a multi-card mesh (``_shard_caches``, ROADMAP queue 1 item
-16).
+``max_seq_len`` slots) are the JAX engine's.
+
+On a mesh (``mesh=``, ``use_tp=``; the JAX engine's multi-chip serving)
+every rank holds the parameters whole, as given: the kernels take their
+operands whole. With ``use_tp`` each rank's caches hold its kv groups
+(the JAX engine's ``_shard_caches``, a `QuantKV`'s values and scales
+alike) and it attends with its heads, whose outputs are all-gathered
+before the output projection; without it the mesh changes nothing. The
+graph path captures the same step.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from uniaudio2_tpu_torch.engine.frame_graph import (
 from uniaudio2_tpu_torch.models import gpt, unified
 from uniaudio2_tpu_torch.ops.kv_cache import reorder
 from uniaudio2_tpu_torch.ops.sampling import RowKeys
+from uniaudio2_tpu_torch.parallel import mesh as meshlib
 
 Params = Dict[str, Any]
 
@@ -123,8 +130,9 @@ class DecodeEngine:
                  attn_block: Optional[int] = None,
                  kv_quant: Optional[str] = None,
                  kv_write: Optional[str] = None,
-                 graph: bool = True):
+                 graph: bool = True, mesh=None, use_tp: bool = False):
         self.cfg = cfg
+        self.tp = meshlib.tensor_parallel(mesh) if use_tp else None
         self.params = params
         self.max_frames = max_frames
         self.cache_dtype = cache_dtype
@@ -215,7 +223,7 @@ class DecodeEngine:
             return self._kept[key]
         caches = unified.init_caches(
             self.cfg, batch, dtype=kv_dtype, seq_len=cache_len,
-            as_lists=self._cache_lists, device=self.device)
+            as_lists=self._cache_lists, device=self.device, tp=self.tp)
         if keep:
             self._kept[key] = caches
         return caches
@@ -244,7 +252,7 @@ class DecodeEngine:
                 kv_write=self.kv_write, temperature=temperature, topk=topk,
                 use_cfg=use_cfg, cfg_scale=cfg_scale,
                 generator=None if per_row else self._generator,
-                batched=batched, pool=self.graph_pool)
+                batched=batched, pool=self.graph_pool, tp=self.tp)
             while len(self.frame_graphs) > KEEP_PROGRAMS:
                 self.frame_graphs.popitem(last=False)
             held = {id(f.caches) for f in self.frame_graphs.values()}
@@ -327,7 +335,8 @@ class DecodeEngine:
                     cfg_scale=cfg_scale, sample_text=mode == "text",
                     sample_audio=mode == "audio", key_valid=key_valid,
                     attn_block=self.last_policy["attn_block"],
-                    kv_write=self.kv_write, host_pos=first_pos + step)
+                    kv_write=self.kv_write, host_pos=first_pos + step,
+                    tp=self.tp)
                 text_tok, audio_toks = frame[:, 0], frame[:, 1:]
                 if mode == "text":
                     eos_now = text_tok == ts.text_eos
@@ -378,7 +387,7 @@ class DecodeEngine:
         def prefill():
             with torch.no_grad():
                 unified.prefill(self.params, self.cfg, g[:, :-1], m[:, :-1],
-                                caches)
+                                caches, tp=self.tp)
 
         last = length - 1
         text, audio, phases, n = self._decode(
@@ -405,7 +414,8 @@ class DecodeEngine:
         def prefill():
             with torch.no_grad():
                 unified.prefill(self.params, self.cfg, g[:, :-1], m[:, :-1],
-                                caches, key_valid=key_valid[:, :bucket - 1])
+                                caches, key_valid=key_valid[:, :bucket - 1],
+                                tp=self.tp)
 
         return self._decode(mode, caches, prefill, g[:, -1:], m[:, -1:],
                             bucket - 1, cache_len - 2, seed=seed, seeds=seeds,
@@ -508,7 +518,8 @@ class DecodeEngine:
         caches = self._caches(batch, self.cfg.max_seq_len)
         self.last_steps = self.last_frames_run = 0
         with torch.no_grad():
-            unified.prefill(self.params, self.cfg, g[:, :-1], m[:, :-1], caches)
+            unified.prefill(self.params, self.cfg, g[:, :-1], m[:, :-1], caches,
+                            tp=self.tp)
         return caches, g, m, length
 
     def _host_step(self, tokens, tmask, caches, pos: int) -> torch.Tensor:
@@ -520,7 +531,7 @@ class DecodeEngine:
             h, _ = unified.decode_hidden(
                 self.params, self.cfg, tokens, tmask, caches, pos,
                 attn_block=self.last_policy["attn_block"],
-                kv_write=self.kv_write)
+                kv_write=self.kv_write, tp=self.tp)
             return gpt.lm_head(self.params["backbone"], h, self.cfg.backbone)
 
     def _text_feedback(self, text_tokens):

@@ -59,10 +59,11 @@ class FrameGraph:
                  rows: int, max_frames: int, attn_block: int, kv_write: str,
                  temperature: float, topk: int, use_cfg: bool,
                  cfg_scale: float, generator: Optional[torch.Generator],
-                 batched: bool, pool=None):
+                 batched: bool, pool=None, tp=None):
         ts = cfg.tokens
         dev = params["audio_embeddings"].device
         self.params, self.cfg, self.caches = params, cfg, caches
+        self.tp = tp        # the engine's tensor parallelism (caches' groups)
         self.mode, self.device, self.pool = mode, dev, pool
         self.sample = dict(temperature=temperature, topk=topk,
                            use_cfg=use_cfg, cfg_scale=cfg_scale,
@@ -128,7 +129,7 @@ class FrameGraph:
             self.params, self.cfg, self.tokens, self.tmask, self.caches,
             self.pos, self._stream(), forbid_prefix=self.forbid[:, None],
             key_valid=self.key_valid, host_pos=host_pos, local=self.local,
-            **self.sample)
+            tp=self.tp, **self.sample)
         text_tok, audio_toks = frame[:, 0], frame[:, 1:]
         if self.mode == "text":
             eos_now = text_tok == ts.text_eos

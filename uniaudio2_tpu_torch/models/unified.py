@@ -88,15 +88,21 @@ def init_params(cfg: UnifiedModelConfig, generator: torch.Generator,
 
 def init_caches(cfg: UnifiedModelConfig, batch: int, dtype=torch.bfloat16,
                 seq_len: Optional[int] = None, as_lists: bool = False,
-                device="cuda") -> UnifiedCaches:
+                device="cuda", tp=None) -> UnifiedCaches:
+    """The three caches; with ``tp`` each holds this rank's kv groups
+    (where `gpt.tp_for` splits the stack), the JAX engine's
+    ``_shard_caches``."""
     s = seq_len or cfg.max_seq_len
-    return UnifiedCaches(
-        backbone=init_cache(cfg.backbone, batch, s, dtype, as_lists, device),
-        understanding=init_cache(cfg.understanding_expert, batch, s, dtype,
-                                 as_lists, device),
-        generation=init_cache(cfg.generation_expert, batch, s, dtype,
-                              as_lists, device),
-    )
+
+    def one(c):
+        t = gpt.tp_for(c, tp)
+        groups = None if t is None else c.n_query_groups // t.size
+        return init_cache(c, batch, s, dtype, as_lists, device,
+                          n_groups=groups)
+
+    return UnifiedCaches(backbone=one(cfg.backbone),
+                         understanding=one(cfg.understanding_expert),
+                         generation=one(cfg.generation_expert))
 
 
 def prepare_serving_params(params: Params, dtype=torch.bfloat16,
@@ -167,7 +173,7 @@ def forward(params: Params, cfg: UnifiedModelConfig, tokens: torch.Tensor,
             return_hidden: bool = False, remat_layers: bool = False,
             remat_backbone: "Optional[int]" = None,
             remat_small: Optional[bool] = None,
-            decoder_positions: Optional[torch.Tensor] = None):
+            decoder_positions: Optional[torch.Tensor] = None, tp=None):
     """Training forward (reference `model_new.py:402-454`).
 
     tokens (B, S, 9) teacher-forced input grid; labels (B, S, 8) next-step
@@ -176,6 +182,7 @@ def forward(params: Params, cfg: UnifiedModelConfig, tokens: torch.Tensor,
     ``remat_backbone`` (an int: the first k backbone layers) and
     ``remat_small`` (experts + local decoder) override it per stack.
     ``decoder_positions`` (B, C) runs the local decoder only at those steps.
+    ``tp``: every stack tensor parallel where `gpt.tp_for` splits it.
     Returns text_logits (B, S, V_text) and audio_logits (B, S or C, 8,
     V_audio), or with ``return_hidden`` the pre-head pair ``(h_final
     (B, S, D), dec_h (B·S or B·C, 8, D_dec))`` for the chunked CE."""
@@ -185,12 +192,13 @@ def forward(params: Params, cfg: UnifiedModelConfig, tokens: torch.Tensor,
         params, cfg, tokens, tokens_mask[:, :-1, :])
     h_audio = gpt.forward(params["understanding_expert"],
                           cfg.understanding_expert, audio_input,
-                          extra_mask=extra_mask, remat=remat_sm)
+                          extra_mask=extra_mask, remat=remat_sm, tp=tp)
     h = gpt.forward(params["backbone"], cfg.backbone,
                     h_audio * a_mask + text_embeds * t_mask,
-                    extra_mask=extra_mask, remat=remat_bb)
+                    extra_mask=extra_mask, remat=remat_bb, tp=tp)
     h_gen = gpt.forward(params["generation_expert"], cfg.generation_expert,
-                        h * a_mask, extra_mask=extra_mask, remat=remat_sm)
+                        h * a_mask, extra_mask=extra_mask, remat=remat_sm,
+                        tp=tp)
     h_final = h_gen * a_mask + h * t_mask
     dec_in, dec_labels = h_final, labels
     if decoder_positions is not None:
@@ -199,16 +207,17 @@ def forward(params: Params, cfg: UnifiedModelConfig, tokens: torch.Tensor,
         dec_labels = torch.take_along_dim(labels, idx, dim=1)       # (B, C, 8)
     if return_hidden:
         return h_final, _local_decoder_teacher_forced(
-            params, cfg, dec_in, dec_labels, return_hidden=True, remat=remat_sm)
+            params, cfg, dec_in, dec_labels, return_hidden=True,
+            remat=remat_sm, tp=tp)
     text_logits = gpt.lm_head(params["backbone"], h_final, cfg.backbone)
     return text_logits, _local_decoder_teacher_forced(params, cfg, dec_in,
-                                                      dec_labels)
+                                                      dec_labels, tp=tp)
 
 
 def _local_decoder_teacher_forced(params: Params, cfg: UnifiedModelConfig,
                                   h_final: torch.Tensor, labels: torch.Tensor,
                                   return_hidden: bool = False,
-                                  remat: bool = False) -> torch.Tensor:
+                                  remat: bool = False, tp=None) -> torch.Tensor:
     """The local RQ-decoder over every step at once: per step t the 8-long
     causal sequence ``[h_final[t]; embed(labels[t, 0:7])]``, steps folded
     into the batch, so the decoder sees (B*S, 8, D). Returns the per-head
@@ -220,7 +229,8 @@ def _local_decoder_teacher_forced(params: Params, cfg: UnifiedModelConfig,
     curr = torch.cat([h_final[:, :, None, :], local], dim=2).reshape(
         b * s, ncb, d_b)
     proj = matmul(curr, params["projection_w"])
-    dec_h = gpt.forward(params["decoder"], cfg.decoder, proj, remat=remat)
+    dec_h = gpt.forward(params["decoder"], cfg.decoder, proj, remat=remat,
+                        tp=tp)
     if return_hidden:
         return dec_h
     logits = torch.einsum("bnd,ndv->bnv", dec_h.float(),
@@ -229,38 +239,39 @@ def _local_decoder_teacher_forced(params: Params, cfg: UnifiedModelConfig,
 
 
 def forward_text(params: Params, cfg: UnifiedModelConfig,
-                 tokens: torch.Tensor, tokens_mask: torch.Tensor) -> torch.Tensor:
+                 tokens: torch.Tensor, tokens_mask: torch.Tensor, tp=None
+                 ) -> torch.Tensor:
     """Text-logits-only forward (reference `forward_text`)."""
     audio_input, text_embeds, a_mask, t_mask = _fuse_input(
         params, cfg, tokens, tokens_mask)
     h_audio = gpt.forward(params["understanding_expert"],
-                          cfg.understanding_expert, audio_input)
+                          cfg.understanding_expert, audio_input, tp=tp)
     h = gpt.forward(params["backbone"], cfg.backbone,
-                    h_audio * a_mask + text_embeds * t_mask)
+                    h_audio * a_mask + text_embeds * t_mask, tp=tp)
     h_gen = gpt.forward(params["generation_expert"], cfg.generation_expert,
-                        h * a_mask)
+                        h * a_mask, tp=tp)
     return gpt.lm_head(params["backbone"], h_gen * a_mask + h * t_mask,
                        cfg.backbone)
 
 
 def prefill(params: Params, cfg: UnifiedModelConfig, tokens: torch.Tensor,
             tokens_mask: torch.Tensor, caches: UnifiedCaches,
-            key_valid: Optional[torch.Tensor] = None) -> UnifiedCaches:
+            key_valid: Optional[torch.Tensor] = None, tp=None) -> UnifiedCaches:
     """Run the prompt (B, S, 9) through experts and backbone at positions
     [0, S), filling the three caches (the local decoder is skipped).
     ``key_valid`` (B, S) masks slots no query may attend (ragged rows of a
-    batch)."""
+    batch); ``tp``: caches of `init_caches(tp=)`."""
     audio_input, text_embeds, a_mask, t_mask = _fuse_input(
         params, cfg, tokens, tokens_mask)
     extra = None if key_valid is None else key_valid[:, None, :]
     h_audio, _ = gpt.prefill(params["understanding_expert"],
                              cfg.understanding_expert, audio_input,
-                             caches.understanding, extra_mask=extra)
+                             caches.understanding, extra_mask=extra, tp=tp)
     h, _ = gpt.prefill(params["backbone"], cfg.backbone,
                        h_audio * a_mask + text_embeds * t_mask, caches.backbone,
-                       extra_mask=extra)
+                       extra_mask=extra, tp=tp)
     gpt.prefill(params["generation_expert"], cfg.generation_expert,
-                h * a_mask, caches.generation, extra_mask=extra)
+                h * a_mask, caches.generation, extra_mask=extra, tp=tp)
     return caches
 
 
@@ -269,15 +280,15 @@ def decode_hidden(params: Params, cfg: UnifiedModelConfig,
                   caches: UnifiedCaches, pos: "torch.Tensor | int",
                   key_valid: Optional[torch.Tensor] = None,
                   attn_block: Optional[int] = None, kv_write: str = "inline",
-                  host_pos: Optional[int] = None
+                  host_pos: Optional[int] = None, tp=None
                   ) -> Tuple[torch.Tensor, UnifiedCaches]:
     """(B, 1, 9) tokens at ``pos`` -> (last hidden state (B, D), caches).
-    ``key_valid`` (B, S_max), ``attn_block``, ``kv_write`` and ``host_pos``
-    as in `gpt.decode_step`."""
+    ``key_valid`` (B, S_max), ``attn_block``, ``kv_write``, ``host_pos``
+    and ``tp`` as in `gpt.decode_step`."""
     h, caches = decode_hidden_all(params, cfg, tokens, tokens_mask, caches,
                                   pos, key_valid=key_valid,
                                   attn_block=attn_block, kv_write=kv_write,
-                                  host_pos=host_pos)
+                                  host_pos=host_pos, tp=tp)
     return h[:, -1, :], caches
 
 
@@ -287,14 +298,14 @@ def decode_hidden_all(params: Params, cfg: UnifiedModelConfig,
                       key_valid: Optional[torch.Tensor] = None,
                       attn_block: Optional[int] = None,
                       kv_write: str = "inline",
-                      host_pos: Optional[int] = None
+                      host_pos: Optional[int] = None, tp=None
                       ) -> Tuple[torch.Tensor, UnifiedCaches]:
     """`decode_hidden` for (B, T, 9) tokens at positions [pos, pos + T),
     returning EVERY position's final hidden state (B, T, D): the
     speculative verify pass needs all of them (JAX's
     `uniaudio2_tpu/engine/speculative.py` ``_decode_hidden_all``)."""
     kw = dict(key_valid=key_valid, attn_block=attn_block, kv_write=kv_write,
-              host_pos=host_pos)
+              host_pos=host_pos, tp=tp)
     audio_input, text_embeds, a_mask, t_mask = _fuse_input(
         params, cfg, tokens, tokens_mask)
     h_audio, _ = gpt.decode_step(params["understanding_expert"],
@@ -340,7 +351,7 @@ def decode_frame(params: Params, cfg: UnifiedModelConfig,
                  key_valid: Optional[torch.Tensor] = None,
                  attn_block: Optional[int] = None, kv_write: str = "inline",
                  host_pos: Optional[int] = None,
-                 local: Optional[LocalCache] = None
+                 local: Optional[LocalCache] = None, tp=None
                  ) -> Tuple[torch.Tensor, UnifiedCaches]:
     """One AR step: the previous frame's (B, 1, 9) tokens at ``pos`` -> the
     next frame's (B, 9) int64 tokens [text, cb0..cb7]. ``sample_text`` /
@@ -349,12 +360,13 @@ def decode_frame(params: Params, cfg: UnifiedModelConfig,
     for every row, or this frame's `RowKeys` (text draws from its fold 0,
     the audio codebooks from fold 1). ``forbid_prefix`` is an int, a 0-d
     tensor or per-row (B, 1). The cache policies as in `decode_hidden`;
-    ``local`` is a kept local-decoder cache (else one is made)."""
+    ``local`` is a kept local-decoder cache (else one is made); ``tp``
+    as in `prefill` (the local decoder runs whole)."""
     b = tokens.shape[0]
     last_h, caches = decode_hidden(params, cfg, tokens, tokens_mask, caches,
                                    pos, key_valid=key_valid,
                                    attn_block=attn_block, kv_write=kv_write,
-                                   host_pos=host_pos)
+                                   host_pos=host_pos, tp=tp)
     key_text = key_audio = stream
     if isinstance(stream, RowKeys):
         key_text, key_audio = stream.fold(0), stream.fold(1)

@@ -55,14 +55,17 @@ def _zeros_entry(shape, dtype, device) -> CacheEntry:
 def init_cache(
     cfg: GPTConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
     as_lists: bool = False, device: "torch.device | str" = "cuda",
+    n_groups: "int | None" = None,
 ) -> KVCache:
-    """``dtype=torch.int8`` builds the quantized cache (`QuantKV` entries)."""
+    """``dtype=torch.int8`` builds the quantized cache (`QuantKV` entries);
+    ``n_groups`` (default all of the config's) is the kv groups it holds."""
+    g = cfg.n_query_groups if n_groups is None else n_groups
     if as_lists:
-        shape = (batch, cfg.n_query_groups, max_seq, cfg.head_size)
+        shape = (batch, g, max_seq, cfg.head_size)
         return KVCache(
             k=[_zeros_entry(shape, dtype, device) for _ in range(cfg.n_layer)],
             v=[_zeros_entry(shape, dtype, device) for _ in range(cfg.n_layer)])
-    shape = (cfg.n_layer, batch, cfg.n_query_groups, max_seq, cfg.head_size)
+    shape = (cfg.n_layer, batch, g, max_seq, cfg.head_size)
     return KVCache(k=_zeros_entry(shape, dtype, device),
                    v=_zeros_entry(shape, dtype, device))
 

@@ -13,6 +13,12 @@ the card; a tensor of another shape or dtype is refused, not cast. A
 checkpoint is written into a temporary directory and renamed into place
 once its ``meta.json`` is written, and only directories that hold a
 ``meta.json`` count, so an interrupted save never breaks the next resume.
+
+Under a mesh (DTensor leaves; the JAX package's Orbax sharded IO) every
+rank gathers each leaf whole, rank 0 writes the one full tree and the
+others wait at a barrier; a resume copies each rank's chunk of the saved
+leaf into its shard, so a mesh run resumes into the same mesh, and
+`load_params_for_inference` loads the params into an unsharded tree.
 """
 
 from __future__ import annotations
@@ -24,6 +30,9 @@ import shutil
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from uniaudio2_tpu_torch.parallel import mesh as meshlib
 
 TREE = "tree.pt"
 
@@ -52,7 +61,9 @@ def _children(node):
 def _flatten(node, prefix: str, out: Dict[str, Any]) -> None:
     kids = _children(node)
     if kids is None:
-        out[prefix] = node.detach().cpu() if isinstance(node, torch.Tensor) else node
+        if isinstance(node, torch.Tensor):
+            node = meshlib.whole(node.detach()).cpu()
+        out[prefix] = node
         return
     for key, child in kids:
         _flatten(child, f"{prefix}/{key}" if prefix else str(key), out)
@@ -70,7 +81,11 @@ def _restore(node, prefix: str, flat: Dict[str, Any]):
                     f"{prefix}: checkpoint {tuple(value.shape)} {value.dtype} "
                     f"!= state {tuple(node.shape)} {node.dtype}")
             with torch.no_grad():
-                node.copy_(value)
+                if meshlib.is_dtensor(node):
+                    node.to_local().copy_(meshlib.like(
+                        value.to(node.device), node).to_local())
+                else:
+                    node.copy_(value)
             return node
         return value
     items = [_restore(child, f"{prefix}/{key}" if prefix else str(key), flat)
@@ -87,20 +102,30 @@ def _tree(state) -> Dict[str, Any]:
             "step": state.step}
 
 
+def _multi() -> bool:
+    return dist.is_available() and dist.is_initialized() \
+        and dist.get_world_size() > 1
+
+
 def save_checkpoint(exp_dir: str, epoch: int, state,
                     reporter_state: Optional[Dict] = None) -> str:
     path = os.path.abspath(os.path.join(exp_dir, f"ep{epoch}.checkpoint"))
+    flat: Dict[str, Any] = {}
+    _flatten(_tree(state), "", flat)      # every rank: the gathers
+    if _multi() and dist.get_rank() != 0:
+        dist.barrier()
+        return path
     tmp = f"{path}.tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    flat: Dict[str, Any] = {}
-    _flatten(_tree(state), "", flat)
     torch.save(flat, os.path.join(tmp, TREE))
     meta = {"epoch": epoch, "reporter": reporter_state or {}}
     with open(os.path.join(tmp, "meta.json"), "w", encoding="utf-8") as f:
         json.dump(meta, f)
     shutil.rmtree(path, ignore_errors=True)
     os.replace(tmp, path)
+    if _multi():
+        dist.barrier()
     return path
 
 

@@ -23,6 +23,15 @@ kernel. On the CPU ``fused="on"`` sends the same leaves through the
 kernel's twin, and ``"auto"`` / ``"off"`` through the plain chain. The
 second-moment EMA and the rsqrt factors ``a_row`` / ``b_col`` stay plain
 PyTorch. Every other leaf takes the plain chain.
+
+On a mesh (DTensor leaves) each leaf's update runs on the gathered leaf
+(`optim.leaf_whole`): the blocks and the factored moments span the whole
+leaf, and a per-shard factored moment would be other math. The gathered
+leaf is whole, which is all the kernel asks, so it takes the kernel on
+the card whatever the mesh's size, as a leaf without a mesh does. (The
+JAX package turns its kernel off on a mesh of more than one device
+because its SPMD partitioner cannot shard a ``pallas_call``; the port
+gathers the leaf itself.)
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ import torch
 
 from uniaudio2_tpu_torch.ops import lean_update as _lu
 from uniaudio2_tpu_torch.train.optim import (
-    GradientTransformation, Schedule, tree_map,
+    GradientTransformation, Schedule, leaf_whole, place_state, tree_map,
 )
 
 M_BLOCK = 256
@@ -162,7 +171,8 @@ def adamw_lean(learning_rate: Union[float, Schedule], *, b1: float = 0.9,
     def init(params, device="cuda"):
         def leaf(p):
             m_q, m_scale = _quant_m(torch.zeros(p.shape, device=device))
-            return _LeafState(m_q=m_q, m_scale=m_scale, v=_v_init(p, device))
+            return place_state(_LeafState(m_q=m_q, m_scale=m_scale,
+                                          v=_v_init(p, device)), p)
         return AdamWLeanState(count=0, leaves=tree_map(leaf, params))
 
     def update(updates, state, params=None):
@@ -192,7 +202,8 @@ def adamw_lean(learning_rate: Union[float, Schedule], *, b1: float = 0.9,
             m_q, m_scale = _quant_m(m)
             return upd, _LeafState(m_q=m_q, m_scale=m_scale, v=v)
 
-        pairs = tree_map(leaf, updates, state.leaves, params)
+        pairs = tree_map(lambda g, s, p: leaf_whole(leaf, g, s, p), updates,
+                         state.leaves, params)
         return (tree_map(lambda pair: pair[0], pairs),
                 AdamWLeanState(count=count,
                                leaves=tree_map(lambda pair: pair[1], pairs)))

@@ -1,32 +1,40 @@
 """Training entry point (port of `uniaudio2_tpu/train/train.py`), on one
-card.
+card or on a device mesh.
 
 Same flags as the JAX entry point (the reference's knobs,
 `llm_utils/arguments.py:12-77`), plus ``--device`` (``cuda`` by default).
-The port trains on that one device: ``--data-parallel`` is accepted for a
-single replica, and what needs more than one device (data parallelism
-over several cards, ``--tensor-parallel`` > 1, ``--distributed``) raises
-`NotImplementedError` naming ROADMAP queue 1 item 16, as does
-``--optimizer adafactor``. Checkpoints keep the ``ep{N}.checkpoint/``
-layout with a ``meta.json``, their tensors saved by ``torch.save``.
+
+One process trains on one device. Several train as one mesh, one process
+a card, started by ``torchrun`` with ``--distributed``, which joins the
+process group its environment names (NCCL on cards, ``cuda:LOCAL_RANK``
+each; gloo with ``--device cpu``). In a process group (also one set up by
+the caller) the JAX entry point's mesh block builds the (replica, fsdp,
+tp) mesh from ``--data-parallel`` and ``--tensor-parallel`` over every
+rank, and the parameters and optimizer state are sharded on it
+(`trainer`). Each data-parallel rank reads its share of the dataset files
+(`data_files`; the JAX entry point shards them per process), the tp ranks
+of a group the same share, and trains on the batches it builds from them;
+every rank takes as many steps an epoch as the rank with the fewest
+batches. Checkpoints keep the ``ep{N}.checkpoint/`` layout
+(`checkpoint`: rank 0 writes the gathered tree).
 
 Run: ``python -m uniaudio2_tpu_torch.train.train --train_data_jsons
-'data/*.json' --exp_dir exp/run1 --optimizer adamw_lean``
+'data/*.json' --exp_dir exp/run1 --optimizer adamw_lean``, or on N cards
+``torchrun --nproc-per-node N -m uniaudio2_tpu_torch.train.train
+--distributed --data-parallel fsdp --tensor-parallel 2 ...``
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import logging
 import os
 from typing import Optional
 
-_MULTI = "needs more than one device, which the port does not train on yet " \
-         "(ROADMAP queue 1 item 16)"
-
 
 def get_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Train the unified audio LM (one card)")
+    p = argparse.ArgumentParser(description="Train the unified audio LM")
     p.add_argument("--train_data_jsons", type=str, nargs="+", required=True)
     p.add_argument("--valid_data_jsons", type=str, nargs="*", default=[])
     p.add_argument("--exp_dir", type=str, required=True)
@@ -75,10 +83,47 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug_steps", type=int, default=0,
                    help="stop each epoch after N steps (CI smoke)")
     p.add_argument("--distributed", action="store_true", default=False,
-                   help="multi-host training (not ported yet)")
+                   help="join the process group the torchrun environment "
+                        "names (one process a card) and train on the mesh "
+                        "of every rank")
     p.add_argument("--device", type=str, default="cuda",
-                   help="the one device to train on (cuda, cuda:N or cpu)")
+                   help="the device to train on (cuda, cuda:N or cpu); "
+                        "with --distributed cuda is cuda:LOCAL_RANK")
     return p
+
+
+def data_files(patterns, mesh):
+    """This rank's dataset files: ``files[rank::n]`` of each pattern over
+    the mesh's data-parallel ranks (every file without a mesh), so the tp
+    ranks of a group read the same files."""
+    from uniaudio2_tpu_torch.data import loading
+    from uniaudio2_tpu_torch.parallel import mesh as meshlib
+
+    if mesh is None:
+        return loading.find_data_jsons(patterns, rank=0, world_size=1)
+    return loading.find_data_jsons(patterns, rank=meshlib.dp_rank(mesh),
+                                   world_size=meshlib.dp_size(mesh))
+
+
+def make_batcher(args, cfg, files, tok):
+    """The length batcher over the examples of ``files``."""
+    from uniaudio2_tpu_torch.data import batching, loading
+
+    data, text_data, _ = loading.load_all_tasks(files)
+    data.update(text_data)
+    return batching.LengthBatcher(
+        data, cfg.tokens, batch_scale=args.batch_scale, text_tokenizer=tok,
+        max_length=args.max_length, min_length=args.min_length, seed=args.seed)
+
+
+def steps_on_every_rank(n: int, device) -> int:
+    """The fewest batches an epoch any rank of the process group has."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.tensor([n], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return int(t.item())
 
 
 class IntTok:
@@ -96,23 +141,34 @@ def main(argv: Optional[list] = None):
     import torch
 
     from uniaudio2_tpu_torch.config import UnifiedModelConfig
-    from uniaudio2_tpu_torch.data import batching, loading
     from uniaudio2_tpu_torch.models import unified
     from uniaudio2_tpu_torch.train import checkpoint as ckpt
     from uniaudio2_tpu_torch.train import schedule, trainer
+    from uniaudio2_tpu_torch.parallel import mesh as meshlib
     from uniaudio2_tpu_torch.train.reporter import Reporter
 
-    if args.distributed:
-        raise NotImplementedError(f"--distributed {_MULTI}")
-    if args.tensor_parallel > 1:
-        raise NotImplementedError(f"--tensor-parallel {args.tensor_parallel} {_MULTI}")
+    import torch.distributed as dist
+
     device = torch.device(args.device)
-    if device.type == "cuda" and device.index is None \
-            and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"--data-parallel {args.data_parallel} over "
-            f"{torch.cuda.device_count()} cards {_MULTI}; name one card "
-            f"with --device cuda:N")
+    if args.distributed:
+        meshlib.init_distributed("nccl" if device.type == "cuda" else "gloo")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+
+    # --- mesh (in a process group) ---
+    m = None
+    tp = max(args.tensor_parallel, 1)
+    if dist.is_initialized():
+        n_dev = dist.get_world_size()
+        if n_dev % tp:
+            raise ValueError(f"--tensor-parallel {tp} does not divide "
+                             f"{n_dev} ranks")
+        m = meshlib.mesh_for_strategy(args.data_parallel, n_dev, tp=tp,
+                                      device_type=device.type)
+        logging.info("mesh: %s", m)
+    elif tp > 1:
+        raise ValueError(f"--tensor-parallel {tp} needs as many ranks: start "
+                         f"them with torchrun and --distributed")
     if device.type == "cuda":
         # float32 products in full float32, bf16 products accumulated in
         # float32 (the JAX package's preferred_element_type=float32)
@@ -136,7 +192,8 @@ def main(argv: Optional[list] = None):
         schedule.warmup_lr(args.learning_rate, args.warmup_steps),
         weight_decay=args.weight_decay, grad_clip=args.grad_clip,
         accum_steps=args.grad_accum, optimizer=args.optimizer)
-    state = trainer.init_train_state(params, tx, device=device)
+    state = trainer.init_train_state(params, tx, device=device, mesh=m,
+                                     use_tp=tp > 1)
     del params
     reporter = Reporter(use_tensorboard=args.tensorboard,
                         tb_dir=os.path.join(args.exp_dir, "tb"),
@@ -146,7 +203,8 @@ def main(argv: Optional[list] = None):
         reporter.load_state_dict(rep_state)
     step_fn = trainer.build_train_step(
         cfg, tx, prefix_lm=args.prefix_lm, remat=args.remat,
-        chunked_ce=args.chunked_ce, audio_capacity=args.audio_capacity)
+        chunked_ce=args.chunked_ce, audio_capacity=args.audio_capacity,
+        mesh=m)
 
     # --- data ---
     if args.text_tokenizer_path:
@@ -157,17 +215,15 @@ def main(argv: Optional[list] = None):
         logging.warning("no --text_tokenizer_path; treating text files as "
                         "pre-tokenized integer ids")
         tok = IntTok()
-    train_jsons = loading.find_data_jsons(args.train_data_jsons)
-    data, text_data, _ = loading.load_all_tasks(train_jsons)
-    data.update(text_data)
-    batcher = batching.LengthBatcher(
-        data, cfg.tokens, batch_scale=args.batch_scale, text_tokenizer=tok,
-        max_length=args.max_length, min_length=args.min_length, seed=args.seed)
+    batcher = make_batcher(args, cfg, data_files(args.train_data_jsons, m),
+                           tok)
+    steps = None if m is None else steps_on_every_rank(len(batcher), device)
 
     # --- loop ---
     for epoch in range(start_epoch, args.n_epoch):
         sub = reporter.start_epoch("train", epoch)
-        for i, raw in enumerate(batcher.batches(epoch=epoch)):
+        for i, raw in enumerate(itertools.islice(batcher.batches(epoch=epoch),
+                                                 steps)):
             state, metrics = step_fn(state, trainer.to_batch(raw, device))
             sub.register({k: float(v) for k, v in metrics.items()})
             if args.print_freq and (i + 1) % args.print_freq == 0:
